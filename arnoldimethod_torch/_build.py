@@ -1,0 +1,58 @@
+"""Build-at-first-use helper for the port's native libraries.
+
+Both native pieces of the port are plain shared libraries with a C
+interface, loaded through ctypes: the C++ dense restart core
+(`native/arnoldi_dense.cpp`, built with g++) and the CUDA stencil kernel
+(`csrc/stencil5.cu`, built with nvcc).  They are compiled into
+`build/arnoldimethod_torch/` beside the package (listed in `.gitignore`),
+never into the package directory, under a name that carries a hash of the
+sources and the command, so an edit to either rebuilds.  The compiler
+writes to a temporary name that is renamed into place, so concurrent
+processes (test workers) never load a half-written library.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+REPO_DIR = PACKAGE_DIR.parent
+BUILD_DIR = REPO_DIR / "build" / "arnoldimethod_torch"
+
+
+def build_shared(name, sources, command, timeout=600):
+    """Compile `sources` with `command` (a list ending before the output
+    and source arguments) into BUILD_DIR/lib<name>-<hash>.so unless it
+    exists; return (path, compiler stderr or "" when nothing was built).
+    Raises RuntimeError with the compiler's stderr if the build fails."""
+    sources = [Path(s) for s in sources]
+    digest = hashlib.sha256(" ".join(command).encode())
+    for s in sources:
+        digest.update(s.read_bytes())
+    path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [*command, "-o", tmp, *map(str, sources)],
+            capture_output=True,
+            text=True,
+            timeout=timeout,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {path.name} failed ({command[0]} exit "
+                f"{proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, proc.stderr

@@ -1,0 +1,524 @@
+"""The Krylov-Schur restart driver: `partial_schur`.
+
+Orchestrates the two layers of the solver: the n-sized work on the device
+(Arnoldi expansion and the basis-change GEMM, ops/expansion.py) and the
+host float64 dense kernels for the (maxdim+1)-sized work (Francis QR,
+reordering, restoration, dense/).  All restart decisions (locking counts,
+purge index, conjugate-pair splits, truncation size) are made on the host
+from the small H; each restart pays one device step and one H readback.
+
+Behavioral reference: arnoldimethod_tpu/driver.py (the host method), which
+follows ArnoldiMethod.jl src/run.jl (driver `_partialschur` :224-392,
+convergence criterion :188-208, three-way partition :394-457, final sort
+:459-502, residuals :519-545).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .dense import native as _native
+from .dense.eig import collect_eigen, copy_eigenvalues, eigenvalue
+from .dense.restore import restore_arnoldi
+from .dense.schur import local_schur
+from .dense.swaps import (
+    is_end_of_11_block,
+    is_start_of_11_block,
+    rotate_right,
+    swap,
+)
+from .models.operators import as_operator
+from .ops.expansion import (
+    apply_basis_change,
+    expand_range,
+    fp32_matmul,
+    set_initial_vector,
+    set_random_vector,
+    truncate_and_expand,
+)
+from .targets import as_target, get_order
+from .workspace import ArnoldiWorkspace
+
+__all__ = ["History", "PartialSchur", "partial_schur"]
+
+
+class History:
+    """Convergence summary: matrix-vector product count, number of
+    converged eigenvalues, and whether the request was met
+    (ref: run.jl:211-222, show.jl).  `restarts` counts the Krylov-Schur
+    restart cycles and `purges` the restarts in which a previously locked
+    Schur vector was purged (ref: run.jl:341-353).
+
+    `timings` holds host wall-clock seconds: 'device' covers the device
+    steps up to and including each H readback, 'dense' the host restart
+    kernels.  `dense_layer` names the host dense layer that ran ("native",
+    the C++ core, or "numpy"), and `host_syncs` counts the device-to-host
+    reads the expansion made to branch on (one or two per Krylov step),
+    the H readbacks not included."""
+
+    def __init__(self, mvproducts, nconverged, converged, nev, restarts=0,
+                 purges=0, timings=None, dense_layer=None, host_syncs=0):
+        self.mvproducts = mvproducts
+        self.nconverged = nconverged
+        self.converged = converged
+        self.nev = nev
+        self.restarts = restarts
+        self.purges = purges
+        self.timings = timings or {}
+        self.dense_layer = dense_layer
+        self.host_syncs = host_syncs
+
+    def __repr__(self):
+        status = "Converged" if self.converged else "Not converged"
+        return (
+            f"{status}: {self.nconverged} of {self.nev} eigenvalues "
+            f"in {self.mvproducts} matrix-vector products"
+        )
+
+
+class PartialSchur:
+    """Partial Schur decomposition A Q = Q R: Q is an orthonormal
+    (n, nconverged) tensor, R the (nconverged, nconverged) host
+    quasi-upper-triangular factor, and `eigenvalues` the complex-valued
+    diagonal-block eigenvalues (always complex-typed, ref:
+    ArnoldiMethod.jl:120-137).
+
+    The basis is held in the solver's rows layout (nconverged, n) as
+    `Q_rows`; `Q` is its transposed view, made on first access."""
+
+    def __init__(self, Q, R, eigenvalues, Q_rows=None):
+        if (Q is None) == (Q_rows is None):
+            raise ValueError("exactly one of Q / Q_rows must be given")
+        self._Q = Q
+        self._Q_rows = Q_rows
+        self.R = R
+        self.eigenvalues = eigenvalues
+
+    @property
+    def Q(self):
+        if self._Q is None:
+            self._Q = self._Q_rows.T
+        return self._Q
+
+    @property
+    def Q_rows(self):
+        if self._Q_rows is None:
+            self._Q_rows = self._Q.T
+        return self._Q_rows
+
+    def __repr__(self):
+        return (
+            f"PartialSchur decomposition (Q: {tuple(self.Q.shape)}, "
+            f"R: {tuple(self.R.shape)}) with eigenvalues:\n"
+            + repr(self.eigenvalues)
+        )
+
+
+def _is_pair_at(lams, ord_, pos, is_real):
+    """True iff the sorted Ritz positions pos, pos+1 hold a conjugate pair
+    (ref: include_conjugate_pair, run.jl:510-517)."""
+    if not is_real or pos + 1 >= len(ord_):
+        return False
+    l1 = lams[ord_[pos]]
+    return l1.imag != 0 and np.conj(l1) == lams[ord_[pos + 1]]
+
+
+def _partition_three_way(R, Q, groups):
+    """Partition the Schur blocks into [locked | retained | purged] by
+    rotating group-1 and group-2 blocks forward (ref: run.jl:394-457)."""
+    m = R.shape[1]
+    hi = mi = lo = 0
+    while hi < m:
+        group = groups[hi]
+        bs = 1 if is_start_of_11_block(R, hi) else 2
+        if group == 3:
+            hi += bs
+        elif group == 2:
+            rotate_right(R, mi, hi, Q)
+            hi += bs
+            mi += bs
+        else:
+            rotate_right(R, lo, hi, Q)
+            hi += bs
+            mi += bs
+            lo += bs
+
+
+def _sort_schur(R, Q, count, key):
+    """Insertion sort of the leading `count` Schur blocks into the user's
+    target order via direct swaps (ref: run.jl:459-502)."""
+    if count <= 1:
+        return
+    next_idx = 0
+    while next_idx < count:
+        curr = next_idx
+        curr_size = 1 if is_start_of_11_block(R, curr) else 2
+        lam_curr = eigenvalue(R, curr)
+        while curr > 0:
+            prev_size = 1 if is_end_of_11_block(R, curr - 1) else 2
+            prev = curr - prev_size
+            lam_prev = eigenvalue(R, prev)
+            if not key(lam_curr) < key(lam_prev):
+                break
+            swap(R, prev, prev_size == 1, curr_size == 1, Q)
+            curr -= prev_size
+        next_idx += curr_size
+
+
+def _copy_residuals(rs, H, Q, h_last, x, lo, hi):
+    """Ritz residuals ||A x - lam x|| = |q_m^T y| * |h_{m+1,m}| computed
+    from the Hessenberg eigenvector y and the last row of Q
+    (ref: run.jl:519-545)."""
+    m = H.shape[1]
+    rs[:] = 0.0
+    for i in range(lo, hi):
+        x[:] = 0
+        klen = collect_eigen(x, H[:m, :], i)
+        tmp = Q[m - 1, :klen] @ x[:klen]
+        rs[i] = abs(tmp * h_last)
+    return rs
+
+
+def _schur_coupling_floor(rs, H, Q, h_last, lo, hi):
+    """Floor each residual estimate by the Schur-column coupling
+    |h_{m+1,m}| * |Q[m-1, i]| the truncation would discard when locking
+    column i, with 2x2 blocks treated as a unit (both columns take the
+    block max).  The reference judges convergence per Ritz eigenvector,
+    but locking deflates the Schur basis: for the ill-conditioned 2x2
+    blocks of a highly non-normal operator the discarded coupling can
+    exceed the Ritz residual by orders of magnitude (the JAX package's
+    docs/precision.md).  For normal operators this changes nothing."""
+    m = H.shape[1]
+    coupling = np.abs(h_last) * np.abs(np.asarray(Q[m - 1, :]))
+    j = lo
+    while j < hi:
+        pair = j + 1 < m and H[j + 1, j] != 0
+        if pair:
+            v = max(rs[j], rs[j + 1], coupling[j], coupling[j + 1])
+            rs[j] = rs[j + 1] = v
+            j += 2
+        else:
+            rs[j] = max(rs[j], coupling[j])
+            j += 1
+    return rs
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
+    )
+
+
+def partial_schur(
+    A,
+    *,
+    n=None,
+    dtype=None,
+    v1=None,
+    nev=None,
+    which="LM",
+    tol=None,
+    mindim=None,
+    maxdim=None,
+    restarts=200,
+    workspace=None,
+    start_from=None,
+    initialize=None,
+    seed=0,
+    device=None,
+    sharding=None,
+    method=None,
+    extended=False,
+    lowsync=False,
+    split_complex=None,
+):
+    """Compute an approximate partial Schur decomposition A Q = Q R with
+    `nev` eigenvalues near the target `which`.
+
+    A can be a LinearOperator, a square 2-D array or tensor, or a callable
+    on tensors (then pass n= and dtype=).  Returns (PartialSchur, History).
+
+    Keyword defaults mirror the reference exactly (run.jl:100-129):
+    nev = min(6, n); which = 'LM'; tol = sqrt(eps(real dtype));
+    mindim = min(max(10, nev), n); maxdim = min(max(20, 2 nev), n);
+    restarts = 200.  Convergence: ||A x - lam x|| <= max(eps ||H||_F,
+    tol |lam|), scale-invariant with a machine-epsilon floor
+    (ref: run.jl:188-208).
+
+    The solve runs where the basis lives: the workspace's device, else
+    `device`, else the operator's device.  A random start comes from a
+    torch.Generator seeded with `seed`.  Matmuls run in full FP32 (TF32 off
+    for the duration of the call).
+
+    Warm start / resume: pass `workspace` (an ArnoldiWorkspace holding a
+    previous decomposition) plus `start_from` = previous nconverged
+    (ref: partialschur!, run.jl:131-179).
+
+    `method` None or "host" runs the host dense restart.  The options of
+    the JAX package that this port does not have yet raise
+    NotImplementedError: method="device", extended=True, lowsync=True,
+    split_complex=True and sharding=.
+    """
+    if method not in (None, "host", "device"):
+        raise ValueError(f"method must be 'host' or 'device', got {method!r}")
+    if method == "device":
+        raise _not_ported("method='device' (fused.py, dense/device.py)", 13)
+    if extended:
+        raise _not_ported("extended=True (double-word arithmetic)", 11)
+    if lowsync:
+        raise _not_ported("lowsync=True (the low-sync CGS2 expansion)", 3)
+    if split_complex:
+        raise _not_ported("split_complex=True", 12)
+    if sharding is not None:
+        raise _not_ported("sharding= (parallel/)", 14)
+
+    op = as_operator(A, n=n, dtype=dtype, device=device)
+    n = op.shape[0]
+    if op.shape[0] != op.shape[1]:
+        raise ValueError("matrix is not square")
+    target = as_target(which)
+
+    if nev is None:
+        nev = min(6, n)
+    if nev < 1:
+        raise ValueError("nev cannot be less than 1")
+    if mindim is None:
+        mindim = min(max(10, nev), n)
+    if maxdim is None:
+        maxdim = min(max(20, 2 * nev), n)
+    if workspace is not None:
+        mindim = min(mindim, workspace.V.shape[0] - 1)
+        maxdim = min(maxdim, workspace.V.shape[0] - 1)
+    if not (nev <= mindim <= maxdim <= n):
+        raise ValueError(
+            "nev <= mindim <= maxdim <= size(A, 1) does not hold, got "
+            f"{nev} <= {mindim} <= {maxdim} <= {n}"
+        )
+
+    work_dtype = op.dtype
+    order_key = get_order(target)
+    if tol is None:
+        tol = float(np.sqrt(torch.finfo(work_dtype.to_real()).eps))
+
+    if workspace is None:
+        dev = torch.device(device) if device is not None else op.device
+    else:
+        dev = workspace.device
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+
+    with fp32_matmul():
+        if workspace is None:
+            ws = ArnoldiWorkspace(n, maxdim, dtype=work_dtype, device=dev)
+            if start_from is not None and start_from != 0:
+                raise ValueError("start_from requires an explicit workspace")
+            active0 = 0
+            if v1 is not None:
+                v1 = torch.as_tensor(v1)
+                if tuple(v1.shape) != (n,):
+                    raise ValueError("v1 should have the same dimension as A")
+                set_initial_vector(ws.V, v1)
+            else:
+                set_random_vector(ws.V, 0, generator)
+        else:
+            ws = workspace
+            if maxdim >= ws.V.shape[0]:
+                raise ValueError(
+                    "maxdim should be strictly less than V's row count"
+                )
+            active0 = 0 if start_from is None else int(start_from)
+            if not 0 <= active0 <= maxdim:
+                raise ValueError("start_from should be between 0 and maxdim")
+            ws.H[:, active0:] = 0
+            if initialize is None:
+                initialize = active0 == 0 and v1 is None
+            if v1 is not None:
+                if active0 != 0:
+                    raise ValueError("v1 requires start_from == 0")
+                set_initial_vector(ws.V, torch.as_tensor(v1))
+            elif initialize:
+                set_random_vector(ws.V, active0, generator)
+
+        return _partial_schur(
+            op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
+            active0, generator,
+        )
+
+
+def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
+                   order_key, active0, generator):
+    m = maxdim
+    # Dense restart kernels: the native C++ core when it builds and the
+    # workspace fits its scratch buffers; the numpy layer otherwise
+    # (identical semantics, both on the host).
+    use_native = _native.available() and m + 1 <= _native.MAX_DIM
+    H = ws.H  # host authority, float64/complex128
+    V = ws.V  # updated in place
+    is_real = not np.iscomplexobj(H)
+    eps_work = float(torch.finfo(V.dtype.to_real()).eps)
+
+    lams = np.zeros(m, dtype=complex)
+    rs = np.zeros(m, dtype=float)
+    x = np.zeros(m, dtype=complex)
+    groups = np.zeros(m, dtype=int)
+
+    Hdev = torch.as_tensor(H).to(dtype=V.dtype, device=V.device)
+
+    active = active0
+    prods = m - active0
+    purge_events = 0
+    syncs = 0
+    timings = {"device": 0.0, "dense": 0.0}
+
+    # Initial expansion straight to a maxdim-sized relation (the reference
+    # stops at mindim first, but nothing happens in between,
+    # run.jl:260-275).  The host array stays authoritative for locked
+    # columns (no low-precision round trip of converged data).
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("arnoldi:expand"):
+        syncs += expand_range(op, V, Hdev, active0, m, generator)
+        Hpull = Hdev.cpu().numpy()
+    H[:, active0:m] = Hpull[:, active0:m]
+    timings["device"] += time.perf_counter() - t0
+
+    # On exit, `pending_Q` holds the not-yet-applied final truncation; it
+    # is composed with the final sort into a single GEMM.
+    pending_Q = None
+
+    it = 0
+    for it in range(1, restarts + 1):
+        # Dense restart phase (host, f64).
+        t0 = time.perf_counter()
+        Q = np.eye(m, dtype=H.dtype)
+        if use_native:
+            _native.local_schur(H[:m, :], active, m, Q)
+            _native.copy_eigenvalues(lams, H[:m, :], 0, m)
+            _native.copy_residuals(rs, H[:m, :], Q, H[m, m - 1], active, m)
+        else:
+            local_schur(H[:m, :], active, m, Q)
+            copy_eigenvalues(lams, H[:m, :], 0, m)
+            _copy_residuals(rs, H, Q, H[m, m - 1], x, active, m)
+        _schur_coupling_floor(rs, H, Q, H[m, m - 1], active, m)
+        ord_ = np.array(
+            sorted(range(m), key=lambda i: (order_key(lams[i]), i))
+        )
+        h_frob = np.linalg.norm(H)
+
+        def isconverged(idx):
+            return rs[idx] <= max(eps_work * h_frob, tol * abs(lams[idx]))
+
+        # [locked | retained | purged] partitioning.  Keep nev or nev+1
+        # depending on whether the cut would split a conjugate pair.
+        effective_nev = nev + 1 if _is_pair_at(lams, ord_, nev - 1, is_real) else nev
+
+        nlock = 0
+        for i in range(effective_nev):
+            if isconverged(ord_[i]):
+                groups[ord_[i]] = 1
+                nlock += 1
+            else:
+                groups[ord_[i]] = 2
+
+        # Truncation size k: roughly mindim active columns, at most halfway
+        # to maxdim, never splitting a pair (ref: run.jl:310-339).
+        ideal_size = min(nlock + mindim, (mindim + maxdim) // 2)
+        k = effective_nev
+        i = effective_nev
+        while i < m:
+            pair = _is_pair_at(lams, ord_, i, is_real)
+            num = 2 if pair else 1
+            if k < ideal_size and not isconverged(ord_[i]):
+                group = 2
+                k += num
+            else:
+                group = 3
+            groups[ord_[i]] = group
+            if pair:
+                groups[ord_[i + 1]] = group
+            i += num
+
+        # Index of the first formerly-locked vector that is being purged
+        # (ref: run.jl:341-353).
+        purge = 0
+        while purge < active and groups[purge] == 1:
+            purge += 1
+        if purge < active:
+            purge_events += 1
+
+        if use_native:
+            _native.partition_three_way(H[:m, :], Q, groups)
+            _native.restore_arnoldi(H, nlock, k, Q)
+        else:
+            _partition_three_way(H[:m, :], Q, groups)
+            restore_arnoldi(H, nlock, k, Q)
+
+        # Basis-change matrix: columns [purge, k) from Q, row k takes the
+        # old row m (the next-vector slot), everything else passes through
+        # untouched (ref: run.jl:363-365).
+        Qbig = np.eye(m + 1, dtype=H.dtype)
+        Qbig[:, purge:k] = 0
+        Qbig[purge:m, purge:k] = Q[purge:m, purge:k]
+        if k < m:
+            Qbig[:, k] = 0
+            Qbig[m, k] = 1
+        timings["dense"] += time.perf_counter() - t0
+
+        active = nlock
+        if active >= nev or it == restarts:
+            # Applied below, composed with the final sort's GEMM.
+            pending_Q = Qbig
+            break
+
+        # The device step of this restart: apply the truncation to V and
+        # expand from k back to maxdim; then the one H readback.
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("arnoldi:truncate_expand"):
+            Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
+            syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m, generator)
+            Hpull = Hdev.cpu().numpy()
+        H[:, k:m] = Hpull[:, k:m]
+        prods += m - k
+        timings["device"] += time.perf_counter() - t0
+
+    nconverged = active
+
+    # Sort the converged eigenvalues in the user's target order, and apply
+    # the pending truncation + sort to V in one composed GEMM.
+    t0 = time.perf_counter()
+    Q = np.eye(m, dtype=H.dtype)
+    if use_native:
+        _native.sort_schur(H[:m, :], Q, nconverged, type(target).__name__)
+    else:
+        _sort_schur(H[:m, :], Q, nconverged, order_key)
+    Qbig = np.eye(m + 1, dtype=H.dtype)
+    Qbig[:m, :m] = Q
+    if pending_Q is not None:
+        Qbig = pending_Q @ Qbig
+    timings["dense"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apply_basis_change(V, torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device))
+    # A copy: the workspace's V changes under any later solve with it.
+    Q_rows = V[:nconverged].clone()
+    timings["device"] += time.perf_counter() - t0
+
+    if nconverged > 0:
+        if use_native:
+            _native.copy_eigenvalues(lams, H[:m, :], 0, nconverged)
+        else:
+            copy_eigenvalues(lams, H[:m, :], 0, nconverged)
+
+    history = History(
+        prods, nconverged, nconverged >= nev, nev, restarts=it,
+        purges=purge_events, timings=timings,
+        dense_layer="native" if use_native else "numpy", host_syncs=syncs,
+    )
+    schur = PartialSchur(
+        None,
+        H[:nconverged, :nconverged].copy(),
+        lams[:nconverged].copy(),
+        Q_rows=Q_rows,
+    )
+    return schur, history
