@@ -19,12 +19,17 @@ from .eigen import partial_eigen
 from .targets import LI, LM, LR, SI, SR, Target
 from .workspace import ArnoldiWorkspace
 from .models.operators import (
+    CsrOperator,
     DenseOperator,
     DiaOperator,
+    EllOperator,
     FunctionOperator,
     LinearOperator,
+    SellOperator,
     Stencil5Operator,
     as_operator,
+    csr_to_ell,
+    dia_from_diagonals,
 )
 
 __version__ = "0.1.0"
@@ -44,7 +49,12 @@ __all__ = [
     "LinearOperator",
     "DenseOperator",
     "DiaOperator",
+    "dia_from_diagonals",
+    "EllOperator",
+    "CsrOperator",
+    "SellOperator",
     "Stencil5Operator",
     "FunctionOperator",
     "as_operator",
+    "csr_to_ell",
 ]

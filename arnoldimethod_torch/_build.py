@@ -1,9 +1,9 @@
 """Build-at-first-use helper for the port's native libraries.
 
-Both native pieces of the port are plain shared libraries with a C
+Every native piece of the port is a plain shared library with a C
 interface, loaded through ctypes: the C++ dense restart core
-(`native/arnoldi_dense.cpp`, built with g++) and the CUDA stencil kernel
-(`csrc/stencil5.cu`, built with nvcc).  They are compiled into
+(`native/arnoldi_dense.cpp`, built with g++) and the CUDA kernels
+(`csrc/stencil5.cu`, `csrc/bsr.cu`, built with nvcc).  They are compiled into
 `build/arnoldimethod_torch/` beside the package (listed in `.gitignore`),
 never into the package directory, under a name that carries a hash of the
 sources and the command, so an edit to either rebuilds.  The compiler
@@ -22,6 +22,24 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent
 REPO_DIR = PACKAGE_DIR.parent
 BUILD_DIR = REPO_DIR / "build" / "arnoldimethod_torch"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def nvcc_command(what):
+    """The nvcc command line (without output and sources) for a CUDA
+    kernel of the port; raises RuntimeError when no CUDA toolkit is found."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError(
+            f"the {what} kernel needs the CUDA toolkit (nvcc): none found "
+            "(set CUDA_HOME)"
+        )
+    return [f"{CUDA_HOME}/bin/nvcc", *NVCC_FLAGS]
 
 
 def build_shared(name, sources, command, timeout=600):

@@ -10,7 +10,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models.operators import DenseOperator, DiaOperator, Stencil5Operator
+from .models.operators import (
+    BsrOperator,
+    CsrOperator,
+    DenseOperator,
+    DiaOperator,
+    EllOperator,
+    SellOperator,
+    Stencil5Operator,
+)
 from .workspace import ArnoldiWorkspace
 
 __all__ = ["operator_from_arrays", "workspace_from_npz"]
@@ -23,6 +31,13 @@ def operator_from_arrays(kind, arrays, meta, device=None):
     kind "dia":     arrays {"diags", "offsets"}, meta {"shape"}.
     kind "stencil": arrays {"coeffs"}, meta {"grid", "boundary", "dtype"}
                     (coeffs are (center, west, east, north, south)).
+    kind "csr":     arrays {"indptr", "indices", "data"}, meta {"shape"}.
+    kind "ell":     arrays {"data", "cols"}, meta {"shape"}.
+    kind "sell":    arrays {"buckets" ((data, cols) pairs), "inv_perm"},
+                    meta {"shape", "nnz"}.
+    kind "bsr":     arrays {"block_cols", "block_dataT"} as `pack_bsr`
+                    packed them, meta {"logical_blocks", "shape"} and
+                    optionally "use_pallas".
     """
     if kind == "dense":
         return DenseOperator(np.asarray(arrays["A"]), device=device)
@@ -40,6 +55,21 @@ def operator_from_arrays(kind, arrays, meta, device=None):
             dtype=meta["dtype"],
             boundary=meta.get("boundary", "dirichlet"),
             device=device,
+        )
+    if kind == "csr":
+        return CsrOperator(arrays["indptr"], arrays["indices"], arrays["data"],
+                           tuple(meta["shape"]), device=device)
+    if kind == "ell":
+        return EllOperator(arrays["data"], arrays["cols"], tuple(meta["shape"]),
+                           device=device)
+    if kind == "sell":
+        return SellOperator(arrays["buckets"], arrays["inv_perm"],
+                            tuple(meta["shape"]), meta["nnz"], device=device)
+    if kind == "bsr":
+        return BsrOperator.from_packed(
+            arrays["block_cols"], arrays["block_dataT"],
+            tuple(meta["logical_blocks"]), tuple(meta["shape"]),
+            use_pallas=meta.get("use_pallas"), device=device,
         )
     raise ValueError(f"unknown operator kind {kind!r}")
 

@@ -234,12 +234,14 @@ def partial_schur(
     extended=False,
     lowsync=False,
     split_complex=None,
+    sparse_format="auto",
 ):
     """Compute an approximate partial Schur decomposition A Q = Q R with
     `nev` eigenvalues near the target `which`.
 
-    A can be a LinearOperator, a square 2-D array or tensor, or a callable
-    on tensors (then pass n= and dtype=).  Returns (PartialSchur, History).
+    A can be a LinearOperator, a square 2-D array or tensor, a
+    scipy.sparse matrix, or a callable on tensors (then pass n= and
+    dtype=).  Returns (PartialSchur, History).
 
     Keyword defaults mirror the reference exactly (run.jl:100-129):
     nev = min(6, n); which = 'LM'; tol = sqrt(eps(real dtype));
@@ -256,6 +258,12 @@ def partial_schur(
     Warm start / resume: pass `workspace` (an ArnoldiWorkspace holding a
     previous decomposition) plus `start_from` = previous nconverged
     (ref: partialschur!, run.jl:131-179).
+
+    `sparse_format` ("auto" default): scipy.sparse input is repacked into
+    the layout `models.operators.pick_sparse_format` picks for its pattern
+    (DIA banded, BSR clustered, SELL irregular) on `device`; "csr" keeps
+    the CSR gather path, or a layout name ('dia', 'bsr', 'sell', 'ell')
+    forces one.  Ignored for operator, dense and callable input.
 
     `method` None or "host" runs the host dense restart.  The options of
     the JAX package that this port does not have yet raise
@@ -275,7 +283,8 @@ def partial_schur(
     if sharding is not None:
         raise _not_ported("sharding= (parallel/)", 14)
 
-    op = as_operator(A, n=n, dtype=dtype, device=device)
+    op = as_operator(A, n=n, dtype=dtype, device=device,
+                     sparse_format=sparse_format)
     n = op.shape[0]
     if op.shape[0] != op.shape[1]:
         raise ValueError("matrix is not square")

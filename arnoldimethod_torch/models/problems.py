@@ -5,8 +5,8 @@ Laplacian readme.md:30-34, tridiagonal, 2-D Laplacian and
 convection-diffusion from BASELINE.json, the periodic convection-diffusion
 torus), with the same coefficients.  Each returns the DIA layout by default
 or, for the 2-D grids, the 5-point stencil with fmt="stencil"; every builder
-takes the `device` its operator lives on.  fmt="ell" needs EllOperator,
-which is not ported yet.
+takes the `device` its operator lives on.  fmt="ell" gives the padded ELL
+layout of the same matrix, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,26 +14,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..workspace import as_torch_dtype
-from .operators import DiaOperator, Stencil5Operator
+from .operators import DiaOperator, EllOperator, Stencil5Operator, _numpy_dtype
 
 __all__ = ["laplacian_1d", "tridiagonal", "laplacian_2d", "convection_diffusion_2d", "convection_diffusion_periodic_2d"]
 
 
-def _numpy_dtype(dtype):
-    return torch.empty(0, dtype=as_torch_dtype(dtype)).numpy().dtype
+def _ell_from_dia(offset_values, n, dtype, device):
+    offsets = sorted(offset_values)
+    data = np.zeros((n, len(offsets)), dtype=dtype)
+    cols = np.zeros((n, len(offsets)), dtype=np.int32)
+    i = np.arange(n)
+    for d, off in enumerate(offsets):
+        valid = (i + off >= 0) & (i + off < n)
+        vals = np.broadcast_to(np.asarray(offset_values[off], dtype=dtype), (n,))
+        data[valid, d] = vals[valid]
+        cols[valid, d] = i[valid] + off
+    return EllOperator(data, cols, (n, n), device=device)
 
 
 def _build(offset_values, n, dtype, fmt, device):
+    dtype = _numpy_dtype(dtype)
     if fmt == "ell":
-        raise NotImplementedError(
-            "fmt='ell' needs EllOperator, not ported yet (ROADMAP.md "
-            "queue 1, item 9)"
-        )
+        return _ell_from_dia(offset_values, n, dtype, device)
     if fmt != "dia":
         raise ValueError(f"unknown sparse format {fmt!r}")
     offsets = sorted(offset_values)
-    diags = np.zeros((len(offsets), n), dtype=_numpy_dtype(dtype))
+    diags = np.zeros((len(offsets), n), dtype=dtype)
     for d, off in enumerate(offsets):
         diags[d] = offset_values[off]
         if off > 0:

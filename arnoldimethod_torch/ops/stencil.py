@@ -27,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .._build import PACKAGE_DIR, build_shared
+from .._build import PACKAGE_DIR, build_shared, nvcc_command
 
 __all__ = [
     "KERNEL",
@@ -37,10 +37,6 @@ __all__ = [
 ]
 
 _SOURCE = PACKAGE_DIR / "csrc" / "stencil5.cu"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 # Rows each thread walks down (the block height).  Simple default; the
 # kernel takes any positive value.
 DEFAULT_TILE_ROWS = 8
@@ -74,16 +70,8 @@ class _Stencil5Kernel:
     def load(self):
         """Build (once per source hash) and load the library."""
         if self._lib is None:
-            from torch.utils.cpp_extension import CUDA_HOME
-
-            if CUDA_HOME is None:
-                raise RuntimeError(
-                    "the stencil kernel needs the CUDA toolkit (nvcc): "
-                    "none found (set CUDA_HOME)"
-                )
-            nvcc = f"{CUDA_HOME}/bin/nvcc"
             path, self.build_log = build_shared(
-                "stencil5", [_SOURCE], [nvcc, *_NVCC_FLAGS]
+                "stencil5", [_SOURCE], nvcc_command("stencil")
             )
             lib = ctypes.CDLL(str(path))
             args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,

@@ -6,7 +6,8 @@
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc build of the stencil kernel, g++ build of the dense core
+  build    nvcc builds of the stencil and BSR kernels and the g++ build of
+           the dense core, all started at once, from the sources
   kernel   the CUDA stencil kernel against its plain PyTorch version on the
            card, at five grids: max |difference| against
            8 * eps * sum|coeff| * max|x|; both device times per call (a
@@ -23,6 +24,24 @@ Phases, each printed as one JSON line:
   eigen    partial_eigen on that result: every eigenpair residual
   profile  torch.profiler over the first restarts of the main solve:
            device time by kernel and the device's busy share
+  bsr_kernel   the CUDA BSR kernel against its plain PyTorch version (the
+           gather + einsum, TF32 off) on the card, in five cases: 512
+           block-rows x 8 blocks of 128 (268 MB of f32 block data, and the
+           same in f64), 37 x 11 blocks of 32 with duplicate columns, a
+           1,000-row CsrOperator.to_bsr (n not a block multiple), and
+           blocks of 8 in f64.  Bound per entry: 2 KB B eps (|A||x|); times
+           as for `kernel`, with GB/s counting the block data and x and y
+  bsr_small    a 512-row float64 BSR solve on the card (kernel) against the
+           same solve on the CPU (plain): same matvec count, eigenvalues
+  bsr_main     the 65,536-row BSR matrix (268 MB of block data, ten
+           eigenvalues 1.0-1.9 outside a bulk of radius ~0.32), nev=10,
+           :LM, tol=1e-6, float32: converged 10/10, Schur residual in
+           float64, eigenvalues against a float64 plain solve on the card,
+           kernel launches against the matvec count
+  sparse_auto  an 8,192-row scipy.sparse matrix of the same construction
+           through partial_schur(S, device="cuda"): the format rule picks
+           BSR and the kernel runs; eigenvalues against the CSR layout
+  bsr_profile  torch.profiler over the first restarts of the bsr_main solve
 
 Then the card's nvidia-smi line, the kernel summary line and, last, the
 result line.  Any failed check ends the run with a non-zero exit code and
@@ -121,24 +140,37 @@ def phase_device(torch):
     return card
 
 
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _ptxas(log):
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]
+
+
 def phase_build():
+    """Both nvcc builds and the g++ build run at once, one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from arnoldimethod_torch._build import BUILD_DIR
     from arnoldimethod_torch.dense import native
-    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.ops import bsr, stencil
 
     # Libraries already built by an earlier run are loaded, not rebuilt;
     # then the times below are load times.
     prebuilt = sorted(p.name for p in BUILD_DIR.glob("*.so"))
-    t0 = time.perf_counter()
-    stencil.KERNEL.load()
-    nvcc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native_ok = native.available()
-    gxx_s = time.perf_counter() - t0
-    ptxas = [line.strip() for line in stencil.KERNEL.build_log.splitlines()
-             if "registers" in line or "spill" in line]
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(_timed, fn) for fn in
+                (stencil.KERNEL.load, bsr.KERNEL.load, native.available)]
+        (_, nvcc_s), (_, bsr_nvcc_s), (native_ok, gxx_s) = [
+            j.result() for j in jobs]
     check("build", True, nvcc_s=nvcc_s, gxx_s=gxx_s, prebuilt=prebuilt,
-          native=native_ok, native_error=native.build_error, ptxas=ptxas)
+          native=native_ok, native_error=native.build_error,
+          ptxas=_ptxas(stencil.KERNEL.build_log), bsr_nvcc_s=bsr_nvcc_s,
+          bsr_ptxas=_ptxas(bsr.KERNEL.build_log))
 
 
 def phase_kernel(torch):
@@ -238,13 +270,13 @@ def phase_main(torch):
 
     from arnoldimethod_torch import partial_schur
     from arnoldimethod_torch.models.operators import Stencil5Operator
-    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.ops import bsr, stencil
 
     grid = (1024, 1024)
     op = Stencil5Operator(LAPLACE, grid, dtype=torch.float32, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    stencil.KERNEL.launches = 0
+    stencil.KERNEL.launches = bsr.KERNEL.launches = 0
     t0 = time.perf_counter()
     d, h = partial_schur(op, nev=20, which="SR", tol=1e-6, mindim=40,
                          maxdim=80, restarts=400, method="host")
@@ -294,22 +326,19 @@ def phase_eigen(torch, d):
           floor=floor)
 
 
-def phase_profile(torch):
-    """Device time by kernel over a short solve (3 restarts) of the main
-    configuration, and the device's busy share of the wall time."""
+def _profile(torch, phase, op, kernel, out_name, **kw):
+    """Device time by kernel over a short solve of `op` (partial_schur with
+    `kw`) and the device's busy share of the wall time; the profiler's
+    table goes to chiprun_out/<out_name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from arnoldimethod_torch import partial_schur
-    from arnoldimethod_torch.models.operators import Stencil5Operator
 
-    op = Stencil5Operator(LAPLACE, (1024, 1024), dtype=torch.float32,
-                          device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, h = partial_schur(op, nev=20, which="SR", tol=1e-6, mindim=40,
-                             maxdim=80, restarts=3, method="host")
+        _, h = partial_schur(op, method="host", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Kernels, copies and memsets on the card.  The device-side spans of
@@ -336,20 +365,272 @@ def phase_profile(torch):
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_main.txt"), "w") as f:
+    with open(os.path.join(out_dir, out_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=40))
     measured = bool(spans)
-    emit({"phase": "profile", "ok": True, "restarts": h.restarts,
+    emit({"phase": phase, "ok": True, "restarts": h.restarts,
           "mvproducts": h.mvproducts, "wall_s": wall,
           "device_busy_s": busy_s if measured else "not measured",
           "device_busy_share": busy_s / wall if measured else "not measured",
           "device_idle_share": 1 - busy_s / wall if measured else "not measured",
           "device_launches": len(spans),
-          "stencil5_device_ms": sum(us for name, (us, _) in by_name.items()
-                                    if "stencil5" in name) / 1e3,
+          f"{kernel}_device_ms": sum(us for name, (us, _) in by_name.items()
+                                     if kernel in name) / 1e3,
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "count": c}
                   for us, k, c in rows[:8]]})
+
+
+def phase_profile(torch):
+    """Device time by kernel over a short solve (3 restarts) of the main
+    configuration, and the device's busy share of the wall time."""
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+
+    op = Stencil5Operator(LAPLACE, (1024, 1024), dtype=torch.float32,
+                          device="cuda")
+    _profile(torch, "profile", op, "stencil5", "profile_main.txt", nev=20,
+             which="SR", tol=1e-6, mindim=40, maxdim=80, restarts=3)
+
+
+def bsr_pattern(nbr, KB, B, dtype, seed=7):
+    """Block columns and blocks of the clustered BSR test matrix: block-row
+    r holds its diagonal block and KB - 1 other distinct blocks (sorted),
+    entries N(0, 0.01^2), plus 1.0 + 0.1 i on diagonal entries i < 10.
+    Ten eigenvalues near 1.0-1.9 then lie well outside the disk of radius
+    about 0.01 sqrt(KB B) that holds the rest."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = np.empty((nbr, KB), dtype=np.int32)
+    for r in range(nbr):
+        others = rng.choice(nbr - 1, size=KB - 1, replace=False)
+        cols[r] = np.sort(np.append(others + (others >= r), r))
+    data = rng.standard_normal((nbr, KB, B, B), dtype=dtype)
+    data *= dtype(0.01)
+    for g in range(10):  # diagonal entry g lies in diagonal block g // B
+        r = g // B
+        k = int(np.searchsorted(cols[r], r))
+        data[r, k, g % B, g % B] += 1.0 + 0.1 * g
+    return cols, data
+
+
+def _clustered_csr(n):
+    """A band of width 7 plus one dense corner block, as CSR arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    i = np.repeat(np.arange(n), 7)
+    j = i + np.tile(np.arange(-3, 4), n)
+    keep = (j >= 0) & (j < n)
+    k = n // 4
+    ci, cj = np.divmod(np.arange(k * k), k)
+    rows = np.concatenate([i[keep], ci])
+    cols = np.concatenate([j[keep], cj + n - k])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    return indptr, cols, rng.standard_normal(rows.size)
+
+
+def phase_bsr_kernel(torch, op32, op64):
+    """The BSR kernel against bsr_plain on the card (TF32 off for both)."""
+    import numpy as np
+
+    from arnoldimethod_torch.models.operators import CsrOperator
+    from arnoldimethod_torch.ops import bsr
+    from arnoldimethod_torch.ops.expansion import fp32_matmul
+
+    def packed(cols, data):
+        c, d = bsr.pack_bsr(cols, data)
+        return (torch.from_numpy(c).cuda(), torch.from_numpy(d).cuda())
+
+    # 37 x 11 blocks of 32: KB and nbr are no multiples of 8, and three
+    # slots of every block-row repeat one of its first eight columns.
+    rng = np.random.default_rng(3)
+    dup_cols = np.stack([np.sort(rng.choice(37, 8, replace=False))
+                         for _ in range(37)])
+    dup_cols = np.concatenate(
+        [dup_cols, np.take_along_axis(dup_cols, rng.integers(0, 8, (37, 3)),
+                                      axis=1)], axis=1).astype(np.int32)
+    dup_data = rng.standard_normal((37, 11, 32, 32)).astype(np.float32)
+    indptr, idx, vals = _clustered_csr(1000)
+    to_bsr = CsrOperator(indptr, idx, vals.astype(np.float32), (1000, 1000),
+                         device="cuda").to_bsr(128)
+    cases = [
+        ("512x8x128_f32", op32.block_cols, op32.block_dataT),
+        ("512x8x128_f64", op64.block_cols, op64.block_dataT),
+        ("37x11x32_f32_dup", *packed(dup_cols, dup_data)),
+        ("to_bsr_n1000_f32", to_bsr.block_cols, to_bsr.block_dataT),
+        ("1024x8x8_f64", *packed(*bsr_pattern(1024, 8, 8, np.float64))),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    with fp32_matmul():
+        for name, cols, dataT in cases:
+            nbr, KB, B, _ = dataT.shape
+            # Every case has as many block columns as packed block-rows.
+            x = torch.randn(nbr * B, dtype=dataT.dtype, device="cuda",
+                            generator=gen)
+            y_kernel = bsr.bsr_matvec(cols, dataT, x)
+            y_plain = bsr.bsr_plain(cols, dataT, x)
+            ax = bsr.bsr_plain(cols, dataT.abs(), x.abs())
+            bound = 2 * KB * B * torch.finfo(dataT.dtype).eps * ax
+            diff = (y_kernel - y_plain).abs()
+            ok = bool((diff <= bound).all())
+            if name.endswith("_dup"):
+                # The kernel takes the unpacked operands as they are.
+                c0 = torch.from_numpy(dup_cols).cuda()
+                d0 = torch.from_numpy(
+                    np.ascontiguousarray(dup_data.transpose(0, 1, 3, 2))).cuda()
+                y0 = bsr.KERNEL(c0, d0, x)
+                ok = ok and bool(((y0 - y_plain[:37 * 32]).abs()
+                                  <= bound[:37 * 32]).all())
+
+            def kernel():
+                return bsr.bsr_matvec(cols, dataT, x)
+
+            def plain():
+                return bsr.bsr_plain(cols, dataT, x)
+
+            ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+            nbytes = (dataT.numel() + x.numel() + nbr * B) * dataT.element_size()
+            res = {"case": name, "shape": [nbr, KB, B],
+                   "dtype": str(dataT.dtype).split(".")[-1],
+                   "block_data_bytes": dataT.numel() * dataT.element_size(),
+                   "max_abs_err": diff.max().item(),
+                   "max_bound": bound.max().item(),
+                   "worst_err_over_bound": (diff / bound.clamp_min(
+                       torch.finfo(dataT.dtype).tiny)).max().item(),
+                   "ms": ms, "plain_ms": plain_ms,
+                   "gbs": nbytes / ms / 1e6, "plain_gbs": nbytes / plain_ms / 1e6,
+                   "call_ms": median_ms(kernel), "plain_call_ms": median_ms(plain)}
+            results[name] = res
+            check("bsr_kernel", ok, **res)
+    return results["512x8x128_f32"]
+
+
+def phase_bsr_small(torch):
+    """The same float64 BSR solve on the card (kernel) and on the CPU
+    (plain version): the restart decisions must not change."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.operators import BsrOperator
+    from arnoldimethod_torch.ops import bsr
+
+    cols, data = bsr_pattern(16, 8, 32, np.float64)
+    v1 = np.random.default_rng(1).standard_normal(512)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        op = BsrOperator(cols, data, (512, 512), device=dev)
+        bsr.KERNEL.launches = 0
+        out[dev] = partial_schur(op, v1=v1, nev=6, which="LM", tol=1e-10)
+        out[dev + "_launches"] = bsr.KERNEL.launches
+    (dg, hg), (dc, hc) = out["cuda"], out["cpu"]
+    lam_err = float(np.abs(dg.eigenvalues - dc.eigenvalues).max())
+    check("bsr_small", hg.converged and hg.mvproducts == hc.mvproducts
+          and lam_err <= 1e-9 and out["cuda_launches"] >= hg.mvproducts
+          and out["cpu_launches"] == 0,
+          mvproducts_cuda=hg.mvproducts, mvproducts_cpu=hc.mvproducts,
+          kernel_launches_cuda=out["cuda_launches"], lam_err=lam_err)
+
+
+def phase_bsr_main(torch, op32, op64):
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.ops import bsr, stencil
+
+    n = op32.shape[0]
+    v1 = np.random.default_rng(1).standard_normal(n)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    stencil.KERNEL.launches = bsr.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    d, h = partial_schur(op32, v1=v1, nev=10, which="LM", tol=1e-6,
+                         method="host")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsr.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    # The Schur residual in float64 with the plain version on the float64
+    # copy of the same matrix, and a float64 plain solve from the same v1.
+    Q = d.Q.double()
+    resid = torch.linalg.norm(
+        op64.matmat(Q) - Q @ torch.as_tensor(d.R, device="cuda")).item()
+    t0 = time.perf_counter()
+    d64, h64 = partial_schur(op64, v1=v1, nev=10, which="LM", tol=1e-10,
+                             method="host")
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    lam = np.sort_complex(d.eigenvalues)
+    lam64 = np.sort_complex(d64.eigenvalues)
+    lam_err = (float(np.abs(lam - lam64).max()) if lam.shape == lam64.shape
+               else math.inf)
+    info = dict(
+        n=n, block_data_bytes=op32.block_dataT.numel() * 4,
+        mvproducts=h.mvproducts, restarts=h.restarts, nconverged=h.nconverged,
+        wall_s=wall, device_s=h.timings["device"], dense_s=h.timings["dense"],
+        dense_layer=h.dense_layer, host_syncs=h.host_syncs,
+        syncs_per_step=h.host_syncs / h.mvproducts, kernel_launches=launches,
+        stencil_launches=stencil.KERNEL.launches, schur_residual=resid,
+        eigenvalues=[[z.real, z.imag] for z in lam], lam_err_vs_f64=lam_err,
+        f64_mvproducts=h64.mvproducts, f64_converged=h64.converged,
+        f64_wall_s=wall64, peak_mem_bytes=peak,
+        resident_before_bytes=resident,
+    )
+    check("bsr_main", h.converged and h.nconverged == 10 and h64.converged
+          and resid <= 2e-5 and lam_err <= 1e-5 and launches >= h.mvproducts,
+          **info)
+    return launches
+
+
+def phase_sparse_auto(torch):
+    """scipy.sparse input through partial_schur on the card: the format
+    rule picks BSR and the kernel runs; the CSR layout agrees."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.operators import (
+        as_operator,
+        pick_sparse_format,
+    )
+    from arnoldimethod_torch.ops import bsr, stencil
+
+    nbr, KB, B = 64, 8, 128
+    n = nbr * B
+    cols, data = bsr_pattern(nbr, KB, B, np.float32)
+    S = sp.bsr_matrix((data.reshape(-1, B, B), cols.ravel(),
+                       np.arange(0, nbr * KB + 1, KB)), shape=(n, n)).tocsr()
+    fmt, info = pick_sparse_format(S.indptr, S.indices, S.shape)
+    # The host cost of the entry point alone: format rule, repack, upload.
+    op, convert_s = _timed(lambda: as_operator(S, device="cuda"))
+    torch.cuda.synchronize()
+    v1 = np.random.default_rng(1).standard_normal(n)
+    kw = dict(device="cuda", v1=v1, nev=6, which="LM", tol=1e-6)
+    stencil.KERNEL.launches = bsr.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    d, h = partial_schur(S, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsr.KERNEL.launches
+    t0 = time.perf_counter()
+    dc, hc = partial_schur(S, sparse_format="csr", **kw)
+    torch.cuda.synchronize()
+    wall_csr = time.perf_counter() - t0
+    lam, lam_csr = np.sort_complex(d.eigenvalues), np.sort_complex(dc.eigenvalues)
+    lam_err = (float(np.abs(lam - lam_csr).max()) if lam.shape == lam_csr.shape
+               else math.inf)
+    check("sparse_auto", fmt == "bsr" and type(op).__name__ == "BsrOperator"
+          and h.converged and hc.converged and launches >= h.mvproducts
+          and lam_err <= 1e-5,
+          n=n, nnz=S.nnz, format=fmt, format_info=info,
+          as_operator_s=convert_s, mvproducts=h.mvproducts, kernel_launches=launches, wall_s=wall,
+          csr_mvproducts=hc.mvproducts, csr_wall_s=wall_csr,
+          lam_err_vs_csr=lam_err)
 
 
 def main():
@@ -369,6 +650,26 @@ def main():
     phase_eigen(torch, d)
     phase_profile(torch)
 
+    import numpy as np
+
+    from arnoldimethod_torch.models.operators import BsrOperator
+
+    # The 65,536-row BSR matrix, built once from its block arrays: float32
+    # (the kernel's operator) and the same values in float64 (plain).
+    cols, data = bsr_pattern(512, 8, 128, np.float32)
+    n = 512 * 128
+    op32 = BsrOperator(cols, data, (n, n), device="cuda")
+    op64 = BsrOperator(cols, data.astype(np.float64), (n, n),
+                       use_pallas=False, device="cuda")
+    del cols, data
+    bsr_shape = phase_bsr_kernel(torch, op32, op64)
+    phase_bsr_small(torch)
+    bsr_launches = phase_bsr_main(torch, op32, op64)
+    phase_sparse_auto(torch)
+    _profile(torch, "bsr_profile", op32, "bsr", "profile_bsr.txt",
+             v1=np.random.default_rng(1).standard_normal(n), nev=10,
+             which="LM", tol=1e-6, restarts=3)
+
     main_shape = kernels[0]
     print(card, flush=True)
     emit({"kernels": [{
@@ -381,6 +682,15 @@ def main():
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
+    }, {
+        "name": "bsr",
+        "route": "cuda",
+        "source": "arnoldimethod_torch/csrc/bsr.cu",
+        "replaces": "arnoldimethod_tpu/ops/bsr_pallas.py:138",
+        "launches": bsr_launches,
+        "max_abs_err": bsr_shape["max_abs_err"],
+        "ms": bsr_shape["ms"],
+        "plain_ms": bsr_shape["plain_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -113,7 +113,7 @@ def test_convert_dia_and_stencil_from_jax_arrays():
     for jop, top in ((jdia, tdia), (jst, tst)):
         _close(top.matvec(torch.from_numpy(x)).numpy(), jop.matvec(jnp.asarray(x)))
     with pytest.raises(ValueError):
-        operator_from_arrays("csr", {}, {})
+        operator_from_arrays("coo", {}, {})
 
 
 def test_matmat_is_columnwise_matvec():
@@ -141,16 +141,19 @@ def test_as_operator_inputs():
 
 
 def test_not_ported_inputs_raise():
+    """Unknown layouts and boundaries raise.  scipy.sparse input and
+    fmt="ell", which raised here before the general-sparse operators were
+    ported, now build operators (tests/test_torch_sparse.py)."""
+
     class FakeSparse:
-        shape = (3, 3)
+        shape = (3, 4)
 
         def tocsr(self):
             return self
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not square"):
         as_operator(FakeSparse())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.laplacian_1d(10, fmt="ell")
+    assert tp.laplacian_1d(10, fmt="ell").nnz == 30
     with pytest.raises(ValueError):
         tp.laplacian_1d(10, fmt="csr")
     with pytest.raises(ValueError):
