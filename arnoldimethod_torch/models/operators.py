@@ -482,7 +482,8 @@ class BsrOperator(LinearOperator):
         if self.use_pallas is False:
             y = bsr.bsr_plain(self.block_cols, self.block_dataT, x)
         else:
-            y = bsr.bsr_matvec(self.block_cols, self.block_dataT, x)
+            y = bsr.bsr_matvec(self.block_cols, self.block_dataT, x,
+                               self.logical_blocks)
         return y[:n]
 
 

@@ -25,12 +25,18 @@ Phases, each printed as one JSON line:
   profile  torch.profiler over the first restarts of the main solve:
            device time by kernel and the device's busy share
   bsr_kernel   the CUDA BSR kernel against its plain PyTorch version (the
-           gather + einsum, TF32 off) on the card, in five cases: 512
+           gather + einsum, TF32 off) on the card, in ten cases: 512
            block-rows x 8 blocks of 128 (268 MB of f32 block data, and the
            same in f64), 37 x 11 blocks of 32 with duplicate columns, a
-           1,000-row CsrOperator.to_bsr (n not a block multiple), and
-           blocks of 8 in f64.  Bound per entry: 2 KB B eps (|A||x|); times
-           as for `kernel`, with GB/s counting the block data and x and y
+           1,000-row CsrOperator.to_bsr (n not a block multiple), blocks of
+           8 in f64, the sparse_auto operator (64 x 8 x 128), a dense
+           8192 x 8192 as 16 x 16 blocks of 512 (268 MB), 8 block-rows of
+           64 slots of 128, blocks of 37 (the kernel's direct path), and
+           264 x 40 x 128 in f64 (x staged window by window).  Bound per
+           entry: 2 KB B eps (|A||x|); two
+           calls must give bitwise-equal y; times as for `kernel`, with GB/s
+           counting the logical block data and x and y; each case prints
+           the kernel's launch plan and whether it is slower than plain
   bsr_small    a 512-row float64 BSR solve on the card (kernel) against the
            same solve on the CPU (plain): same matvec count, eigenvalues
   bsr_main     the 65,536-row BSR matrix (268 MB of block data, ten
@@ -392,18 +398,20 @@ def phase_profile(torch):
              which="SR", tol=1e-6, mindim=40, maxdim=80, restarts=3)
 
 
-def bsr_pattern(nbr, KB, B, dtype, seed=7):
+def bsr_pattern(nbr, KB, B, dtype, seed=7, nbc=None):
     """Block columns and blocks of the clustered BSR test matrix: block-row
-    r holds its diagonal block and KB - 1 other distinct blocks (sorted),
-    entries N(0, 0.01^2), plus 1.0 + 0.1 i on diagonal entries i < 10.
-    Ten eigenvalues near 1.0-1.9 then lie well outside the disk of radius
-    about 0.01 sqrt(KB B) that holds the rest."""
+    r holds its diagonal block and KB - 1 other distinct blocks (sorted)
+    among nbc block columns (nbr by default), entries N(0, 0.01^2), plus
+    1.0 + 0.1 i on diagonal entries i < 10.  Ten eigenvalues near 1.0-1.9
+    then lie well outside the disk of radius about 0.01 sqrt(KB B) that
+    holds the rest."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    nbc = nbr if nbc is None else nbc
     cols = np.empty((nbr, KB), dtype=np.int32)
     for r in range(nbr):
-        others = rng.choice(nbr - 1, size=KB - 1, replace=False)
+        others = rng.choice(nbc - 1, size=KB - 1, replace=False)
         cols[r] = np.sort(np.append(others + (others >= r), r))
     data = rng.standard_normal((nbr, KB, B, B), dtype=dtype)
     data *= dtype(0.01)
@@ -432,17 +440,32 @@ def _clustered_csr(n):
     return indptr, cols, rng.standard_normal(rows.size)
 
 
-def phase_bsr_kernel(torch, op32, op64):
-    """The BSR kernel against bsr_plain on the card (TF32 off for both)."""
+def bsr_cases(torch, op32, op64):
+    """The BSR kernel's cases: (name, cols, dataT, logical (nbr, KB), nbc),
+    packed operands on the card, each with the reason it is here."""
     import numpy as np
 
-    from arnoldimethod_torch.models.operators import CsrOperator
+    from arnoldimethod_torch.models.operators import CsrOperator, dense_to_bsr
     from arnoldimethod_torch.ops import bsr
-    from arnoldimethod_torch.ops.expansion import fp32_matmul
 
-    def packed(cols, data):
+    def packed(cols, data, nbc=None):
         c, d = bsr.pack_bsr(cols, data)
-        return (torch.from_numpy(c).cuda(), torch.from_numpy(d).cuda())
+        return (torch.from_numpy(c).cuda(), torch.from_numpy(d).cuda(),
+                cols.shape, nbc or d.shape[0])
+
+    def operator(op):
+        return (op.block_cols, op.block_dataT, op.logical_blocks,
+                -(-op.shape[0] // op.block_size))
+
+    def on_card(nbr, KB, B, dtype, seed):
+        """Distinct sorted block columns and N(0, 0.01^2) blocks made on the
+        card, already packed (nbr and KB multiples of 8)."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        cols = torch.rand(nbr, nbr, device="cuda", generator=gen).argsort(
+            dim=1)[:, :KB].sort(dim=1).values.to(torch.int32).contiguous()
+        data = torch.randn(nbr, KB, B, B, dtype=dtype, device="cuda",
+                           generator=gen).mul_(0.01)
+        return cols, data, (nbr, KB), nbr
 
     # 37 x 11 blocks of 32: KB and nbr are no multiples of 8, and three
     # slots of every block-row repeat one of its first eight columns.
@@ -456,27 +479,56 @@ def phase_bsr_kernel(torch, op32, op64):
     indptr, idx, vals = _clustered_csr(1000)
     to_bsr = CsrOperator(indptr, idx, vals.astype(np.float32), (1000, 1000),
                          device="cuda").to_bsr(128)
-    cases = [
-        ("512x8x128_f32", op32.block_cols, op32.block_dataT),
-        ("512x8x128_f64", op64.block_cols, op64.block_dataT),
+    dense = dense_to_bsr(np.random.default_rng(5).standard_normal(
+        (8192, 8192), dtype=np.float32), 512, device="cuda")
+    return [
+        # The bsr_main operator, 268 MB past the 50 MB L2; and in f64.
+        ("512x8x128_f32", *operator(op32)),
+        ("512x8x128_f64", *operator(op64)),
+        # Padding in both extents, duplicate columns.
         ("37x11x32_f32_dup", *packed(dup_cols, dup_data)),
-        ("to_bsr_n1000_f32", to_bsr.block_cols, to_bsr.block_dataT),
+        # A scipy-style matrix re-blocked: 8 block-rows, n no block multiple.
+        ("to_bsr_n1000_f32", *operator(to_bsr)),
+        # Small blocks: B below a warp.
         ("1024x8x8_f64", *packed(*bsr_pattern(1024, 8, 8, np.float64))),
-    ]
+        # The sparse_auto operator (33.5 MB).
+        ("64x8x128_f32", *packed(*bsr_pattern(64, 8, 128, np.float32))),
+        # Few block-rows of large blocks: a dense 8192 x 8192, 268 MB.
+        ("16x16x512_f32", *operator(dense)),
+        # Few block-rows with long slot lists, 33.5 MB.
+        ("8x64x128_f32", *packed(*bsr_pattern(8, 64, 128, np.float32, nbc=64),
+                                 nbc=64)),
+        # Odd B: blocks no multiple of 16 bytes take the direct path.
+        ("64x8x37_f32_direct", *packed(*bsr_pattern(64, 8, 37, np.float32))),
+        # One CTA's x segments (40 x 128 f64) pass the shared-memory window
+        # and are staged window by window (1.4 GB).
+        ("264x40x128_f64_xwindow", *on_card(264, 40, 128, torch.float64, 11)),
+    ], (dup_cols, dup_data)
+
+
+def phase_bsr_kernel(torch, op32, op64):
+    """The BSR kernel against bsr_plain on the card (TF32 off for both)."""
+    import numpy as np
+
+    from arnoldimethod_torch.ops import bsr
+    from arnoldimethod_torch.ops.expansion import fp32_matmul
+
+    cases, (dup_cols, dup_data) = bsr_cases(torch, op32, op64)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     with fp32_matmul():
-        for name, cols, dataT in cases:
+        for name, cols, dataT, logical, nbc in cases:
             nbr, KB, B, _ = dataT.shape
-            # Every case has as many block columns as packed block-rows.
-            x = torch.randn(nbr * B, dtype=dataT.dtype, device="cuda",
+            x = torch.randn(nbc * B, dtype=dataT.dtype, device="cuda",
                             generator=gen)
-            y_kernel = bsr.bsr_matvec(cols, dataT, x)
+            y_kernel = bsr.bsr_matvec(cols, dataT, x, logical)
+            y_again = bsr.bsr_matvec(cols, dataT, x, logical)
             y_plain = bsr.bsr_plain(cols, dataT, x)
             ax = bsr.bsr_plain(cols, dataT.abs(), x.abs())
             bound = 2 * KB * B * torch.finfo(dataT.dtype).eps * ax
             diff = (y_kernel - y_plain).abs()
-            ok = bool((diff <= bound).all())
+            bitwise = torch.equal(y_kernel, y_again)
+            ok = bool((diff <= bound).all()) and bitwise
             if name.endswith("_dup"):
                 # The kernel takes the unpacked operands as they are.
                 c0 = torch.from_numpy(dup_cols).cuda()
@@ -487,21 +539,29 @@ def phase_bsr_kernel(torch, op32, op64):
                                   <= bound[:37 * 32]).all())
 
             def kernel():
-                return bsr.bsr_matvec(cols, dataT, x)
+                return bsr.bsr_matvec(cols, dataT, x, logical)
 
             def plain():
                 return bsr.bsr_plain(cols, dataT, x)
 
             ms, plain_ms = graph_ms(kernel), graph_ms(plain)
-            nbytes = (dataT.numel() + x.numel() + nbr * B) * dataT.element_size()
-            res = {"case": name, "shape": [nbr, KB, B],
+            plan = bsr.KERNEL.plan(dataT, logical)
+            block_bytes = logical[0] * logical[1] * B * B * dataT.element_size()
+            nbytes = block_bytes + (x.numel() + nbr * B) * dataT.element_size()
+            res = {"case": name, "shape": [nbr, KB, B], "logical": list(logical),
                    "dtype": str(dataT.dtype).split(".")[-1],
-                   "block_data_bytes": dataT.numel() * dataT.element_size(),
+                   "block_data_bytes": block_bytes,
+                   "plan": {"S": plan.S, "threads": plan.threads,
+                            "stages": plan.stages, "stage_bytes": plan.stage_bytes,
+                            "path": plan.path, "grid": plan.grid,
+                            "smem_bytes": plan.smem_bytes},
                    "max_abs_err": diff.max().item(),
                    "max_bound": bound.max().item(),
                    "worst_err_over_bound": (diff / bound.clamp_min(
                        torch.finfo(dataT.dtype).tiny)).max().item(),
+                   "bitwise_repeat": bitwise,
                    "ms": ms, "plain_ms": plain_ms,
+                   "slower_than_plain": ms > plain_ms,
                    "gbs": nbytes / ms / 1e6, "plain_gbs": nbytes / plain_ms / 1e6,
                    "call_ms": median_ms(kernel), "plain_call_ms": median_ms(plain)}
             results[name] = res

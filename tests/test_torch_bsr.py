@@ -141,6 +141,123 @@ def test_padding_paths_match_jax(nbr, KB, B, dtype):
                   _torch(block_cols), dataT, xt)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("nbr,KB,B", [(3, 11, 8), (5, 3, 16), (3, 9, 8)])
+def test_from_packed_jax_operands_match_jax(nbr, KB, B, dtype):
+    """JAX's packed operands and logical extents give the port's operator
+    the same extents and matvec; the logical extents change no entry."""
+    block_cols, block_data, x = _padding_operands(nbr, KB, B, dtype)
+    n = nbr * B
+    jop = JBsr(block_cols, block_data, (n, n), use_pallas=False)
+    top = BsrOperator.from_packed(np.asarray(jop.block_cols),
+                                  _torch(jop.block_dataT), jop.logical_blocks,
+                                  jop.shape)
+    assert top.logical_blocks == jop.logical_blocks == (nbr, KB)
+    assert top.logical_blocks != tuple(top.block_dataT.shape[:2])
+    xt = torch.from_numpy(x)
+    _assert_close(top.matvec(xt), np.asarray(jop.matvec(jnp.asarray(x))),
+                  top.block_cols, top.block_dataT, xt)
+    y = bsr.bsr_matvec(top.block_cols, top.block_dataT, xt, top.logical_blocks)
+    assert torch.equal(y, bsr.bsr_matvec(top.block_cols, top.block_dataT, xt))
+
+
+# The launch plan: every (nbr, KB) of this grid, both SM counts, at each
+# (B, itemsize) of the parametrisation.
+_PLAN_NBR = (1, 8, 40, 64, 512, 4096)
+_PLAN_KB = (1, 6, 16, 64)
+_PLAN_SMS = (132, 114)
+
+
+def _check_plan(nbr, KB, B, itemsize, sms, aligned):
+    p = bsr.bsr_plan(nbr, KB, B, itemsize, sms, aligned)
+    assert 1 <= p.S <= min(8, KB)
+    assert p.grid == nbr * p.S and p.grid % p.S == 0
+    # Chunks: contiguous, in rank order, non-empty, the kernel's formula.
+    assert p.chunks == tuple((s * KB // p.S, (s + 1) * KB // p.S)
+                             for s in range(p.S))
+    assert p.chunks[0][0] == 0 and p.chunks[-1][1] == KB
+    assert all(k0 < k1 == n0 for (k0, k1), (n0, _) in zip(p.chunks, p.chunks[1:]))
+    # Every (block-row, logical slot) is summed by exactly one CTA.
+    cover = np.zeros((nbr, KB), dtype=np.int64)
+    for cta in range(p.grid):
+        k0, k1 = p.chunks[cta % p.S]
+        cover[cta // p.S, k0:k1] += 1
+    assert (cover == 1).all()
+    # About two CTAs per SM wherever KB allows.
+    assert nbr * p.S >= 2 * sms or p.S == min(8, KB)
+    if nbr >= 2 * sms:
+        assert p.S == 1
+    # Resources and the alignment of the bulk path.
+    assert p.smem_bytes <= bsr.MAX_SMEM_BYTES == 232_448
+    assert 1 <= p.threads <= 1024 and (p.threads * p.vec) % B == 0
+    assert p.stage_elems % (p.threads * p.vec) == 0
+    assert p.stage_bytes == p.stage_elems * itemsize < 2 ** 20
+    assert p.xrows % (p.stage_elems // B) == 0
+    if p.path == "bulk":
+        assert aligned and (B * B * itemsize) % 16 == 0
+        assert p.vec * itemsize == 16 and p.stage_bytes % 16 == 0
+        assert p.stages in (1, 2) and p.stage_bytes <= 64 * 1024
+    else:
+        assert p.path == "direct" and p.vec == 1 and p.stages == 0
+        assert not aligned or (B * B * itemsize) % 16 != 0
+    return p
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 32, 128, 512, 1024])
+def test_plan_properties(B, itemsize):
+    for nbr in _PLAN_NBR:
+        for KB in _PLAN_KB:
+            for sms in _PLAN_SMS:
+                p = _check_plan(nbr, KB, B, itemsize, sms, True)
+                _check_plan(nbr, KB, B, itemsize, sms, False)
+                assert (p.path == "bulk") == (B % 2 == 0)
+
+
+def test_plan_fills_the_card_with_few_block_rows():
+    """The shapes the redesign is for: few block-rows split their slots;
+    many block-rows keep one CTA each."""
+    assert bsr.bsr_plan(8, 6, 128, 4, 132).S == 6
+    assert bsr.bsr_plan(64, 8, 128, 4, 132).S == 8
+    assert bsr.bsr_plan(16, 16, 512, 4, 132).grid == 128
+    assert bsr.bsr_plan(512, 8, 128, 4, 132).S == 1
+    assert bsr.bsr_plan(512, 8, 128, 4, 132).path == "bulk"
+    with pytest.raises(ValueError):
+        bsr.bsr_plan(8, 8, 1025, 4, 132)
+
+
+def _chunked_matvec(cols, dataT, x, plan, logical):
+    """The kernel's order of sums, by chunk: each rank's slots of a
+    block-row summed, then the chunks added in rank order; pad rows 0."""
+    nbr, KB = logical
+    B = dataT.shape[-1]
+    gathered = x.reshape(-1, B)[cols[:nbr, :KB].long()]
+    y = torch.zeros(dataT.shape[0], B, dtype=x.dtype)
+    for k0, k1 in plan.chunks:
+        y[:nbr] += torch.einsum("rkji,rkj->ri", dataT[:nbr, k0:k1],
+                                gathered[:, k0:k1])
+    return y.reshape(-1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("nbr,KB,B", [(3, 11, 8), (5, 3, 16), (2, 16, 4), (9, 6, 8)])
+def test_order_of_sums_matches_jax(nbr, KB, B, dtype):
+    """Summing by the plan's chunks in rank order agrees with JAX's Pallas
+    kernel (interpret mode) and with bsr_plain."""
+    block_cols, block_data, x = _padding_operands(nbr, KB, B, dtype)
+    cols, dataT = (_torch(a) for a in bsr.pack_bsr(block_cols, block_data))
+    xt = _torch(np.pad(x, (0, cols.shape[0] * B - x.size)))
+    plan = bsr.bsr_plan(nbr, KB, B, np.dtype(dtype).itemsize, 132)
+    assert plan.S == min(8, KB) > 1
+    y = _chunked_matvec(cols, dataT, xt, plan, (nbr, KB))
+    y_kernel = np.asarray(bsr_pallas.bsr_matvec(
+        jnp.asarray(cols.numpy()), jnp.asarray(dataT.numpy()),
+        jnp.asarray(xt.numpy()), interpret=True))
+    _assert_close(y, y_kernel, cols, dataT, xt)
+    _assert_close(y, bsr.bsr_plain(cols, dataT, xt).numpy(), cols, dataT, xt)
+    assert not y[nbr * B:].any()
+
+
 @pytest.mark.parametrize("n,B", [(96, 16), (100, 16), (75, 8)])
 def test_csr_to_bsr_matches_jax(n, B):
     """n not a block multiple pads x inside the matvec; the spectrum is
@@ -212,6 +329,12 @@ def _bad(case):
                 torch.zeros(1, 1, 1025, 1025), torch.zeros(1025))
     if case == "non_square":
         return cols, torch.zeros(2, 2, 4, 3), x
+    if case == "logical_rows":
+        return cols, data, x, (3, 2)
+    if case == "logical_slots":
+        return cols, data, x, (2, 3)
+    if case == "logical_negative":
+        return cols, data, x, (-1, 2)
     raise AssertionError(case)
 
 
@@ -221,7 +344,10 @@ def _bad(case):
      ("mixed_dtypes", TypeError, "block data"), ("cols_dtype", TypeError, "int32"),
      ("strided_x", ValueError, "contiguous"), ("nbc", ValueError, "multiple"),
      ("cols_shape", ValueError, "block_cols"), ("block_size", ValueError, "square"),
-     ("non_square", ValueError, "square")],
+     ("non_square", ValueError, "square"),
+     ("logical_rows", ValueError, "logical_blocks"),
+     ("logical_slots", ValueError, "logical_blocks"),
+     ("logical_negative", ValueError, "logical_blocks")],
 )
 def test_kernel_wrapper_rejects_bad_input(case, err, match):
     """The checks run before the kernel is built, so they hold here."""
@@ -256,9 +382,9 @@ def test_operator_takes_the_dispatch_unless_told_not_to(monkeypatch):
     calls = []
     real = bsr.bsr_matvec
 
-    def spy(cols, dataT, x):
-        calls.append(x.dtype)
-        return real(cols, dataT, x)
+    def spy(cols, dataT, x, logical_blocks=None):
+        calls.append((x.dtype, logical_blocks))
+        return real(cols, dataT, x, logical_blocks)
 
     monkeypatch.setattr(bsr, "bsr_matvec", spy)
     block_cols, block_data, x = _padding_operands(3, 9, 8, np.float64)
@@ -266,7 +392,7 @@ def test_operator_takes_the_dispatch_unless_told_not_to(monkeypatch):
     xt = torch.from_numpy(x)
     ys = [BsrOperator(block_cols, block_data, (n, n), use_pallas=u).matvec(xt)
           for u in (None, True, False)]
-    assert calls == [torch.float64, torch.float64]
+    assert calls == [(torch.float64, (3, 9))] * 2
     assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
 
 
