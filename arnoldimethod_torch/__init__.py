@@ -17,6 +17,15 @@ held against; module paths and public names match it.
 from .driver import History, PartialSchur, partial_schur
 from .eigen import partial_eigen
 from .targets import LI, LM, LR, SI, SR, Target
+from .transforms import (
+    BInnerProductOperator,
+    ChebyshevFilterOperator,
+    CirculantShiftInvertOperator,
+    GeneralizedShiftInvertOperator,
+    estimate_interval,
+    power_bound,
+    rayleigh_ritz,
+)
 from .workspace import ArnoldiWorkspace
 from .models.operators import (
     CsrOperator,
@@ -26,7 +35,9 @@ from .models.operators import (
     FunctionOperator,
     LinearOperator,
     SellOperator,
+    ShiftInvertDenseOperator,
     Stencil5Operator,
+    TridiagonalShiftInvertOperator,
     as_operator,
     csr_to_ell,
     dia_from_diagonals,
@@ -55,6 +66,15 @@ __all__ = [
     "SellOperator",
     "Stencil5Operator",
     "FunctionOperator",
+    "ShiftInvertDenseOperator",
+    "TridiagonalShiftInvertOperator",
+    "GeneralizedShiftInvertOperator",
+    "BInnerProductOperator",
+    "ChebyshevFilterOperator",
+    "CirculantShiftInvertOperator",
+    "estimate_interval",
+    "power_bound",
+    "rayleigh_ritz",
     "as_operator",
     "csr_to_ell",
 ]

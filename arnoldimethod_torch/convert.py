@@ -9,6 +9,7 @@ checkpoint both packages write.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .models.operators import (
     BsrOperator,
@@ -17,9 +18,14 @@ from .models.operators import (
     DiaOperator,
     EllOperator,
     SellOperator,
+    ShiftInvertDenseOperator,
     Stencil5Operator,
+    TridiagonalShiftInvertOperator,
+    _device,
+    _tensor,
 )
-from .workspace import ArnoldiWorkspace
+from .transforms import ChebyshevFilterOperator, CirculantShiftInvertOperator
+from .workspace import ArnoldiWorkspace, as_torch_dtype
 
 __all__ = ["operator_from_arrays", "workspace_from_npz"]
 
@@ -38,6 +44,19 @@ def operator_from_arrays(kind, arrays, meta, device=None):
     kind "bsr":     arrays {"block_cols", "block_dataT"} as `pack_bsr`
                     packed them, meta {"logical_blocks", "shape"} and
                     optionally "use_pallas".
+    kind "chebyshev":  the inner operator's arrays, meta {"op_kind",
+                    "op_meta" (the inner kind and its meta), "a", "b",
+                    "degree", "scale_point"}.
+    kind "shift_invert_dense":  arrays {"lu", "piv"} as
+                    jax.scipy.linalg.lu_factor returns them (0-based
+                    pivots; torch's are 1-based, so 1 is added), meta
+                    {"sigma", "shape"}.
+    kind "tridiag_shift_invert":  arrays {"l", "swap", "d0", "du1", "du2"}
+                    (the factors) and {"dl", "d", "du"} (the padded shifted
+                    bands), meta {"sigma", "shape", "dtype", "refine"}.
+    kind "circulant_shift_invert":  arrays {"inv_re", "inv_im"} (the
+                    inverse symbol's real words), meta {"grid", "sigma",
+                    "dtype"}.
     """
     if kind == "dense":
         return DenseOperator(np.asarray(arrays["A"]), device=device)
@@ -71,6 +90,37 @@ def operator_from_arrays(kind, arrays, meta, device=None):
             tuple(meta["logical_blocks"]), tuple(meta["shape"]),
             use_pallas=meta.get("use_pallas"), device=device,
         )
+    if kind == "chebyshev":
+        inner = operator_from_arrays(meta["op_kind"], arrays,
+                                     meta.get("op_meta", {}), device=device)
+        return ChebyshevFilterOperator(inner, meta["a"], meta["b"],
+                                       meta["degree"],
+                                       scale_point=meta.get("scale_point"))
+    dev = _device(device)
+    if kind == "shift_invert_dense":
+        piv = np.asarray(arrays["piv"]).astype(np.int32) + 1
+        return ShiftInvertDenseOperator(
+            _tensor(arrays["lu"], dev), _tensor(piv, dev), meta["sigma"],
+            tuple(meta["shape"]),
+        )
+    if kind == "tridiag_shift_invert":
+        dtype = as_torch_dtype(meta["dtype"])
+        factors = tuple(
+            _tensor(arrays[k], dev, torch.bool if k == "swap" else dtype)
+            for k in ("l", "swap", "d0", "du1", "du2")
+        )
+        bands = tuple(_tensor(arrays[k], dev, dtype) for k in ("dl", "d", "du"))
+        return TridiagonalShiftInvertOperator(
+            factors, bands, meta["sigma"], tuple(meta["shape"]), dtype,
+            meta["refine"],
+        )
+    if kind == "circulant_shift_invert":
+        inv = (np.asarray(arrays["inv_re"], np.float64)
+               + 1j * np.asarray(arrays["inv_im"], np.float64))
+        word = as_torch_dtype(meta["dtype"])
+        cdtype = torch.complex64 if word == torch.float32 else torch.complex128
+        return CirculantShiftInvertOperator(
+            _tensor(inv, dev, cdtype), meta["grid"], meta["sigma"], word)
     raise ValueError(f"unknown operator kind {kind!r}")
 
 

@@ -9,10 +9,12 @@ tensors on an explicit `device`; the solver allocates its workspace there.
 scipy.sparse input goes through `as_operator`, which repacks it into the
 layout `pick_sparse_format` chooses (or the one `sparse_format=` names).
 
+The shift-invert operators (dense LU, tridiagonal) sit here as in the JAX
+package; the other spectral transforms are in `transforms.py`.
+
 Behavioral reference: arnoldimethod_tpu/models/operators.py.  The
-shift-invert operators, the split-complex wrappers and the sharded CSR
-operator are not ported yet (ROADMAP.md queue 1); complex matrices are
-native complex operators here.
+split-complex wrappers and the sharded CSR operator are not ported yet
+(ROADMAP.md queue 1); complex matrices are native complex operators here.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ __all__ = [
     "BsrOperator",
     "Stencil5Operator",
     "FunctionOperator",
+    "ShiftInvertDenseOperator",
+    "TridiagonalShiftInvertOperator",
     "as_operator",
     "csr_to_dia",
     "csr_to_ell",
@@ -68,6 +72,15 @@ def _tensor(a, device, dtype=None):
     return a.to(device=device, dtype=dtype)
 
 
+def _float_matrix(A, device):
+    """A dense matrix as a floating (or complex) tensor on `device`, else
+    on A's own device; integer input becomes float64."""
+    A = _tensor(A, _pick_device(device, A))
+    if not (A.is_floating_point() or A.is_complex()):
+        A = A.to(torch.float64)
+    return A
+
+
 def _numpy(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -75,6 +88,28 @@ def _numpy(a):
 def _numpy_dtype(dtype):
     """The numpy dtype of a torch dtype, numpy dtype or dtype name."""
     return torch.empty(0, dtype=as_torch_dtype(dtype)).numpy().dtype
+
+
+def _promote_with_shift(dtype, sigma):
+    """The torch dtype of `dtype` combined with the shift `sigma` as the
+    JAX package combines them: a Python scalar is weak (a float32 matrix
+    with sigma=0.5 stays float32, a complex sigma makes it complex of the
+    same width); a numpy or torch scalar or array keeps its own dtype."""
+    # np.float64 subclasses float, yet it is strong: test numpy first.
+    if (isinstance(sigma, (bool, int, float, complex))
+            and not isinstance(sigma, np.generic)):
+        return torch.result_type(torch.empty(0, dtype=dtype), sigma)
+    if not isinstance(sigma, torch.Tensor):
+        sigma = torch.from_numpy(np.asarray(sigma))
+    return torch.promote_types(dtype, sigma.dtype)
+
+
+def _solve_rhs(solve, x):
+    """Apply a torch.linalg solve that needs a 2-D right-hand side to a
+    vector or a matrix of columns."""
+    if x.dim() == 1:
+        return solve(x[:, None])[:, 0]
+    return solve(x)
 
 
 def _segment_sum(v, lengths):
@@ -201,13 +236,19 @@ class Stencil5Operator(LinearOperator):
         # center everywhere; west/east miss one column; north/south one row.
         return n + 2 * ny * (nx - 1) + 2 * (ny - 1) * nx
 
-    def matvec(self, x):
-        ny, nx = self.grid
-        if (
+    def _takes_kernel(self, x):
+        """True when a step on x goes through `ops.stencil` (the kernel on
+        a CUDA tensor): real x, Dirichlet boundary, use_pallas not False.
+        ChebyshevFilterOperator asks the same to pick its fused step."""
+        return (
             self.boundary == "dirichlet"
             and not x.is_complex()
             and self.use_pallas is not False
-        ):
+        )
+
+    def matvec(self, x):
+        ny, nx = self.grid
+        if self._takes_kernel(x):
             return stencil.stencil5_matvec_sliding(
                 x, coeffs=self.coeffs, grid=self.grid
             )
@@ -236,6 +277,145 @@ class FunctionOperator(LinearOperator):
 
     def matvec(self, x):
         return self.f(x)
+
+
+class ShiftInvertDenseOperator(LinearOperator):
+    """Shift-invert spectral transform x -> (A - sigma*I)^{-1} x for a
+    dense A, via an LU factorization computed once (two triangular solves
+    per matvec, `torch.linalg.lu_solve`).  Eigenvalues transform as
+    theta = 1 / (lambda - sigma); use `which='LM'` and map back
+    lambda = sigma + 1/theta (ref: docs/src/index.md:234-303 shift-invert
+    recipe).
+
+    `lu` and `piv` are what `torch.linalg.lu_factor` returns: LAPACK's
+    1-based pivots, where the JAX package holds 0-based ones
+    (`convert.operator_from_arrays` adds 1)."""
+
+    def __init__(self, lu, piv, sigma, shape):
+        self.lu = lu
+        self.piv = piv
+        self.sigma = sigma
+        self.shape = tuple(shape)
+        self.dtype = lu.dtype
+        self.device = lu.device
+
+    @classmethod
+    def build(cls, A, sigma, device=None):
+        A = _float_matrix(A, device)
+        dtype = _promote_with_shift(A.dtype, sigma)
+        n = A.shape[0]
+        B = A.to(dtype) - sigma * torch.eye(n, dtype=dtype, device=A.device)
+        lu, piv = torch.linalg.lu_factor(B)
+        return cls(lu, piv, sigma, A.shape)
+
+    def matvec(self, x):
+        return _solve_rhs(
+            lambda rhs: torch.linalg.lu_solve(self.lu, self.piv, rhs), x)
+
+
+class TridiagonalShiftInvertOperator(LinearOperator):
+    """Shift-invert transform x -> (A - sigma*I)^{-1} x for a *tridiagonal*
+    A, via a host-computed pivoted LU whose two triangular solves run on
+    the operator's device as log-depth recurrences (ops/tridiag.py): the
+    sparse factorization + ldiv! shift-invert of the reference's docs
+    (docs/src/index.md:234-303) and benchmark
+    (bench/partial_schur.jl:37-52).
+
+    Eigenvalues transform as theta = 1/(lambda - sigma): solve with
+    which='LM', map back lambda = sigma + 1/theta.
+
+    `refine=True` (default when the solve dtype is narrower than float64)
+    wraps each solve in one step of iterative refinement: the residual is
+    recomputed from the shifted bands held in the *solve* dtype, which
+    recovers most of the accuracy a float32 factorization loses for about
+    twice the solve cost."""
+
+    def __init__(self, factors, bands, sigma, shape, dtype, refine):
+        self.factors = factors  # (l, swap, d0, du1, du2) tensors
+        self.bands = bands  # (dl, d, du) of A - sigma*I, length-n padded
+        self.sigma = sigma
+        self.shape = tuple(shape)
+        self.dtype = as_torch_dtype(dtype)
+        self.device = factors[0].device
+        self.refine = bool(refine)
+
+    @classmethod
+    def build(cls, dl, d, du, sigma=0.0, dtype=None, refine=None,
+              device=None):
+        """Factorize A - sigma*I on the host (float64, once) from the
+        tridiagonal bands dl (n-1), d (n), du (n-1); the factors go to
+        `device`."""
+        from ..ops.tridiag import factor_tridiagonal
+
+        dl, d, du = _numpy(dl), _numpy(d), _numpy(du)
+        n = d.shape[0]
+        if dtype is None:
+            # Promote across all bands AND the shift, as the JAX package
+            # does (numpy's rule: a Python float shift is float64).
+            dtype = np.result_type(d.dtype, dl.dtype, du.dtype, type(sigma),
+                                   np.float32)
+        dtype = _numpy_dtype(dtype)
+        if refine is None:
+            refine = np.finfo(dtype).eps > np.finfo(np.float64).eps
+        ds = d.astype(np.promote_types(d.dtype, np.float64)) - sigma
+        fac = factor_tridiagonal(dl, ds, du)
+        dev = _device(device)
+        factors = tuple(
+            _tensor(a if a.dtype == bool else a.astype(dtype), dev)
+            for a in fac.arrays()
+        )
+        pad = np.zeros(1, dtype=ds.dtype)
+        bands = tuple(
+            _tensor(a.astype(dtype), dev)
+            for a in (
+                np.concatenate([np.asarray(dl, ds.dtype), pad]),
+                ds,
+                np.concatenate([np.asarray(du, ds.dtype), pad]),
+            )
+        )
+        return cls(factors, bands, sigma, (n, n), dtype, refine)
+
+    @classmethod
+    def from_operator(cls, op, sigma=0.0, dtype=None, refine=None):
+        """Build from a DiaOperator whose offsets are within {-1, 0, 1},
+        on the operator's device.  A complex DiaOperator (what
+        `dia_from_diagonals` returns for complex values) gives complex
+        factors: complex64 from complex64 diagonals, else complex128 (the
+        JAX package takes a split-complex pair of real DIA parts here)."""
+        if not isinstance(op, DiaOperator):
+            raise TypeError("from_operator expects a DiaOperator")
+        if not set(op.offsets) <= {-1, 0, 1}:
+            raise ValueError("operator is not tridiagonal")
+        if dtype is None and op.dtype.is_complex:
+            dtype = (np.complex64 if op.dtype == torch.complex64
+                     else np.complex128)
+        n = op.shape[0]
+        host = _numpy(op.diags)
+        diags = {o: host[i] for i, o in enumerate(op.offsets)}
+        zero = np.zeros(n, dtype=host.dtype)
+        # diags[d, i] = A[i, i + offset]: entry j of offset -1 multiplies
+        # x[j-1] on row j, so dl[j-1] = diags[-1][j].
+        dl = diags.get(-1, zero)[1:]
+        d = diags.get(0, zero)
+        du = diags.get(1, zero)[:-1]
+        return cls.build(dl, d, du, sigma=sigma, dtype=dtype, refine=refine,
+                         device=op.device)
+
+    def _shifted_matvec(self, x):
+        dl, d, du = self.bands
+        lower = torch.cat([x[:1] * 0, dl[:-1] * x[:-1]])
+        upper = torch.cat([du[:-1] * x[1:], x[:1] * 0])
+        return d * x + lower + upper
+
+    def matvec(self, b):
+        from ..ops.tridiag import tridiag_lu_solve
+
+        x = tridiag_lu_solve(*self.factors, b)
+        if not self.refine:
+            return x
+        # One iterative-refinement step; the residual is 5 elementwise ops.
+        r = b - self._shifted_matvec(x)
+        return x + tridiag_lu_solve(*self.factors, r)
 
 
 class EllOperator(LinearOperator):

@@ -48,6 +48,25 @@ Phases, each printed as one JSON line:
            through partial_schur(S, device="cuda"): the format rule picks
            BSR and the kernel runs; eigenvalues against the CSR layout
   bsr_profile  torch.profiler over the first restarts of the bsr_main solve
+  cheb_kernel  the fused Chebyshev step kernel (stencil + three-term
+           recurrence) against its plain PyTorch version at 3200^2, 1024^2,
+           1021 x 1000 f32 and 256^2 f64, each with q = 0 (no z), q != 0
+           and y written over z; bound 8 eps (|p| |inv_e| (sum|coeff| + |c|)
+           max|x| + |q| max|z|); device ms per step (graph) and GB/s
+           counting 12 (24) bytes a point; then one degree-1000 filtered
+           matvec at 3200^2 through the kernel and through plain torch
+  e2e10m   the north star: nev=100 smallest eigenvalues of the 3200^2
+           (10,240,000-row) Laplacian stencil, float32, by the Chebyshev
+           recipe (estimate_interval, a degree-1000 filter, partial_schur
+           :LM with maxdim=200, rayleigh_ritz): 100/100 converged,
+           eigenvalue error against the analytic spectrum, residuals,
+           fused-kernel launches = filtered matvecs x 1000, peak memory
+  shiftinv the reference's config 4: n = 6,000 tridiagonal shift-invert at
+           sigma = 0 (float32 with refinement), nev=10, :LM; and float64
+           from one v1 on the card and on the CPU: same matvec count
+  conv1m   the 1,048,576-row periodic convection-diffusion circulant
+           through the FFT shift-invert with a staged sigma walk, nev=12,
+           :LM, complex Ritz pairs checked against the exact DFT symbol
 
 Then the card's nvidia-smi line, the kernel summary line and, last, the
 result line.  Any failed check ends the run with a non-zero exit code and
@@ -693,6 +712,290 @@ def phase_sparse_auto(torch):
           lam_err_vs_csr=lam_err)
 
 
+def _cheb_case(torch, grid, dtype, gen):
+    """Inputs of one Chebyshev step at `grid`: x, z on the card and the
+    step's scalars from a degree-1000 scaled filter over the north star's
+    interval shape (damp [5e-5, 1.0925], scale at 2.5e-7)."""
+    from arnoldimethod_torch.transforms import ChebyshevFilterOperator
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+
+    n = grid[0] * grid[1]
+    op = Stencil5Operator(LAPLACE, grid, dtype=dtype, device="cuda")
+    fop = ChebyshevFilterOperator(op, 5e-5, 1.0925, 1000, scale_point=2.5e-7)
+    x = torch.randn(n, dtype=dtype, device="cuda", generator=gen)
+    z = torch.randn(n, dtype=dtype, device="cuda", generator=gen)
+    c = (fop.a + fop.b) / 2
+    inv_e = 1.0 / ((fop.b - fop.a) / 2)
+    p, q = fop.steps[10]
+    return fop, x, z, c, inv_e, fop.first, p, q
+
+
+def phase_cheb_kernel(torch):
+    """The fused Chebyshev step against stencil5_cheb_plain on the card,
+    then one whole degree-1000 filtered matvec both ways."""
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.transforms import ChebyshevFilterOperator
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = []
+    for grid, dtype in (((3200, 3200), torch.float32),
+                        ((1024, 1024), torch.float32),
+                        ((1021, 1000), torch.float32),
+                        ((256, 256), torch.float64)):
+        _, x, z, c, inv_e, p0, p, q = _cheb_case(torch, grid, dtype, gen)
+        kw = dict(coeffs=LAPLACE, grid=grid, c=c, inv_e=inv_e)
+        eps = torch.finfo(dtype).eps
+        xmax, zmax = x.abs().max().item(), z.abs().max().item()
+        smax = sum(abs(v) for v in LAPLACE) + abs(c)
+        n = grid[0] * grid[1]
+        for mode in ("q0", "q", "alias"):
+            pp, qq = (p0, 0.0) if mode == "q0" else (p, q)
+            zz = None if mode == "q0" else z
+            want = stencil.stencil5_cheb_plain(x, zz, LAPLACE, grid, c,
+                                               inv_e, pp, qq)
+            if mode == "alias":
+                buf = z.clone()
+                got = stencil.stencil5_cheb_step(x, buf, p=pp, q=qq, out=buf,
+                                                 **kw)
+                aliased = got.data_ptr() == buf.data_ptr()
+            else:
+                got = stencil.stencil5_cheb_step(x, zz, p=pp, q=qq, **kw)
+                aliased = None
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            bound = 8 * eps * (abs(pp) * abs(inv_e) * smax * xmax
+                               + abs(qq) * (0 if zz is None else zmax))
+            ping = z.clone()
+
+            def kernel():
+                if mode == "alias":
+                    return stencil.stencil5_cheb_step(x, ping, p=pp, q=qq,
+                                                      out=ping, **kw)
+                return stencil.stencil5_cheb_step(x, zz, p=pp, q=qq, **kw)
+
+            def plain():
+                return stencil.stencil5_cheb_plain(x, zz, LAPLACE, grid, c,
+                                                   inv_e, pp, qq)
+
+            ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+            nbytes = (2 if zz is None else 3) * n * x.element_size()
+            res = {"grid": list(grid), "dtype": str(dtype).split(".")[-1],
+                   "mode": mode, "p": pp, "q": qq, "c": c, "inv_e": inv_e,
+                   "max_abs_err": err, "bound": bound, "out_is_z": aliased,
+                   "ms": ms, "plain_ms": plain_ms,
+                   "slower_than_plain": ms > plain_ms,
+                   "gbs": nbytes / ms / 1e6,
+                   "plain_gbs": nbytes / plain_ms / 1e6}
+            results.append(res)
+            check("cheb_kernel", err <= bound and aliased is not False, **res)
+
+    # One whole degree-1000 filtered matvec at the north star's grid, the
+    # kernel's recurrence against the plain stencil + torch ops.
+    grid = (3200, 3200)
+    fop, x, *_ = _cheb_case(torch, grid, torch.float32, gen)
+    plain_op = Stencil5Operator(LAPLACE, grid, dtype=torch.float32,
+                                use_pallas=False, device="cuda")
+    fplain = ChebyshevFilterOperator(plain_op, fop.a, fop.b, fop.degree,
+                                     scale_point=fop.scale_point)
+    before = stencil.KERNEL.cheb_launches
+    y_k, y_p = fop.matvec(x), fplain.matvec(x)
+    torch.cuda.synchronize()
+    steps = stencil.KERNEL.cheb_launches - before
+    rel = (torch.linalg.vector_norm(y_k - y_p)
+           / torch.linalg.vector_norm(y_p)).item()
+    ms = median_ms(lambda: fop.matvec(x), reps=5, warm=1)
+    plain_ms = median_ms(lambda: fplain.matvec(x), reps=3, warm=1)
+    check("cheb_kernel", steps == fop.degree and rel <= 1e-4
+          and bool(torch.isfinite(y_k).all()),
+          case="filter_matvec_deg1000_3200x3200_f32", kernel_steps=steps,
+          rel_diff=rel, ms=ms, plain_ms=plain_ms,
+          ms_per_step=ms / fop.degree, plain_ms_per_step=plain_ms / fop.degree)
+    return results[2]  # 3200^2 f32, y written over z: the recurrence's mode
+
+
+def phase_e2e10m(torch):
+    """The north star at full size (bench.py's e2e_10m_nev100 recipe, its
+    first configuration): nev=100 of the 10,240,000-row Laplacian."""
+    import gc
+
+    import numpy as np
+
+    from arnoldimethod_torch import (
+        ChebyshevFilterOperator,
+        estimate_interval,
+        partial_schur,
+        rayleigh_ritz,
+    )
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+    from arnoldimethod_torch.ops import bsr, stencil
+
+    N, nev, deg = 3200, 100, 1000
+    lam1 = 0.130 * (2 - 2 * np.cos(np.pi * np.arange(1, N + 1) / (N + 1)))
+    exact = np.sort(np.partition(np.add.outer(lam1, lam1).ravel(), nev)[:nev])
+    op = Stencil5Operator(LAPLACE, (N, N), dtype=torch.float32, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    K = stencil.KERNEL
+    K.launches = K.cheb_launches = bsr.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    iv = estimate_interval(op, nev=nev, maxdim=120,
+                           refine_degree=(100, 200, 400, 400))
+    torch.cuda.synchronize()
+    interval_s = time.perf_counter() - t0
+    iv_launches = (K.launches, K.cheb_launches)
+    fop = ChebyshevFilterOperator(op, iv.a, iv.b, deg, scale_point=iv.lo)
+    t0 = time.perf_counter()
+    d, h = partial_schur(fop, nev=nev, which="LM", tol=1e-7, mindim=nev,
+                         maxdim=200, method="host")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    solve_launches = (K.launches - iv_launches[0],
+                      K.cheb_launches - iv_launches[1])
+    t0 = time.perf_counter()
+    w, _, res = rayleigh_ritz(op, d.Q_rows, rows_layout=True,
+                              return_vectors=False)
+    torch.cuda.synchronize()
+    rr_s = time.perf_counter() - t0
+    launches = {"stencil5": K.launches, "stencil5_cheb": K.cheb_launches,
+                "bsr": bsr.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    w = np.sort(np.asarray(w).real)
+    err = (float(np.max(np.abs(w[:nev] - exact))) if w.size >= nev
+           else math.inf)
+    max_res = float(np.max(res[:nev]))
+    info = dict(
+        n=N * N, interval={"a": iv.a, "b": iv.b, "lo": iv.lo},
+        interval_s=interval_s, solve_s=solve_s, rr_s=rr_s,
+        wall_s=interval_s + solve_s + rr_s, restarts=h.restarts,
+        filtered_matvecs=h.mvproducts, A_matvecs=h.mvproducts * deg,
+        nconverged=h.nconverged, converged=h.converged, max_resid=max_res,
+        eig_err=err, interval_launches={"stencil5": iv_launches[0],
+                                        "stencil5_cheb": iv_launches[1]},
+        solve_launches={"stencil5": solve_launches[0],
+                        "stencil5_cheb": solve_launches[1]},
+        launches=launches, timings=h.timings, host_syncs=h.host_syncs,
+        dense_layer=h.dense_layer, peak_mem_bytes=peak,
+        resident_before_bytes=resident,
+        jax_tpu_record={"source": "BENCH_r05.json (JAX on a TPU)",
+                        "restarts": 1, "filtered_matvecs": 200,
+                        "eig_err": 1.145e-8, "max_resid": 1.322e-6,
+                        "wall_s": 243},
+    )
+    check("e2e10m", h.converged and h.nconverged >= nev and err <= 1e-7
+          and max_res <= 1e-5 and solve_launches[1] == h.mvproducts * deg
+          and solve_launches[0] == 0, **info)
+    return launches["stencil5_cheb"]
+
+
+def phase_shiftinv(torch):
+    """The reference's config 4 (bench/partial_schur.jl:37-52): n = 6,000
+    tridiagonal (-1, 2, -1.001), shift-invert at sigma = 0, nev=10, :LM."""
+    import numpy as np
+
+    from arnoldimethod_torch import TridiagonalShiftInvertOperator, partial_schur
+
+    n = 6000
+    dl, d, du = np.full(n - 1, -1.0), np.full(n, 2.0), np.full(n - 1, -1.001)
+    kw = dict(nev=10, which="LM", tol=1e-7, mindim=11, maxdim=22,
+              method="host")
+    t0 = time.perf_counter()
+    si = TridiagonalShiftInvertOperator.build(dl, d, du, sigma=0.0,
+                                              dtype=np.float32, device="cuda")
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec, h = partial_schur(si, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lams = 1.0 / dec.eigenvalues.real
+    exact = 2.0 + 2.0 * np.sqrt(1.001) * np.cos(
+        np.arange(1, n + 1) * np.pi / (n + 1))
+    eig_err = (max(np.min(np.abs(exact - lam)) for lam in lams) / 4.003
+               if lams.size else math.inf)
+    # float64 from one v1, on the card and on the CPU.
+    v1 = np.random.default_rng(1).standard_normal(n)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        si64 = TridiagonalShiftInvertOperator.build(dl, d, du, sigma=0.0,
+                                                    device=dev)
+        _, h64 = partial_schur(si64, v1=v1, **kw)
+        counts[dev] = (h64.mvproducts, h64.converged)
+    check("shiftinv", h.converged and h.nconverged >= 10 and eig_err <= 1e-6
+          and counts["cuda"] == counts["cpu"] and counts["cuda"][1],
+          n=n, refine=si.refine, factor_s=factor_s, wall_s=wall,
+          mvproducts=h.mvproducts, restarts=h.restarts,
+          nconverged=h.nconverged, eig_err=eig_err,
+          f64_mvproducts_cuda=counts["cuda"][0],
+          f64_mvproducts_cpu=counts["cpu"][0],
+          jax_record_mvproducts={"value": 28,
+                                 "source": "README, JAX package"})
+
+
+def phase_conv1m(torch):
+    """The periodic convection-diffusion circulant at n = 1,048,576
+    through the FFT shift-invert (bench.py's conv_1m_nonsym recipe)."""
+    import numpy as np
+
+    from arnoldimethod_torch import (
+        CirculantShiftInvertOperator,
+        partial_schur,
+        power_bound,
+        rayleigh_ritz,
+    )
+    from arnoldimethod_torch.models import convection_diffusion_periodic_2d
+
+    N, s, cx, cy = 1024, 0.13, 0.15, 0.08
+    op = convection_diffusion_periodic_2d(N, cx=cx, cy=cy, scale=s,
+                                          device="cuda")
+    t0 = time.perf_counter()
+    sigma = power_bound(op)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn(N * N, dtype=torch.float32, device="cuda", generator=gen)
+    for _stage in range(4):
+        si = CirculantShiftInvertOperator.build(op, sigma)
+        for _ in range(30):
+            w = si.matvec(v)
+            v = w / torch.linalg.vector_norm(w)
+        Av = op.matvec(v)
+        lam_hat = float(torch.dot(v, Av))
+        r = float(torch.linalg.vector_norm(Av - lam_hat * v))
+        sigma = lam_hat + max(4 * r, 0.05 * (sigma - lam_hat), 1e-7)
+    torch.cuda.synchronize()
+    sigma_s = time.perf_counter() - t0
+    si = CirculantShiftInvertOperator.build(op, sigma)
+    t0 = time.perf_counter()
+    dec, h = partial_schur(si, nev=12, which="LM", tol=1e-7, mindim=18,
+                           maxdim=36, method="host", restarts=300)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w, X, res = rayleigh_ritz(op, dec.Q)
+    torch.cuda.synchronize()
+    rr_s = time.perf_counter() - t0
+    th = 2 * np.pi * np.arange(N) / N
+    se = (s * ((2 - 2 * np.cos(th))[:, None] + (2 - 2 * np.cos(th))[None, :]
+               + 2j * (cx * np.sin(th)[:, None] + cy * np.sin(th)[None, :]))
+          ).ravel()
+    w = np.asarray(w)
+    acc = float(max(np.abs(se - lam).min() for lam in w))
+    top8 = se[np.argsort(-np.abs(se))][:8]
+    cov = float(max(np.abs(w - t).min() for t in top8))
+    pairs = int(np.sum(w.imag > 1e-9))
+    check("conv1m", h.converged and acc <= 1e-4 and pairs >= 1
+          and X.is_complex() and X.shape == (N * N, w.size),
+          n=N * N, sigma=sigma, sigma_s=sigma_s, solve_s=solve_s, rr_s=rr_s,
+          mvproducts=h.mvproducts, restarts=h.restarts,
+          nconverged=h.nconverged, max_resid=float(np.max(res)),
+          eig_acc=acc, top8_coverage=cov, complex_pairs=pairs,
+          jax_tpu_record={"source": "BENCH_r05.json (JAX on a TPU)",
+                          "mvproducts": 114, "restarts": 7,
+                          "complex_pairs": 6, "max_resid": 4.6e-5})
+
+
 def main():
     import torch
 
@@ -729,6 +1032,11 @@ def main():
     _profile(torch, "bsr_profile", op32, "bsr", "profile_bsr.txt",
              v1=np.random.default_rng(1).standard_normal(n), nev=10,
              which="LM", tol=1e-6, restarts=3)
+    del op32, op64
+    cheb_shape = phase_cheb_kernel(torch)
+    cheb_launches = phase_e2e10m(torch)
+    phase_shiftinv(torch)
+    phase_conv1m(torch)
 
     main_shape = kernels[0]
     print(card, flush=True)
@@ -751,6 +1059,16 @@ def main():
         "max_abs_err": bsr_shape["max_abs_err"],
         "ms": bsr_shape["ms"],
         "plain_ms": bsr_shape["plain_ms"],
+    }, {
+        "name": "stencil5_cheb",
+        "route": "cuda",
+        "source": "arnoldimethod_torch/csrc/stencil5.cu",
+        "replaces": "arnoldimethod_tpu/transforms.py:199 (XLA-fused "
+                    "recurrence; not a Pallas kernel)",
+        "launches": cheb_launches,
+        "max_abs_err": cheb_shape["max_abs_err"],
+        "ms": cheb_shape["ms"],
+        "plain_ms": cheb_shape["plain_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
