@@ -31,7 +31,8 @@ __all__ = ["operator_from_arrays", "workspace_from_npz"]
 
 
 def operator_from_arrays(kind, arrays, meta, device=None):
-    """Build this package's operator from another package's operator data.
+    """Build this package's operator from another package's operator data,
+    on `device` (the card by default).
 
     kind "dense":   arrays {"A"}.
     kind "dia":     arrays {"diags", "offsets"}, meta {"shape"}.
@@ -126,5 +127,6 @@ def operator_from_arrays(kind, arrays, meta, device=None):
 
 def workspace_from_npz(path, device=None):
     """Load an ArnoldiWorkspace checkpoint written by either package's
-    `ArnoldiWorkspace.save` onto `device`."""
+    `ArnoldiWorkspace.save` onto `device` (the card by default), with the
+    low words `Vlo` and `Hlo` of an extended-precision solve."""
     return ArnoldiWorkspace.load(path, device=device)

@@ -5,7 +5,8 @@ constant-coefficient 5-point stencil, and callables.
 An operator exposes `shape`, `dtype` (a torch dtype), `device` and
 `matvec(x)` on tensors, mirroring the reference's matrix-free
 `mul!`/`eltype`/`size` protocol (run.jl:21-23).  Each operator holds its
-tensors on an explicit `device`; the solver allocates its workspace there.
+tensors on one `device`: the one named, else a tensor input's own, else the
+card (`_device.resolve`); the solver allocates its workspace there.
 scipy.sparse input goes through `as_operator`, which repacks it into the
 layout `pick_sparse_format` chooses (or the one `sparse_format=` names).
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _device as _dev
 from ..ops import bsr, stencil
 from ..workspace import as_torch_dtype
 
@@ -53,14 +55,13 @@ __all__ = [
 
 
 def _device(device):
-    return torch.device("cpu" if device is None else device)
+    """`device`, else the port's default, the card (`_device.resolve`)."""
+    return _dev.resolve(device)
 
 
 def _pick_device(device, a):
-    """`device`, else the device of tensor `a`, else the CPU."""
-    if device is None and isinstance(a, torch.Tensor):
-        return a.device
-    return _device(device)
+    """`device`, else the device of tensor `a`, else the card."""
+    return _dev.resolve(device, like=a)
 
 
 def _tensor(a, device, dtype=None):
@@ -600,8 +601,13 @@ class BsrOperator(LinearOperator):
     n.  `use_pallas` None or True: a CUDA tensor launches the hand-written
     BSR kernel, a CPU tensor takes its plain version; False: the plain
     version everywhere.  The card has no counterpart of the TPU kernel's
-    VMEM cap, so no size makes True raise.  Complex blocks on a CUDA tensor
-    raise TypeError unless use_pallas=False (the kernel is real)."""
+    VMEM cap, so no size makes True raise.
+
+    Complex blocks are held as packed real and imaginary words (the
+    imaginary word is None when every imaginary part is zero).  Unless
+    use_pallas=False, the matvec runs the real matvec on the words as the
+    JAX package's `SplitComplexOperator.matvec_sc` does, in its order:
+    yr = Ar xr - Ai xi, yi = Ar xi + Ai xr (two launches without Ai)."""
 
     def __init__(self, block_cols, block_data, shape, use_pallas=None,
                  device=None):
@@ -629,16 +635,30 @@ class BsrOperator(LinearOperator):
                 f"{tuple(shape)} and block size {B}"
             )
         self.block_cols = _tensor(cols, device, torch.int32)
-        self.block_dataT = _tensor(dataT, device)
+        data = _tensor(dataT, device)
+        if data.is_complex():
+            im = data.imag.contiguous() if bool(data.imag.any()) else None
+            self.words = (data.real.contiguous(), im)
+        else:
+            self.words = (data, None)
         self.logical_blocks = tuple(int(v) for v in logical_blocks)
         self.shape = tuple(shape)
-        self.dtype = self.block_dataT.dtype
+        self.dtype = data.dtype
         self.device = device
         self.use_pallas = use_pallas
 
     @property
+    def block_dataT(self):
+        """The packed blocks: the stored tensor for real blocks, a complex
+        tensor made from the two words for complex ones."""
+        re, im = self.words
+        if not self.dtype.is_complex:
+            return re
+        return torch.complex(re, torch.zeros_like(re) if im is None else im)
+
+    @property
     def block_size(self):
-        return int(self.block_dataT.shape[-1])
+        return int(self.words[0].shape[-1])
 
     @property
     def block_data(self):
@@ -661,10 +681,24 @@ class BsrOperator(LinearOperator):
         x = x.contiguous()
         if self.use_pallas is False:
             y = bsr.bsr_plain(self.block_cols, self.block_dataT, x)
+        elif self.dtype.is_complex:
+            y = self._matvec_split(x.to(self.dtype))
         else:
-            y = bsr.bsr_matvec(self.block_cols, self.block_dataT, x,
-                               self.logical_blocks)
+            y = self._word_matvec(self.words[0], x)
         return y[:n]
+
+    def _word_matvec(self, word, x):
+        return bsr.bsr_matvec(self.block_cols, word, x, self.logical_blocks)
+
+    def _matvec_split(self, x):
+        """Complex y from the real matvec on the words (matvec_sc's order)."""
+        re, im = self.words
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        yr, yi = self._word_matvec(re, xr), self._word_matvec(re, xi)
+        if im is not None:
+            yr = yr - self._word_matvec(im, xi)
+            yi = yi + self._word_matvec(im, xr)
+        return torch.complex(yr, yi)
 
 
 def dense_to_bsr(A, block_size=128, use_pallas=None, device=None):

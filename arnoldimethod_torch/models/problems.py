@@ -5,7 +5,7 @@ Laplacian readme.md:30-34, tridiagonal, 2-D Laplacian and
 convection-diffusion from BASELINE.json, the periodic convection-diffusion
 torus), with the same coefficients.  Each returns the DIA layout by default
 or, for the 2-D grids, the 5-point stencil with fmt="stencil"; every builder
-takes the `device` its operator lives on.  fmt="ell" gives the padded ELL
+takes the `device` its operator lives on, the card by default.  fmt="ell" gives the padded ELL
 layout of the same matrix, as in the JAX package.
 """
 

@@ -19,7 +19,8 @@ slots (`logical_blocks`), never the TPU's padding.
 Dispatch: a tensor on the CPU takes `bsr_plain`; a CUDA tensor launches
 the kernel, which is built with nvcc at first use, or raises.  Nothing
 falls back from the kernel to the plain version.  The kernel takes real
-float32 and float64; complex blocks raise TypeError on a CUDA tensor.
+float32 and float64; `BsrOperator` runs complex blocks through it as two
+real words.
 """
 
 from __future__ import annotations
@@ -226,8 +227,8 @@ class _BsrKernel:
         if x.dtype not in (torch.float32, torch.float64):
             raise TypeError(
                 f"the BSR kernel takes real float32 or float64, got {x.dtype}"
-                + ("; a complex BSR operator on a CUDA tensor needs "
-                   "use_pallas=False" if x.dtype.is_complex else "")
+                + ("; BsrOperator passes it the real and imaginary words"
+                   if x.dtype.is_complex else "")
             )
         if block_dataT.dtype != x.dtype:
             raise TypeError(

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _device as _dev
+
 __all__ = ["ArnoldiWorkspace", "as_torch_dtype"]
 
 
@@ -49,7 +51,7 @@ class ArnoldiWorkspace:
         self.n = int(n)
         self.maxdim = int(maxdim)
         dtype = as_torch_dtype(dtype)
-        device = torch.device("cpu" if device is None else device)
+        device = _dev.resolve(device, like=V)
 
         if V is None:
             V = torch.zeros((maxdim + 1, n), dtype=dtype, device=device)
@@ -73,6 +75,14 @@ class ArnoldiWorkspace:
                     f"H must have shape {(maxdim + 1, maxdim)}, got {H.shape}"
                 )
         self.H = H
+        # Low word of the basis after an extended=True solve, so that a
+        # warm start resumes at double-word accuracy; None after a plain
+        # solve, which moves V without tracking it.
+        self.Vlo = None
+        # Low words of the host Hessenberg after a double-double solve
+        # (extended=True with float64 words): H holds the hi words.  None
+        # otherwise.
+        self.Hlo = None
 
     @property
     def dtype(self):
@@ -89,7 +99,12 @@ class ArnoldiWorkspace:
     # the locked R block.
 
     def save(self, path):
-        """Serialize to an .npz file (V is copied to the host)."""
+        """Serialize to an .npz file (V and Vlo are copied to the host)."""
+        extra = {}
+        if self.Vlo is not None:
+            extra["Vlo"] = self.Vlo.cpu().numpy()
+        if self.Hlo is not None:
+            extra["Hlo"] = np.asarray(self.Hlo)
         np.savez(
             path,
             V=self.V.cpu().numpy(),
@@ -97,21 +112,20 @@ class ArnoldiWorkspace:
             n=self.n,
             maxdim=self.maxdim,
             dtype=_numpy_name(self.V.dtype),
+            **extra,
         )
 
     @classmethod
     def load(cls, path, device=None):
         """Restore a workspace saved with `save`, by this package or by the
-        JAX package."""
+        JAX package, with its extended-precision words (`Vlo`, `Hlo`)."""
         with np.load(path, allow_pickle=False) as f:
-            extra = sorted({"Vlo", "Vim", "Hlo"} & set(f.files))
-            if extra:
+            if "Vim" in f.files:
                 raise NotImplementedError(
-                    f"checkpoint carries {extra}: extended-precision and "
-                    "split-complex state are not ported yet (ROADMAP.md "
-                    "queue 1, items 11-12)"
+                    "checkpoint carries 'Vim': split-complex state is not "
+                    "ported yet (ROADMAP.md queue 1, item 12)"
                 )
-            return cls(
+            ws = cls(
                 int(f["n"]),
                 int(f["maxdim"]),
                 dtype=str(f["dtype"]),
@@ -119,3 +133,9 @@ class ArnoldiWorkspace:
                 H=f["H"],
                 device=device,
             )
+            if "Vlo" in f.files:
+                ws.Vlo = torch.from_numpy(np.array(f["Vlo"])).to(
+                    dtype=ws.dtype, device=ws.device)
+            if "Hlo" in f.files:
+                ws.Hlo = np.array(f["Hlo"], dtype=np.float64)
+            return ws

@@ -27,8 +27,19 @@ from arnoldimethod_torch.models.operators import (
     dense_to_bsr,
 )
 from arnoldimethod_torch.ops import bsr
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
+
 
 DTYPES = [np.float32, np.float64]
 
@@ -340,7 +351,7 @@ def _bad(case):
 
 @pytest.mark.parametrize(
     "case,err,match",
-    [("dtype", TypeError, "float32"), ("complex", TypeError, "use_pallas=False"),
+    [("dtype", TypeError, "float32"), ("complex", TypeError, "imaginary words"),
      ("mixed_dtypes", TypeError, "block data"), ("cols_dtype", TypeError, "int32"),
      ("strided_x", ValueError, "contiguous"), ("nbc", ValueError, "multiple"),
      ("cols_shape", ValueError, "block_cols"), ("block_size", ValueError, "square"),

@@ -18,6 +18,17 @@ from arnoldimethod_tpu.dense import native as jnative
 from arnoldimethod_torch.dense import native as tnative
 from arnoldimethod_torch.targets import get_order
 from utils import normal_hessenberg_matrix
+from arnoldimethod_torch import _device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
+
 
 DTYPES = [np.float64, np.complex128]
 M = 12

@@ -18,8 +18,18 @@ import arnoldimethod_tpu.ops.expansion as jexp
 from arnoldimethod_tpu.models.operators import DenseOperator as JDense
 from arnoldimethod_torch.models.operators import DenseOperator
 from arnoldimethod_torch.ops import expansion as texp
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 N, M = 60, 12
 

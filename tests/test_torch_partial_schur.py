@@ -23,8 +23,18 @@ from arnoldimethod_tpu.models import problems as jp
 from arnoldimethod_torch.convert import workspace_from_npz
 from arnoldimethod_torch.dense import native as tnative
 from arnoldimethod_torch.models import problems as tp
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 EPS = np.finfo(np.float64).eps
 

@@ -29,8 +29,18 @@ from arnoldimethod_torch.ops.tridiag import (
     tridiag_lu_solve,
 )
 from arnoldimethod_tpu.models import problems as jp
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 
 def _close(got, want, rtol):

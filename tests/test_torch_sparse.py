@@ -20,8 +20,18 @@ import arnoldimethod_torch as tam
 import arnoldimethod_torch.models.operators as to
 import arnoldimethod_torch.models.problems as tp
 from arnoldimethod_torch.convert import operator_from_arrays
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 DTYPES = [np.float32, np.float64, np.complex128]
 DTYPE_IDS = ["f32", "f64", "c128"]

@@ -42,8 +42,18 @@ from arnoldimethod_torch.models.operators import (
     Stencil5Operator,
 )
 from arnoldimethod_torch.ops import stencil
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 LAPLACE = (4.0, -1.0, -1.0, -1.0, -1.0)
 GRID = (24, 20)

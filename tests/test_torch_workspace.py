@@ -9,8 +9,18 @@ import torch
 import arnoldimethod_tpu as jam
 from arnoldimethod_torch import ArnoldiWorkspace
 from arnoldimethod_torch.workspace import as_torch_dtype
+from arnoldimethod_torch import _device
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port's entry points default to the card; these tests ask for
+    the CPU (module scope: module fixtures build operators too)."""
+    saved, _device.DEFAULT = _device.DEFAULT, "cpu"
+    yield
+    _device.DEFAULT = saved
 
 
 def test_copy_on_construct():
@@ -61,11 +71,14 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_extended_checkpoint_is_refused(tmp_path):
+    """An extended checkpoint loads (tests/test_torch_extended.py); one that
+    also carries split-complex state is refused: that path is not ported."""
     jws = jam.ArnoldiWorkspace(8, 3, dtype=jnp.float32)
     jws.Vlo = jnp.zeros_like(jws.V)
+    jws.Vim = jnp.zeros_like(jws.V)
     path = tmp_path / "ext.npz"
     jws.save(path)
-    with pytest.raises(NotImplementedError, match="Vlo"):
+    with pytest.raises(NotImplementedError, match="Vim"):
         ArnoldiWorkspace.load(path)
 
 
