@@ -3,7 +3,8 @@
 Every native piece of the port is a plain shared library with a C
 interface, loaded through ctypes: the C++ dense restart core
 (`native/arnoldi_dense.cpp`, built with g++) and the CUDA kernels
-(`csrc/stencil5.cu`, `csrc/bsr.cu`, built with nvcc).  They are compiled into
+(`csrc/stencil5.cu`, `csrc/bsr.cu`, `csrc/df.cu`, built with nvcc; each is
+built at its first use, or all at once by `build_all`).  They are compiled into
 `build/arnoldimethod_torch/` beside the package (listed in `.gitignore`),
 never into the package directory, under a name that carries a hash of the
 sources and the command, so an edit to either rebuilds.  The compiler
@@ -17,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -40,6 +42,30 @@ def nvcc_command(what):
             "(set CUDA_HOME)"
         )
     return [f"{CUDA_HOME}/bin/nvcc", *NVCC_FLAGS]
+
+
+def build_all():
+    """Build (or load) every native library of the port at once, one thread
+    each: the CUDA kernels `csrc/stencil5.cu`, `csrc/bsr.cu` and
+    `csrc/df.cu` with nvcc, and the C++ dense core with g++.  Returns the
+    seconds each took, by name.  A failed CUDA build raises; the dense core
+    reports its failure through `dense.native.build_error` (the numpy layer
+    then runs)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .dense import native
+    from .ops import bsr, df, stencil
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    jobs = {"stencil5": stencil.KERNEL.load, "bsr": bsr.KERNEL.load,
+            "df": df.KERNEL.load, "dense": native.available}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def build_shared(name, sources, command, timeout=600):

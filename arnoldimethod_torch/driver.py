@@ -1,9 +1,10 @@
 """The Krylov-Schur restart driver: `partial_schur`.
 
 Orchestrates the two layers of the solver: the n-sized work on the device
-(Arnoldi expansion and the basis-change GEMM, ops/expansion.py) and the
-host float64 dense kernels for the (maxdim+1)-sized work (Francis QR,
-reordering, restoration, dense/).  All restart decisions (locking counts,
+(Arnoldi expansion and the basis-change GEMM, ops/expansion.py, or their
+double-word forms in ops/df_expansion.py for extended=True) and the host
+float64 (or double-double) dense kernels for the (maxdim+1)-sized work
+(Francis QR, reordering, restoration, dense/).  All restart decisions (locking counts,
 purge index, conjugate-pair splits, truncation size) are made on the host
 from the small H; each restart pays one device step and one H readback.
 
@@ -31,6 +32,15 @@ from .dense.swaps import (
     swap,
 )
 from .models.operators import as_operator
+from .ops.dd import DD_EPS, dd_collapse, dd_hi, dd_lo, dd_pack
+from .ops.df_expansion import (
+    df_apply_basis_change,
+    df_expand_range,
+    df_reorthogonalize_row,
+    df_set_initial_vector,
+    df_truncate_and_expand,
+    split_f64,
+)
 from .ops.expansion import (
     apply_basis_change,
     expand_range,
@@ -87,7 +97,10 @@ class PartialSchur:
     ArnoldiMethod.jl:120-137).
 
     The basis is held in the solver's rows layout (nconverged, n) as
-    `Q_rows`; `Q` is its transposed view, made on first access."""
+    `Q_rows`; `Q` is its transposed view, made on first access.  After an
+    extended=True solve with float64 words, Q and R hold the hi words and
+    the attributes `Q_lo` (a tensor like Q) and `R_lo` (host) the lo
+    words."""
 
     def __init__(self, Q, R, eigenvalues, Q_rows=None):
         if (Q is None) == (Q_rows is None):
@@ -251,9 +264,11 @@ def partial_schur(
     (ref: run.jl:188-208).
 
     The solve runs where the basis lives: the workspace's device, else
-    `device`, else the operator's device.  A random start comes from a
-    torch.Generator seeded with `seed`.  Matmuls run in full FP32 (TF32 off
-    for the duration of the call).
+    `device`, else the operator's device.  An operator built here from
+    numpy, scipy or a callable goes to `device`, which defaults to the CUDA
+    card (pass device="cpu" for the CPU); a tensor keeps its own device.  A
+    random start comes from a torch.Generator seeded with `seed`.  Matmuls
+    run in full FP32 (TF32 off for the duration of the call).
 
     Warm start / resume: pass `workspace` (an ArnoldiWorkspace holding a
     previous decomposition) plus `start_from` = previous nconverged
@@ -265,17 +280,38 @@ def partial_schur(
     the CSR gather path, or a layout name ('dia', 'bsr', 'sell', 'ell')
     forces one.  Ignored for operator, dense and callable input.
 
+    `extended=True` runs the n-sized work (matvec, Gram-Schmidt, basis
+    changes) in double-word arithmetic (ops/df_expansion.py): the basis is
+    an unevaluated hi + lo pair, about eps_word^2 effective precision.
+    float32 words reach tolerances down to ~1e-12 with the host float64
+    dense layer; float64 words run the dense layer in double-double
+    (ops/dd.py) and reach ~1e-28, returning Q/R as hi words with `Q_lo` and
+    `R_lo` beside them.  With float32 words Q comes back as the float64
+    combine hi + lo.  Needs a real dtype and, for full accuracy, an
+    operator with `matvec_df(xh, xl)` (DiaOperator, Stencil5Operator);
+    others take two plain matvecs.  The default tol drops to eps_word.
+    On a CUDA card the double-word work runs in the kernels of
+    `csrc/df.cu` (ops/df.py).
+
     `method` None or "host" runs the host dense restart.  The options of
     the JAX package that this port does not have yet raise
-    NotImplementedError: method="device", extended=True, lowsync=True,
-    split_complex=True and sharding=.
+    NotImplementedError: method="device", lowsync=True, split_complex=True
+    and sharding=.
     """
     if method not in (None, "host", "device"):
         raise ValueError(f"method must be 'host' or 'device', got {method!r}")
+    if extended and method == "device":
+        raise ValueError(
+            "extended=True runs the dense layer on the host (its float64 is "
+            "below the double-word floor); method='device' is not compatible"
+        )
+    if extended and lowsync:
+        raise ValueError(
+            "lowsync applies to the plain expansion; extended=True has its "
+            "own (double-word) orthogonalization"
+        )
     if method == "device":
         raise _not_ported("method='device' (fused.py, dense/device.py)", 13)
-    if extended:
-        raise _not_ported("extended=True (double-word arithmetic)", 11)
     if lowsync:
         raise _not_ported("lowsync=True (the low-sync CGS2 expansion)", 3)
     if split_complex:
@@ -308,9 +344,17 @@ def partial_schur(
         )
 
     work_dtype = op.dtype
+    if extended and work_dtype not in (torch.float32, torch.float64):
+        raise ValueError(
+            f"extended=True supports real dtypes only (float32 or float64 "
+            f"words), got {work_dtype}"
+        )
     order_key = get_order(target)
     if tol is None:
-        tol = float(np.sqrt(torch.finfo(work_dtype.to_real()).eps))
+        # extended: the double-word noise floor is ~eps^2, so the default
+        # tolerance drops to eps of the single word.
+        eps = torch.finfo(work_dtype.to_real()).eps
+        tol = float(eps if extended else np.sqrt(eps))
 
     if workspace is None:
         dev = torch.device(device) if device is not None else op.device
@@ -353,12 +397,33 @@ def partial_schur(
 
         return _partial_schur(
             op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
-            active0, generator,
+            active0, generator, extended,
         )
 
 
+def _pull(Hdev, Hlo, dd):
+    """The device Hessenberg on the host: one word as float64, a
+    double-word pair as the float64 sum (float32 words) or as DD scalars
+    (float64 words)."""
+    Hh = Hdev.cpu().numpy()
+    if Hlo is None:
+        return Hh
+    if dd:
+        return dd_pack(Hh, Hlo.cpu().numpy())
+    return Hh.astype(np.float64) + Hlo.cpu().numpy().astype(np.float64)
+
+
+def _df_words(Qbig, dd, V):
+    """A host basis-change matrix as the double-word pair of V's type: the
+    DD words themselves, or the float64 matrix split into two words."""
+    if dd:
+        return (torch.from_numpy(dd_hi(Qbig)).to(V.device),
+                torch.from_numpy(dd_lo(Qbig)).to(V.device))
+    return split_f64(Qbig, V.dtype, V.device)
+
+
 def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
-                   order_key, active0, generator):
+                   order_key, active0, generator, extended=False):
     m = maxdim
     # Dense restart kernels: the native C++ core when it builds and the
     # workspace fits its scratch buffers; the numpy layer otherwise
@@ -368,6 +433,20 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     V = ws.V  # updated in place
     is_real = not np.iscomplexobj(H)
     eps_work = float(torch.finfo(V.dtype.to_real()).eps)
+    # extended with float64 words: the dense restart layer itself runs in
+    # double-double (ops/dd.py object arrays through the same numpy
+    # kernels), so the criterion floor is the dd epsilon and tolerances
+    # down to ~1e-28 certify.  With float32 words hi + lo fits a float64
+    # exactly, so the plain float64 dense layer suffices, and the floor is
+    # eps_word^2 but never below the host float64 epsilon.
+    dd = extended and V.dtype == torch.float64
+    dense_tol = None
+    if dd:
+        eps_work = max(eps_work * eps_work, DD_EPS)
+        dense_tol = DD_EPS
+        use_native = False  # the C++ layer is float64 only
+    elif extended:
+        eps_work = max(eps_work * eps_work, float(np.finfo(H.dtype).eps))
 
     lams = np.zeros(m, dtype=complex)
     rs = np.zeros(m, dtype=float)
@@ -382,14 +461,42 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     syncs = 0
     timings = {"device": 0.0, "dense": 0.0}
 
+    Vlo = Hlo = None
+    if extended:
+        # Resume the low word of an earlier extended run (a warm start at
+        # double-word accuracy); rows past the locked prefix are stale.
+        Vlo = ws.Vlo
+        if Vlo is None or Vlo.shape != V.shape or Vlo.dtype != V.dtype:
+            Vlo = torch.zeros_like(V)
+        Vlo[active0:] = 0
+        Hlo = torch.zeros_like(Hdev)
+        if active0 == 0:
+            # The start row was normalized in one word: again, in two.
+            df_set_initial_vector(V, Vlo, V[0])
+        else:
+            # The seed row is only single-word orthogonal to the locked
+            # double-word prefix.
+            df_reorthogonalize_row(V, Vlo, active0)
+        syncs += 1
+
     # Initial expansion straight to a maxdim-sized relation (the reference
     # stops at mindim first, but nothing happens in between,
     # run.jl:260-275).  The host array stays authoritative for locked
     # columns (no low-precision round trip of converged data).
     t0 = time.perf_counter()
     with torch.profiler.record_function("arnoldi:expand"):
-        syncs += expand_range(op, V, Hdev, active0, m, generator)
-        Hpull = Hdev.cpu().numpy()
+        if extended:
+            syncs += df_expand_range(op, V, Vlo, Hdev, Hlo, active0, m,
+                                     generator)
+        else:
+            syncs += expand_range(op, V, Hdev, active0, m, generator)
+        Hpull = _pull(Hdev, Hlo, dd)
+    if dd:
+        # The host Hessenberg becomes an object array of DD scalars for the
+        # whole restart loop; a warm start rehydrates the locked block from
+        # both words (ws.H the hi words, ws.Hlo the lo words).
+        resume = active0 > 0 and ws.Hlo is not None
+        H = dd_pack(H, ws.Hlo) if resume else dd_pack(H)
     H[:, active0:m] = Hpull[:, active0:m]
     timings["device"] += time.perf_counter() - t0
 
@@ -406,15 +513,22 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             _native.local_schur(H[:m, :], active, m, Q)
             _native.copy_eigenvalues(lams, H[:m, :], 0, m)
             _native.copy_residuals(rs, H[:m, :], Q, H[m, m - 1], active, m)
+            He, Qe = H, Q
         else:
-            local_schur(H[:m, :], active, m, Q)
-            copy_eigenvalues(lams, H[:m, :], 0, m)
-            _copy_residuals(rs, H, Q, H[m, m - 1], x, active, m)
-        _schur_coupling_floor(rs, H, Q, H[m, m - 1], active, m)
+            local_schur(H[:m, :], active, m, Q, tol=dense_tol)
+            copy_eigenvalues(lams, H[:m, :], 0, m, tol=dense_tol)
+            # Residual estimates in float64 even in dd mode: the tiny
+            # last-row couplings are exact float64 values (only their low
+            # words drop), all the locking decision needs.  The similarity
+            # transforms above stay double-double.
+            He = dd_collapse(H) if dd else H
+            Qe = dd_collapse(Q) if dd else Q
+            _copy_residuals(rs, He, Qe, He[m, m - 1], x, active, m)
+        _schur_coupling_floor(rs, He, Qe, He[m, m - 1], active, m)
         ord_ = np.array(
             sorted(range(m), key=lambda i: (order_key(lams[i]), i))
         )
-        h_frob = np.linalg.norm(H)
+        h_frob = np.linalg.norm(dd_hi(H) if dd else H)
 
         def isconverged(idx):
             return rs[idx] <= max(eps_work * h_frob, tol * abs(lams[idx]))
@@ -485,12 +599,26 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
         # expand from k back to maxdim; then the one H readback.
         t0 = time.perf_counter()
         with torch.profiler.record_function("arnoldi:truncate_expand"):
-            Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
-            syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m, generator)
-            Hpull = Hdev.cpu().numpy()
+            if extended:
+                # dd: Qbig's true hi/lo words (a split of the rounded value
+                # would zero the low word).
+                Qh, Ql = _df_words(Qbig, dd, V)
+                syncs += df_truncate_and_expand(op, V, Vlo, Hdev, Hlo, Qh, Ql,
+                                                k, m, generator)
+            else:
+                Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
+                syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m, generator)
+            Hpull = _pull(Hdev, Hlo, dd)
         H[:, k:m] = Hpull[:, k:m]
         prods += m - k
         timings["device"] += time.perf_counter() - t0
+
+        # Keep the workspace coherent after every restart, so an exception
+        # leaves a resumable state (dd: H is a fresh object array).
+        ws.Vlo = Vlo
+        if dd:
+            ws.H[:] = dd_hi(H)
+            ws.Hlo = dd_lo(H)
 
     nconverged = active
 
@@ -508,26 +636,47 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
         Qbig = pending_Q @ Qbig
     timings["dense"] += time.perf_counter() - t0
     t0 = time.perf_counter()
-    apply_basis_change(V, torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device))
-    # A copy: the workspace's V changes under any later solve with it.
-    Q_rows = V[:nconverged].clone()
+    if extended:
+        df_apply_basis_change(V, Vlo, *_df_words(Qbig, dd, V))
+        if dd:
+            # hi + lo would round lo away: Q carries the hi words, Q_lo the
+            # rest (a copy each, as below).
+            Q_rows = V[:nconverged].clone()
+            Q_lo = Vlo[:nconverged].clone().T
+        else:
+            # float32 words: the combined value is exact in float64.
+            Q_rows = V[:nconverged].double() + Vlo[:nconverged].double()
+    else:
+        apply_basis_change(
+            V, torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device))
+        # A copy: the workspace's V changes under any later solve with it.
+        Q_rows = V[:nconverged].clone()
     timings["device"] += time.perf_counter() - t0
 
     if nconverged > 0:
         if use_native:
             _native.copy_eigenvalues(lams, H[:m, :], 0, nconverged)
         else:
-            copy_eigenvalues(lams, H[:m, :], 0, nconverged)
+            copy_eigenvalues(lams, H[:m, :], 0, nconverged, tol=dense_tol)
+
+    # The low word makes the workspace a double-word checkpoint after an
+    # extended run; a plain solve invalidates it (V moved without it).
+    ws.Vlo = Vlo
+    ws.Hlo = None
+    R = H[:nconverged, :nconverged]
+    if dd:
+        ws.H[:] = dd_hi(H)
+        ws.Hlo = dd_lo(H)
+        R = dd_hi(R)
 
     history = History(
         prods, nconverged, nconverged >= nev, nev, restarts=it,
         purges=purge_events, timings=timings,
         dense_layer="native" if use_native else "numpy", host_syncs=syncs,
     )
-    schur = PartialSchur(
-        None,
-        H[:nconverged, :nconverged].copy(),
-        lams[:nconverged].copy(),
-        Q_rows=Q_rows,
-    )
+    schur = PartialSchur(None, R.copy(), lams[:nconverged].copy(),
+                         Q_rows=Q_rows)
+    if dd:
+        schur.Q_lo = Q_lo
+        schur.R_lo = dd_lo(H[:nconverged, :nconverged])
     return schur, history

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _device as _dev
-from ..ops import bsr, stencil
+from ..ops import bsr, df, df32, stencil
 from ..workspace import as_torch_dtype
 
 _LOG = logging.getLogger("arnoldimethod_torch")
@@ -185,6 +185,28 @@ class DiaOperator(LinearOperator):
             y = y + self.diags[d] * xp[lo + off: lo + off + n]
         return y
 
+    def matvec_df(self, xh, xl):
+        """Double-word matvec (yh, yl) = A (xh, xl): the same shifted
+        products in double-word arithmetic (ops/df32.py), in plain torch
+        ops as the JAX package runs them in XLA; the extended=True path's
+        operator hook."""
+        n = self.shape[0]
+        lo = max(0, -min(self.offsets))
+        hi = max(0, max(self.offsets))
+        xph, xpl = F.pad(xh, (lo, hi)), F.pad(xl, (lo, hi))
+        yh = yl = None
+        for d, off in enumerate(self.offsets):
+            sl = slice(lo + off, lo + off + n)
+            th, tl = df32.df_scale(xph[sl], xpl[sl], self.diags[d])
+            yh, yl = (th, tl) if yh is None else df32.df_add(yh, yl, th, tl)
+        return yh, yl
+
+
+def _periodic_shifts(g):
+    """The west, east, north and south reads of grid g on a torus."""
+    return (torch.roll(g, 1, dims=1), torch.roll(g, -1, dims=1),
+            torch.roll(g, 1, dims=0), torch.roll(g, -1, dims=0))
+
 
 class Stencil5Operator(LinearOperator):
     """Constant-coefficient 5-point stencil on an (ny, nx) grid, acting on
@@ -257,14 +279,24 @@ class Stencil5Operator(LinearOperator):
             return stencil.stencil5_plain(x, self.coeffs, self.grid)
         c, w, e, no, so = self.coeffs
         g = x.reshape(ny, nx)
-        y = (
-            c * g
-            + w * torch.roll(g, 1, dims=1)
-            + e * torch.roll(g, -1, dims=1)
-            + no * torch.roll(g, 1, dims=0)
-            + so * torch.roll(g, -1, dims=0)
-        )
+        vw, ve, vn, vs = _periodic_shifts(g)
+        y = c * g + w * vw + e * ve + no * vn + so * vs
         return y.reshape(ny * nx)
+
+    def matvec_df(self, xh, xl):
+        """Double-word stencil (yh, yl) = A (xh, xl) for real coefficients
+        (the extended=True path's operator hook): df_scale of the center,
+        then df_add of each scaled neighbour (west, east, north, south).
+        A real Dirichlet stencil goes through `ops.df.stencil5_df` (the
+        kernel on a CUDA tensor, its plain version on the CPU); a periodic
+        one, or use_pallas=False, runs the plain version."""
+        if self._complex_coeffs:
+            raise ValueError("matvec_df needs real stencil coefficients")
+        if self._takes_kernel(xh):
+            return df.stencil5_df(xh, xl, self.coeffs, self.grid)
+        shifts = (df.dirichlet_shifts if self.boundary == "dirichlet"
+                  else _periodic_shifts)
+        return df.stencil5_df_plain(xh, xl, self.coeffs, self.grid, shifts)
 
 
 class FunctionOperator(LinearOperator):

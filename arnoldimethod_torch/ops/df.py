@@ -1,0 +1,324 @@
+"""The double-word kernels of the extended-precision path: CUDA kernels
+(`csrc/df.cu`) and their plain PyTorch versions.
+
+    df_project       (ch, cl)[j] = sum_i V[j, i] * w[i] for rows j < rows,
+                     zero beyond; optionally acc <- acc + c in place
+    df_axpy          w - sum_{j < rows} h_j * V[j], j in order
+    df_mul_by        w * (sh, sl), a double-word scalar
+    df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order
+    stencil5_df      the Dirichlet 5-point stencil (center, west, east,
+                     north, south) applied to a double-word vector
+
+Every operand is a double-word pair of float32 or float64 words; every
+product and sum is the one `ops/df32.py` makes, in its order, so each
+kernel is bitwise equal to its plain version, and with float32 words both
+are bitwise equal to the JAX package's ops/df32.py and df_expansion.py.
+
+No TPU kernel stands behind these: the JAX package runs the same work as
+XLA loops (`lax.scan`, `fori_loop`, the tree of `df_sum`).  In plain
+PyTorch each of those ops is one launch, thousands per Krylov step, so the
+n-sized double-word work has kernels of its own.  Why CUDA and not Triton:
+Triton contracts a*b + c into an FMA by default, which would break the
+error-free transforms; the CUDA source rounds every step explicitly.
+
+Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
+launches the kernel, built with nvcc at first use, or raises.  Nothing
+falls back from the kernel to the plain version.  `KERNEL.launches` counts
+the wrapper calls that launched each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .._build import PACKAGE_DIR, build_shared, nvcc_command
+from . import df32
+
+__all__ = [
+    "KERNEL",
+    "df_axpy",
+    "df_axpy_plain",
+    "df_basis_change",
+    "df_basis_change_plain",
+    "df_mul_by",
+    "df_mul_by_plain",
+    "df_project",
+    "df_project_plain",
+    "dirichlet_shifts",
+    "project_plan",
+    "stencil5_df",
+    "stencil5_df_plain",
+]
+
+_SOURCE = PACKAGE_DIR / "csrc" / "df.cu"
+# df_project: threads per block of the first pass and the most partial
+# sums a row leaves for the second pass (a power of two).
+_THREADS = 128
+_MAX_PARTIALS = 2048
+# df_basis_change: the shared memory a block stages (csrc/df.cu kBasisSmem).
+_BASIS_STAGE_BYTES = 48 * 1024
+
+
+def project_plan(n):
+    """(M, T) for df_project over rows of length n: M partial sums a row
+    (a power of two, at most the padded length), T threads a block."""
+    pow2 = 1 << max(0, n - 1).bit_length()
+    M = min(pow2, _MAX_PARTIALS)
+    return M, min(_THREADS, M)
+
+
+# -- plain versions ---------------------------------------------------------
+
+
+def df_project_plain(Vh, Vl, wh, wl, rows, acc=None):
+    """The plain version of df_project (df32.df_project_coeffs_df on the
+    leading rows, zeros beyond; then acc <- df_add(acc, c))."""
+    m1 = Vh.shape[0]
+    ch = torch.zeros(m1, dtype=Vh.dtype, device=Vh.device)
+    cl = torch.zeros_like(ch)
+    if rows > 0:
+        ch[:rows], cl[:rows] = df32.df_project_coeffs_df(
+            Vh[:rows], Vl[:rows], wh, wl)
+    if acc is not None:
+        ah, al = df32.df_add(acc[0], acc[1], ch, cl)
+        acc[0].copy_(ah)
+        acc[1].copy_(al)
+    return ch, cl
+
+
+def df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows):
+    """The plain version of df_axpy (df32.df_axpy_update_df)."""
+    return df32.df_axpy_update_df(wh, wl, hh[:rows], hl[:rows], Vh[:rows],
+                                  Vl[:rows])
+
+
+def _scalar(v, like):
+    """A 0-dim tensor of `like`'s dtype on the CPU (a host scalar)."""
+    return torch.as_tensor(v, dtype=like.dtype, device="cpu")
+
+
+def df_mul_by_plain(wh, wl, sh, sl, out=None):
+    """The plain version of df_mul_by (df32.df_mul by a broadcast scalar)."""
+    yh, yl = df32.df_mul(wh, wl, _scalar(sh, wh), _scalar(sl, wh))
+    if out is None:
+        return yh, yl
+    out[0].copy_(yh)
+    out[1].copy_(yl)
+    return out
+
+
+def df_basis_change_plain(Vh, Vl, Qh, Ql):
+    """The plain version of df_basis_change: the JAX package's scan over the
+    rows of V, accumulating df_mul(Q[j, :, None], V[j]) with df_add."""
+    outh, outl = torch.zeros_like(Vh), torch.zeros_like(Vl)
+    for j in range(Vh.shape[0]):
+        th, tl = df32.df_mul(Qh[j][:, None], Ql[j][:, None], Vh[j][None, :],
+                             Vl[j][None, :])
+        outh, outl = df32.df_add(outh, outl, th, tl)
+    return outh, outl
+
+
+def dirichlet_shifts(g):
+    """The west, east, north and south reads of grid g, zero-padded."""
+    gp = F.pad(g, (1, 1, 1, 1))
+    return gp[1:-1, :-2], gp[1:-1, 2:], gp[:-2, 1:-1], gp[2:, 1:-1]
+
+
+def stencil5_df_plain(xh, xl, coeffs, grid, shifts=dirichlet_shifts):
+    """The plain version of stencil5_df (the JAX package's
+    Stencil5Operator.matvec_df): df_scale of the center, then df_add of
+    each scaled neighbour in the order west, east, north, south.  `shifts`
+    gives the four neighbour reads of a grid (a torus for a periodic
+    stencil)."""
+    ny, nx = grid
+    gh, gl = xh.reshape(ny, nx), xl.reshape(ny, nx)
+    cs = [_scalar(c, xh) for c in coeffs]
+    yh, yl = df32.df_scale(gh, gl, cs[0])
+    for cf, sh, sl in zip(cs[1:], shifts(gh), shifts(gl)):
+        th, tl = df32.df_scale(sh, sl, cf)
+        yh, yl = df32.df_add(yh, yl, th, tl)
+    return yh.reshape(ny * nx), yl.reshape(ny * nx)
+
+
+# -- the CUDA kernels -------------------------------------------------------
+
+_NAMES = ("df_project", "df_axpy", "df_basis_change", "stencil5_df")
+
+
+def _check(*tensors):
+    """One word dtype (float32/float64) and one CUDA device; contiguous."""
+    dtype, device = tensors[0].dtype, tensors[0].device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the double-word kernels take float32 or float64, got {dtype}")
+    for t in tensors:
+        if t.dtype != dtype or t.device != device:
+            raise ValueError("double-word operands must share dtype and device")
+        if not t.is_contiguous():
+            raise ValueError("the double-word kernels take contiguous tensors")
+
+
+class _DfKernel:
+    """The built CUDA library of csrc/df.cu and the launch count of each of
+    its kernels (`launches[name]`, one a wrapper call)."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(_NAMES, 0)
+        self.build_log = ""
+        self._lib = None
+
+    def load(self):
+        """Build (once per source hash) and load the library."""
+        if self._lib is None:
+            path, self.build_log = build_shared(
+                "df", [_SOURCE],
+                [*nvcc_command("double-word"), "-fmad=false"])
+            lib = ctypes.CDLL(str(path))
+            p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+            sigs = {
+                "df_project": [p, p, i, p, p, i, i, i, p, i, i, p, p, p, p, p],
+                "df_axpy": [p, p, p, p, p, p, i, i, i, p, p, p],
+                "df_mul_by": [p, p, d, d, i, p, p, p],
+                "df_basis_change": [p, p, p, p, i, i, p, p, p],
+                "stencil5_df": [p, p, p, p, i, i, d, d, d, d, d, p],
+            }
+            for name, args in sigs.items():
+                for suffix in ("_f32", "_f64"):
+                    fn = getattr(lib, name + suffix)
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def _launch(self, entry, count, like, *args):
+        """Launch C entry `entry` (its _f32/_f64 form by `like`'s dtype) on
+        the current stream of `like`'s device; raise on a CUDA error; add
+        one to launches[count]."""
+        lib = self.load()
+        fn = getattr(lib, entry + ("_f32" if like.dtype == torch.float32 else "_f64"))
+        with torch.cuda.device(like.device):
+            stream = torch.cuda.current_stream(like.device).cuda_stream
+            err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+        self.launches[count] += 1
+
+    def project(self, Vh, Vl, wh, wl, rows, acc=None):
+        _check(Vh, Vl, wh, wl, *(acc or ()))
+        m1, n = Vh.shape
+        if not 0 <= rows <= m1 or wh.shape != (n,) or wl.shape != (n,):
+            raise ValueError(f"df_project: rows={rows}, V {tuple(Vh.shape)}, "
+                             f"w {tuple(wh.shape)}")
+        M, T = project_plan(n)
+        part = torch.empty(2 * max(rows, 1) * M, dtype=Vh.dtype, device=Vh.device)
+        ch = torch.empty(m1, dtype=Vh.dtype, device=Vh.device)
+        cl = torch.empty_like(ch)
+        ah, al = acc if acc is not None else (None, None)
+        self._launch("df_project", "df_project", Vh, Vh.data_ptr(),
+                     Vl.data_ptr(), n, wh.data_ptr(), wl.data_ptr(), n, rows,
+                     m1, part.data_ptr(), M, T, ch.data_ptr(), cl.data_ptr(),
+                     None if ah is None else ah.data_ptr(),
+                     None if al is None else al.data_ptr())
+        return ch, cl
+
+    def axpy(self, wh, wl, hh, hl, Vh, Vl, rows):
+        _check(wh, wl, hh, hl, Vh, Vl)
+        n = wh.shape[0]
+        if not 0 <= rows <= min(Vh.shape[0], hh.shape[0]) or Vh.shape[1] != n:
+            raise ValueError("df_axpy: rows or shapes out of range")
+        outh, outl = torch.empty_like(wh), torch.empty_like(wl)
+        self._launch("df_axpy", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
+                     hh.data_ptr(), hl.data_ptr(), Vh.data_ptr(),
+                     Vl.data_ptr(), n, n, rows, outh.data_ptr(),
+                     outl.data_ptr())
+        return outh, outl
+
+    def mul_by(self, wh, wl, sh, sl, out=None):
+        _check(wh, wl, *(out or ()))
+        if out is None:
+            out = (torch.empty_like(wh), torch.empty_like(wl))
+        self._launch("df_mul_by", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
+                     float(sh), float(sl), wh.numel(), out[0].data_ptr(),
+                     out[1].data_ptr())
+        return out
+
+    def basis_change(self, Vh, Vl, Qh, Ql):
+        _check(Vh, Vl, Qh, Ql)
+        m1, n = Vh.shape
+        if Qh.shape != (m1, m1) or Ql.shape != (m1, m1):
+            raise ValueError(f"df_basis_change: Q must be {(m1, m1)}")
+        if 2 * m1 * Vh.element_size() > _BASIS_STAGE_BYTES:
+            raise ValueError(
+                f"df_basis_change stages a column of both words of all "
+                f"{m1} rows in {_BASIS_STAGE_BYTES} bytes of shared memory")
+        outh, outl = torch.empty_like(Vh), torch.empty_like(Vl)
+        self._launch("df_basis_change", "df_basis_change", Vh, Vh.data_ptr(),
+                     Vl.data_ptr(), Qh.data_ptr(), Ql.data_ptr(), m1, n,
+                     outh.data_ptr(), outl.data_ptr())
+        return outh, outl
+
+    def stencil(self, xh, xl, coeffs, grid):
+        _check(xh, xl)
+        ny, nx = grid
+        if xh.dim() != 1 or xh.numel() != ny * nx or xl.shape != xh.shape:
+            raise ValueError(f"stencil5_df: x must be flat of {ny * nx}")
+        yh, yl = torch.empty_like(xh), torch.empty_like(xl)
+        self._launch("stencil5_df", "stencil5_df", xh, xh.data_ptr(),
+                     xl.data_ptr(), yh.data_ptr(), yl.data_ptr(), ny, nx,
+                     *(float(c) for c in coeffs))
+        return yh, yl
+
+
+KERNEL = _DfKernel()
+
+
+def _on_card(t, what):
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {t.device}")
+    return True
+
+
+def df_project(Vh, Vl, wh, wl, rows, acc=None):
+    """(ch, cl), length V.shape[0]: the double-word dot of each of the
+    first `rows` rows of (Vh, Vl) with (wh, wl), zeros beyond.  With
+    acc=(ah, al), also acc <- df_add(acc, c) in place (every row).  The
+    sum over a row follows df32.df_sum's tree exactly."""
+    if _on_card(Vh, "df_project"):
+        return KERNEL.project(Vh, Vl, wh, wl, rows, acc)
+    return df_project_plain(Vh, Vl, wh, wl, rows, acc)
+
+
+def df_axpy(wh, wl, hh, hl, Vh, Vl, rows):
+    """w - sum_{j < rows} h_j V[j] in double word, j in order; new tensors."""
+    if _on_card(wh, "df_axpy"):
+        return KERNEL.axpy(wh, wl, hh, hl, Vh, Vl, rows)
+    return df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows)
+
+
+def df_mul_by(wh, wl, sh, sl, out=None):
+    """w * (sh, sl) for a host double-word scalar (numbers or 0-dim CPU
+    tensors of the word dtype), into `out` (a pair) when given."""
+    if _on_card(wh, "df_mul_by"):
+        return KERNEL.mul_by(wh, wl, sh, sl, out)
+    return df_mul_by_plain(wh, wl, sh, sl, out)
+
+
+def df_basis_change(Vh, Vl, Qh, Ql):
+    """(outh, outl) with out[i] = sum_j Q[j, i] V[j] in double word: the
+    basis change V <- Q^T V, out of place."""
+    if _on_card(Vh, "df_basis_change"):
+        return KERNEL.basis_change(Vh, Vl, Qh, Ql)
+    return df_basis_change_plain(Vh, Vl, Qh, Ql)
+
+
+def stencil5_df(xh, xl, coeffs, grid):
+    """The Dirichlet 5-point stencil on an (ny, nx) grid applied to the
+    double-word vector (xh, xl); coeffs (center, west, east, north,
+    south)."""
+    if _on_card(xh, "stencil5_df"):
+        return KERNEL.stencil(xh, xl, coeffs, grid)
+    return stencil5_df_plain(xh, xl, coeffs, grid)

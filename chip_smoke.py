@@ -2,18 +2,21 @@
 """Drive the PyTorch port's main path once on a CUDA card and check it.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --conv-starts   # config 3 from fourteen starts
 
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc builds of the stencil and BSR kernels and the g++ build of
-           the dense core, all started at once, from the sources
+  build    nvcc builds of the stencil, BSR and double-word kernels and the
+           g++ build of the dense core, all started at once, from the
+           sources (`_build.build_all`)
   kernel   the CUDA stencil kernel against its plain PyTorch version on the
            card, at five grids: max |difference| against
            8 * eps * sum|coeff| * max|x|; both device times per call (a
            CUDA graph of 20 calls, median of 10 replays) with the effective
-           GB/s, and both per-call times with host overhead (CUDA events
-           around single calls, median of 30)
+           GB/s, both per-call times with host overhead (CUDA events
+           around single calls, median of 30), and the library call
+           F.conv2d (3x3 weight, padding=1, TF32 off) timed as the kernel
   small    a 1,024-row float64 stencil solve on the card against the same
            solve on the CPU (plain stencil): same matvec count, eigenvalues
   readme   laplacian_1d(100), nev=10, :SR, tol=1e-6, float32 (DIA, no kernel)
@@ -67,10 +70,36 @@ Phases, each printed as one JSON line:
   conv1m   the 1,048,576-row periodic convection-diffusion circulant
            through the FFT shift-invert with a staged sigma walk, nev=12,
            :LM, complex Ritz pairs checked against the exact DFT symbol
+  default_device  partial_schur(laplacian_1d(100), nev=10, which="SR")
+           with no device named: operator and basis on the card
+  complex_bsr  a complex clustered scipy matrix (4,096 rows of 128-blocks)
+           through partial_schur(S, device="cuda"): BSR picked, four BSR
+           launches a matvec (two words), eigenvalues against the same
+           solve in complex128 on the CPU
+  df_kernel  two_prod's exactness for both words, then the double-word
+           kernels (df_project, its one-row norm form, df_axpy and its
+           df_mul_by mode, df_basis_change, stencil5_df) against their
+           plain versions, bitwise, in float32 and float64 words at config
+           3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021 x 1000;
+           ms (CUDA graph of 20 calls), GB/s and the bound
+  ext_readme  extended=True, laplacian_1d(100), float32 words, tol=1e-12
+           from one v1: residual below 1e-11, same count on card and CPU
+  ext_dd   float64 words (double-double dense layer), tol=1e-28: at most
+           600 matvecs, exact-rational residual below 1e-26 and
+           orthonormality below 1e-28; laplacian_1d(40) at 1e-24 gives the
+           same count on card and CPU
+  ext_conv config 3 at full size (n = 65,536 convection-diffusion,
+           nev=10, :LM, extended=True, from a numpy-seeded v1): converged,
+           complex pairs, residual in host float64 at most 1e-8, every
+           double-word kernel launched, no plain double-word op on the
+           card; a profile of its first restarts gives the device's busy
+           share (chiprun_out/profile_conv.txt)
 
-Then the card's nvidia-smi line, the kernel summary line and, last, the
-result line.  Any failed check ends the run with a non-zero exit code and
-no result line; so does a machine without CUDA.
+Then the card's nvidia-smi line, the kernel summary line (each kernel's
+launches on its main path, error against its plain version, ms, plain ms,
+bound and library-call ms) and, last, the result line.  Any failed check
+ends the run with a non-zero exit code and no result line; so does a
+machine without CUDA.
 """
 
 from __future__ import annotations
@@ -177,25 +206,44 @@ def _ptxas(log):
 
 
 def phase_build():
-    """Both nvcc builds and the g++ build run at once, one thread each."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from arnoldimethod_torch._build import BUILD_DIR
+    """The three nvcc builds and the g++ build run at once, one thread
+    each (`_build.build_all`)."""
+    from arnoldimethod_torch._build import BUILD_DIR, build_all
     from arnoldimethod_torch.dense import native
-    from arnoldimethod_torch.ops import bsr, stencil
+    from arnoldimethod_torch.ops import bsr, df, stencil
 
     # Libraries already built by an earlier run are loaded, not rebuilt;
     # then the times below are load times.
     prebuilt = sorted(p.name for p in BUILD_DIR.glob("*.so"))
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(_timed, fn) for fn in
-                (stencil.KERNEL.load, bsr.KERNEL.load, native.available)]
-        (_, nvcc_s), (_, bsr_nvcc_s), (native_ok, gxx_s) = [
-            j.result() for j in jobs]
-    check("build", True, nvcc_s=nvcc_s, gxx_s=gxx_s, prebuilt=prebuilt,
-          native=native_ok, native_error=native.build_error,
-          ptxas=_ptxas(stencil.KERNEL.build_log), bsr_nvcc_s=bsr_nvcc_s,
-          bsr_ptxas=_ptxas(bsr.KERNEL.build_log))
+    seconds = build_all()
+    check("build", True, seconds=seconds, prebuilt=prebuilt,
+          native=native.available(), native_error=native.build_error,
+          ptxas=_ptxas(stencil.KERNEL.build_log),
+          bsr_ptxas=_ptxas(bsr.KERNEL.build_log),
+          df_ptxas=_ptxas(df.KERNEL.build_log))
+
+
+def _conv2d_stencil(torch, x, coeffs, grid):
+    """The library call for the stencil: F.conv2d with the 3x3 weight of
+    the five coefficients, padding=1 (the zero boundary), TF32 off.  Returns
+    the call and its max |difference| from the plain stencil."""
+    import torch.nn.functional as F
+
+    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.ops.expansion import fp32_matmul
+
+    c, w, e, no, so = coeffs
+    weight = torch.tensor([[0.0, no, 0.0], [w, c, e], [0.0, so, 0.0]],
+                          dtype=x.dtype, device=x.device)[None, None]
+    x4 = x.reshape(1, 1, *grid)
+
+    def library():
+        with fp32_matmul():
+            return F.conv2d(x4, weight, padding=1)
+
+    err = (library().reshape(-1) - stencil.stencil5_plain(x, coeffs, grid)
+           ).abs().max().item()
+    return library, err
 
 
 def phase_kernel(torch):
@@ -225,13 +273,19 @@ def phase_kernel(torch):
         def plain():
             return stencil.stencil5_plain(x, coeffs, grid)
 
+        library, library_err = _conv2d_stencil(torch, x, coeffs, grid)
         ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+        library_ms = graph_ms(library)
         nbytes = 2 * n * x.element_size()
-        res = {"grid": list(grid), "dtype": str(dtype).split(".")[-1],
+        word = str(dtype).split(".")[-1]
+        bound_ms, bound_by = roofline(nbytes, 9 * n, word)
+        res = {"grid": list(grid), "dtype": word,
                "coeffs": "laplace" if coeffs is LAPLACE else "convdiff",
                "max_abs_err": err, "bound": bound, "ms": ms,
                "plain_ms": plain_ms, "gbs": nbytes / ms / 1e6,
                "plain_gbs": nbytes / plain_ms / 1e6,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "library_max_abs_err": library_err,
                "call_ms": median_ms(kernel), "plain_call_ms": median_ms(plain)}
         results.append(res)
         check("kernel", err <= bound, **res)
@@ -351,10 +405,11 @@ def phase_eigen(torch, d):
           floor=floor)
 
 
-def _profile(torch, phase, op, kernel, out_name, **kw):
+def _profile(torch, phase, op, kernel, out_name, label=None, **kw):
     """Device time by kernel over a short solve of `op` (partial_schur with
     `kw`) and the device's busy share of the wall time; the profiler's
-    table goes to chiprun_out/<out_name>."""
+    table goes to chiprun_out/<out_name>.  `kernel` is matched in the
+    kernels' names; `label` (default `kernel`) names its time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -400,8 +455,8 @@ def _profile(torch, phase, op, kernel, out_name, **kw):
           "device_busy_share": busy_s / wall if measured else "not measured",
           "device_idle_share": 1 - busy_s / wall if measured else "not measured",
           "device_launches": len(spans),
-          f"{kernel}_device_ms": sum(us for name, (us, _) in by_name.items()
-                                     if kernel in name) / 1e3,
+          f"{label or kernel}_device_ms": sum(
+              us for name, (us, _) in by_name.items() if kernel in name) / 1e3,
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "count": c}
                   for us, k, c in rows[:8]]})
 
@@ -525,6 +580,40 @@ def bsr_cases(torch, op32, op64):
     ], (dup_cols, dup_data)
 
 
+def _bsr_library_ms(torch, cols, dataT, logical, x, y_plain):
+    """The library call for the BSR matvec: torch.sparse_bsr_tensor of the
+    logical blocks times x as a column (TF32 off).  Returns (ms, note):
+    ms from a CUDA graph of 20 calls, else from CUDA events around single
+    calls when the call cannot be captured, else None with the reason."""
+    from arnoldimethod_torch.ops.expansion import fp32_matmul
+
+    nbr, KB = logical
+    B = dataT.shape[-1]
+    try:
+        values = dataT[:nbr, :KB].transpose(2, 3).reshape(nbr * KB, B, B)
+        crow = torch.arange(0, nbr * KB + 1, KB, dtype=torch.int32,
+                            device=x.device)
+        A = torch.sparse_bsr_tensor(crow, cols[:nbr, :KB].reshape(-1),
+                                    values.contiguous(),
+                                    size=(nbr * B, x.numel()))
+        xc = x[:, None]
+
+        def library():
+            with fp32_matmul():
+                return A @ xc
+
+        err = (library()[:, 0] - y_plain[:nbr * B]).abs().max().item()
+    except Exception as exc:  # the library has no such product here
+        return None, f"cannot run: {type(exc).__name__}: {exc}"[:300]
+    try:
+        return graph_ms(library), f"CUDA graph; max |y - plain| {err:.3e}"
+    except Exception as exc:
+        torch.cuda.synchronize()
+        return median_ms(library), (f"CUDA events (graph capture failed: "
+                                    f"{type(exc).__name__}); max |y - plain| "
+                                    f"{err:.3e}")
+
+
 def phase_bsr_kernel(torch, op32, op64):
     """The BSR kernel against bsr_plain on the card (TF32 off for both)."""
     import numpy as np
@@ -567,7 +656,15 @@ def phase_bsr_kernel(torch, op32, op64):
             plan = bsr.KERNEL.plan(dataT, logical)
             block_bytes = logical[0] * logical[1] * B * B * dataT.element_size()
             nbytes = block_bytes + (x.numel() + nbr * B) * dataT.element_size()
+            word = str(dataT.dtype).split(".")[-1]
+            bound_ms, bound_by = roofline(
+                nbytes, 2 * logical[0] * logical[1] * B * B, word)
+            library_ms, library_note = (
+                _bsr_library_ms(torch, cols, dataT, logical, x, y_plain)
+                if name == "512x8x128_f32" else (None, "timed at the main case only"))
             res = {"case": name, "shape": [nbr, KB, B], "logical": list(logical),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "library_note": library_note,
                    "dtype": str(dataT.dtype).split(".")[-1],
                    "block_data_bytes": block_bytes,
                    "plan": {"S": plan.S, "threads": plan.threads,
@@ -780,7 +877,12 @@ def phase_cheb_kernel(torch):
 
             ms, plain_ms = graph_ms(kernel), graph_ms(plain)
             nbytes = (2 if zz is None else 3) * n * x.element_size()
+            # 9 for the stencil, 4 (q = 0) or 6 for the recurrence.
+            bound_ms, bound_by = roofline(
+                nbytes, (13 if zz is None else 15) * n, str(dtype).split(".")[-1])
             res = {"grid": list(grid), "dtype": str(dtype).split(".")[-1],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None,
                    "mode": mode, "p": pp, "q": qq, "c": c, "inv_e": inv_e,
                    "max_abs_err": err, "bound": bound, "out_is_z": aliased,
                    "ms": ms, "plain_ms": plain_ms,
@@ -996,6 +1098,414 @@ def phase_conv1m(torch):
                           "complex_pairs": 6, "max_resid": 4.6e-5})
 
 
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
+# bytes per second, and operations per second outside the tensor cores
+# (the double-word kernels use none: they cannot carry the compensation).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
+# Operations of one double-word step of ops/df32.py: two_prod 17, df_mul
+# 24, df_scale 22, df_add 11.
+DF_MUL, DF_SCALE, DF_ADD = 24, 22, 11
+
+
+def roofline(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of `dtype`."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bitwise(pairs):
+    """True when every (a, b) pair of float tensors has equal bits (signed
+    zeros included)."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return all(a.shape == b.shape and a.dtype == b.dtype
+               and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+               for a, b in pairs)
+
+
+def _two_prod_exact(torch, dtype, gen):
+    """two_prod's exactness on the card: the plain version (torch ops) on
+    65,536 random pairs and the df_mul_by kernel on (a, 0) * (b, 0) for 8
+    scalars b; p + e must equal a * b exactly (float64 arithmetic for
+    float32 words, exact rationals on 2,000 pairs for float64 words)."""
+    from fractions import Fraction
+
+    from arnoldimethod_torch.ops import df, df32
+
+    a = torch.randn(1 << 16, dtype=dtype, device="cuda", generator=gen)
+    b = torch.randn(1 << 16, dtype=dtype, device="cuda", generator=gen)
+    pairs = [(a, b, *df32.two_prod(a, b))]
+    for s in b[:8].cpu():
+        p, e = df.df_mul_by(a, torch.zeros_like(a), s, 0.0)
+        pairs.append((a, s.to("cuda").expand_as(a), p, e))
+    bad = 0
+    for x, y, p, e in pairs:
+        if dtype == torch.float32:
+            bad += int((p.double() + e.double() != x.double() * y.double()).sum())
+        else:
+            xs, ys, ps, es = (t[:2000].cpu().tolist() for t in (x, y, p, e))
+            bad += sum(Fraction(pp) + Fraction(ee) != Fraction(xx) * Fraction(yy)
+                       for xx, yy, pp, ee in zip(xs, ys, ps, es))
+    return bad
+
+
+def _df_case(torch, grid, dtype, gen, time_plain):
+    """Each double-word kernel against its plain version on one shape: a
+    61-row basis over the grid's n points, both words random."""
+    from arnoldimethod_torch.ops import df
+
+    ny, nx = grid
+    n, m1 = ny * nx, 61
+    rows = m1 - 1
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    Vh, Vl = pair(m1, n)
+    wh, wl = pair(n)
+    hh, hl = pair(m1)
+    Qh, Ql = pair(m1, m1)
+    ah, al = pair(m1)
+    sh, sl = (torch.tensor(v, dtype=dtype) for v in (0.7431, 0.7431 * lo))
+    coeffs = (4.0, -1.0 - 0.5039, -1.0 + 0.5039, -1.0, -1.0)
+    calls = {
+        "df_project": (
+            lambda acc: df.df_project(Vh, Vl, wh, wl, rows, acc),
+            lambda acc: df.df_project_plain(Vh, Vl, wh, wl, rows, acc),
+            (rows + 1) * n * 2 * item + 4 * m1 * item,
+            rows * n * (DF_MUL + DF_ADD)),
+        "df_project_norm": (
+            lambda acc: df.df_project(wh[None], wl[None], wh, wl, 1),
+            lambda acc: df.df_project_plain(wh[None], wl[None], wh, wl, 1),
+            2 * n * item, n * (DF_MUL + DF_ADD)),
+        "df_axpy": (
+            lambda acc: df.df_axpy(wh, wl, hh, hl, Vh, Vl, rows),
+            lambda acc: df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows),
+            (rows + 2) * n * 2 * item, rows * n * (DF_MUL + DF_ADD)),
+        "df_mul_by": (
+            lambda acc: df.df_mul_by(wh, wl, sh, sl),
+            lambda acc: df.df_mul_by_plain(wh, wl, sh, sl),
+            2 * n * 2 * item, n * DF_MUL),
+        "df_basis_change": (
+            lambda acc: df.df_basis_change(Vh, Vl, Qh, Ql),
+            lambda acc: df.df_basis_change_plain(Vh, Vl, Qh, Ql),
+            (2 * m1 * n + m1 * m1) * 2 * item, m1 * m1 * n * (DF_MUL + DF_ADD)),
+        "stencil5_df": (
+            lambda acc: df.stencil5_df(wh, wl, coeffs, grid),
+            lambda acc: df.stencil5_df_plain(wh, wl, coeffs, grid),
+            2 * n * 2 * item, n * (5 * DF_SCALE + 4 * DF_ADD)),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes, ops) in calls.items():
+        acc_k, acc_p = (ah.clone(), al.clone()), (ah.clone(), al.clone())
+        got = kernel(acc_k if name == "df_project" else None)
+        want = plain(acc_p if name == "df_project" else None)
+        torch.cuda.synchronize()
+        same = bitwise(zip(got, want))
+        if name == "df_project":
+            same = same and bitwise(zip(acc_k, acc_p))
+        err = max((a.double() - b.double()).abs().max().item()
+                  for a, b in zip(got, want))
+        ms = graph_ms(lambda: kernel(None))
+        bound_ms, bound_by = roofline(nbytes, ops, str(dtype).split(".")[-1])
+        res = {"bitwise": same, "max_abs_err": err, "ms": ms,
+               "gbs": nbytes / ms / 1e6, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+               "share_of_bound": bound_ms / ms, "bytes": nbytes, "ops": ops}
+        if time_plain:
+            res["plain_ms"] = median_ms(lambda: plain(None), reps=3, warm=1)
+        out[name] = res
+    return out
+
+
+def phase_df_kernel(torch):
+    """The four double-word kernels (and df_axpy's scaling mode,
+    df_mul_by, and df_project on one row, the form every norm takes)
+    against their plain versions, bitwise, in float32 and float64 words, at
+    config 3's shapes (61 x 65,536 on the 256^2 grid), 61 x 1,048,576
+    (1024^2) and a non-power-of-two n (1021 x 1000); kernel ms from a CUDA
+    graph of 20 calls, plain ms (config 3 only) from CUDA events.  First,
+    two_prod's exactness for both words."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        bad = _two_prod_exact(torch, dtype, gen)
+        check("df_kernel", bad == 0, case="two_prod_exact",
+              dtype=str(dtype).split(".")[-1], inexact=bad)
+    for dtype in (torch.float32, torch.float64):
+        for case, grid in (("config3", (256, 256)), ("1m", (1024, 1024)),
+                           ("odd", (1021, 1000))):
+            res = _df_case(torch, grid, dtype, gen, case == "config3")
+            word = str(dtype).split(".")[-1]
+            results[(case, word)] = res
+            check("df_kernel", all(r["bitwise"] for r in res.values()),
+                  case=case, dtype=word, grid=list(grid), m1=61, rows=60,
+                  kernels=res)
+    return results[("config3", "float32")]
+
+
+def phase_default_device(torch):
+    """No device named: the README config solves on the card."""
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.problems import laplacian_1d
+
+    op = laplacian_1d(100)
+    d, h = partial_schur(op, nev=10, which="SR")
+    check("default_device", op.device.type == "cuda"
+          and d.Q_rows.device.type == "cuda" and h.converged,
+          operator_device=str(op.device), basis_device=str(d.Q_rows.device),
+          mvproducts=h.mvproducts)
+
+
+def phase_complex_bsr(torch):
+    """A complex clustered scipy matrix through partial_schur(S,
+    device="cuda"): the format rule picks BSR, the real kernel runs on the
+    two words (four launches a matvec), and the complex64 solve agrees with
+    the same solve in complex128 on the CPU."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.operators import pick_sparse_format
+    from arnoldimethod_torch.ops import bsr
+
+    nbr, KB, B = 32, 8, 128
+    n = nbr * B
+    cols, re = bsr_pattern(nbr, KB, B, np.float32)
+    im = np.random.default_rng(8).standard_normal(re.shape, dtype=np.float32)
+    im *= np.float32(0.01)
+    for g in range(10):  # the ten outliers move off the real axis
+        r = g // B
+        k = int(np.searchsorted(cols[r], r))
+        im[r, k, g % B, g % B] += 0.05 * g
+    data = (re + 1j * im).astype(np.complex64)
+    S = sp.bsr_matrix((data.reshape(-1, B, B), cols.ravel(),
+                       np.arange(0, nbr * KB + 1, KB)), shape=(n, n)).tocsr()
+    fmt, _ = pick_sparse_format(S.indptr, S.indices, S.shape)
+    v1 = np.random.default_rng(1).standard_normal(n)
+    kw = dict(v1=v1, nev=6, which="LM")
+    bsr.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    d, h = partial_schur(S, device="cuda", tol=1e-6, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsr.KERNEL.launches
+    dc, hc = partial_schur(S.astype(np.complex128), device="cpu", tol=1e-10,
+                           **kw)
+    lam = d.eigenvalues
+    err = (max(float(np.abs(dc.eigenvalues - z).min()) for z in lam)
+           if len(lam) else math.inf)
+    check("complex_bsr", fmt == "bsr" and h.converged and hc.converged
+          and d.Q.dtype == torch.complex64 and launches == 4 * h.mvproducts
+          and err <= 1e-5,
+          n=n, nnz=S.nnz, format=fmt, mvproducts=h.mvproducts,
+          kernel_launches=launches, wall_s=wall,
+          cpu_c128_mvproducts=hc.mvproducts, lam_err_vs_c128=err,
+          eigenvalues=[[z.real, z.imag] for z in lam])
+
+
+def _lap1d_dense(n):
+    import numpy as np
+
+    return (np.diag(np.full(n, 2.0)) + np.diag(np.full(n - 1, -1.0), 1)
+            + np.diag(np.full(n - 1, -1.0), -1))
+
+
+def _ext_solve(torch, n, dtype, device, tol, nev, v1):
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.problems import laplacian_1d
+
+    op = laplacian_1d(n, dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    d, h = partial_schur(op, nev=nev, which="SR", tol=tol, extended=True,
+                         v1=v1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return d, h, time.perf_counter() - t0
+
+
+def phase_ext_readme(torch):
+    """laplacian_1d(100) with float32 words, nev=10, :SR, tol=1e-12, from
+    one v1, on the card and on the CPU: the Schur residual in host float64
+    and the matvec counts."""
+    import numpy as np
+
+    v1 = np.random.default_rng(11).standard_normal(100)
+    d, h, wall = _ext_solve(torch, 100, torch.float32, "cuda", 1e-12, 10, v1)
+    _, hc, wall_cpu = _ext_solve(torch, 100, torch.float32, "cpu", 1e-12, 10,
+                                 v1)
+    Q = d.Q.cpu().numpy()
+    resid = float(np.linalg.norm(_lap1d_dense(100) @ Q - Q @ d.R))
+    orth = float(np.linalg.norm(Q.T @ Q - np.eye(Q.shape[1])))
+    check("ext_readme", h.converged and resid < 1e-11
+          and h.mvproducts == hc.mvproducts and Q.dtype == np.float64,
+          mvproducts=h.mvproducts, mvproducts_cpu=hc.mvproducts,
+          restarts=h.restarts, schur_residual=resid, orthonormality=orth,
+          wall_s=wall, wall_cpu_s=wall_cpu, host_syncs=h.host_syncs,
+          jax_tpu_record={"mvproducts": 251, "source": "README, JAX package"})
+
+
+def _exact_dd_residual(d):
+    """||A Q - Q R|| and max |Q^T Q - I| of a double-double result of the
+    1-D Laplacian, in exact rational arithmetic over (Q + Q_lo, R + R_lo)."""
+    from fractions import Fraction
+
+    import numpy as np
+
+    def frac(hi, lo):
+        out = np.empty(hi.shape, dtype=object)
+        for idx in np.ndindex(hi.shape):
+            out[idx] = Fraction(float(hi[idx])) + Fraction(float(lo[idx]))
+        return out
+
+    Qf = frac(d.Q.cpu().numpy(), d.Q_lo.cpu().numpy())
+    Rf = frac(np.asarray(d.R), np.asarray(d.R_lo))
+    AQ = 2 * Qf
+    AQ[:-1] -= Qf[1:]
+    AQ[1:] -= Qf[:-1]
+    resid = float(sum(v * v for v in (AQ - Qf @ Rf).ravel())) ** 0.5
+    G = Qf.T @ Qf
+    for i in range(G.shape[0]):
+        G[i, i] -= 1
+    return resid, max(abs(float(v)) for v in G.ravel())
+
+
+def phase_ext_dd(torch):
+    """float64 words (the host dense layer in double-double): the README
+    matrix at tol=1e-28 on the card, exact-rational residual and
+    orthonormality; laplacian_1d(40) at tol=1e-24 on card and CPU, same
+    matvec count."""
+    import numpy as np
+
+    v1 = np.random.default_rng(11).standard_normal(100)
+    d, h, wall = _ext_solve(torch, 100, torch.float64, "cuda", 1e-28, 10, v1)
+    resid, orth = _exact_dd_residual(d)
+    lam = np.sort(d.eigenvalues.real)
+    exact = 2 - 2 * np.cos(np.pi * np.arange(1, 11) / 101)
+    lam_err = float(np.max(np.abs(lam - exact))) if lam.size == 10 else math.inf
+    v40 = np.random.default_rng(12).standard_normal(40)
+    _, h40, _ = _ext_solve(torch, 40, torch.float64, "cuda", 1e-24, 4, v40)
+    _, h40c, _ = _ext_solve(torch, 40, torch.float64, "cpu", 1e-24, 4, v40)
+    check("ext_dd", h.converged and h.mvproducts <= 600 and resid < 1e-26
+          and orth < 1e-28 and h40.converged
+          and h40.mvproducts == h40c.mvproducts,
+          mvproducts=h.mvproducts, restarts=h.restarts, exact_residual=resid,
+          orthonormality=orth, lam_err=lam_err, wall_s=wall,
+          timings=h.timings, n40_mvproducts=h40.mvproducts,
+          n40_mvproducts_cpu=h40c.mvproducts,
+          records={"jax_cpu_mvproducts": 451, "reference_mvproducts": 442,
+                   "source": "ROADMAP.md item 11, README"})
+
+
+def phase_ext_conv(torch):
+    """Config 3 at full size (bench.py:862-919): the Dirichlet
+    convection-diffusion stencil, nx = 256 (n = 65,536), peclet = 4 (nx+1),
+    float32 words, nev=10, :LM, tol=1e-6, mindim=30, maxdim=60,
+    restarts=1000, extended=True, from v1 = N(0, 1) of numpy seed 3.  The
+    residual in host float64 as bench.py computes it; every double-word
+    kernel launched, no plain double-word op on the card.
+
+    The start matters here: the operator is far from normal (beta = 2) and
+    locking waits on the Schur-coupling floor, so the restarts to converge
+    spread widely with the start (on the H100, 4 of 14 random starts
+    converged within 1000 restarts, at 213 to 609; PERF.md).  Seed 3 is one
+    of the four; the solve is deterministic on the card."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.problems import convection_diffusion_2d
+    from arnoldimethod_torch.ops import bsr, df, df32, stencil
+
+    nx = 256
+    op = convection_diffusion_2d(nx, peclet=4.0 * (nx + 1),
+                                 dtype=torch.float32, fmt="stencil",
+                                 device="cuda")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stencil.KERNEL.launches = bsr.KERNEL.launches = 0
+    df.KERNEL.launches = dict.fromkeys(df.KERNEL.launches, 0)
+    df32.PLAIN_ON_CARD = 0
+    v1 = np.random.default_rng(3).standard_normal(nx * nx)
+    t0 = time.perf_counter()
+    d, h = partial_schur(op, nev=10, which="LM", tol=1e-6, mindim=30,
+                         maxdim=60, restarts=1000, extended=True, v1=v1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(df.KERNEL.launches)
+    plain = df32.PLAIN_ON_CARD
+    peak = torch.cuda.max_memory_allocated()
+
+    beta = 4.0 * (nx + 1) * (1.0 / (nx + 1)) / 2.0
+    Q = d.Q.cpu().numpy()
+    G = Q.reshape(nx, nx, -1)
+    AQg = 4.0 * G.copy()
+    AQg[:, 1:] += (-1.0 - beta) * G[:, :-1]
+    AQg[:, :-1] += (-1.0 + beta) * G[:, 1:]
+    AQg[1:, :] += -1.0 * G[:-1, :]
+    AQg[:-1, :] += -1.0 * G[1:, :]
+    resid = float(np.linalg.norm(AQg.reshape(nx * nx, -1) - Q @ d.R))
+    pairs = int(np.sum(d.eigenvalues.imag > 0))
+    check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
+          and resid <= 1e-8 and all(v > 0 for v in launches.values())
+          and plain == 0 and stencil.KERNEL.launches == 0,
+          n=nx * nx, mvproducts=h.mvproducts, restarts=h.restarts,
+          nconverged=h.nconverged, complex_pairs=pairs, schur_residual=resid,
+          wall_s=wall, timings=h.timings, dense_layer=h.dense_layer,
+          host_syncs=h.host_syncs, syncs_per_step=h.host_syncs / h.mvproducts,
+          df_launches=launches, plain_df_calls_on_card=plain,
+          stencil_launches=stencil.KERNEL.launches, peak_mem_bytes=peak,
+          resident_before_bytes=resident,
+          eigenvalues=[[z.real, z.imag] for z in d.eigenvalues],
+          jax_tpu_record={"source": "benchmarks/results/bench_capture_r5.json "
+                          "(JAX on a TPU)", "mvproducts": 25762,
+                          "schur_residual": 4.228e-10, "complex_pairs": 5,
+                          "wall_s": 107.65})
+    # The double-word kernels are the file's anonymous-namespace kernels.
+    _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
+             "profile_conv.txt", label="df_kernels", nev=10, which="LM",
+             tol=1e-6, mindim=30, maxdim=60, restarts=3, extended=True, v1=v1)
+    return launches
+
+
+def conv_starts(torch):
+    """`--conv-starts`: config 3 (as `ext_conv`, restarts=1000) from
+    fourteen starts, one JSON line each: the package's random start for
+    seeds 0-4 and v1 = N(0, 1) of numpy seeds 1-9.  How many restarts config
+    3 needs depends on the start; this measures the spread."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.problems import convection_diffusion_2d
+
+    nx = 256
+    op = convection_diffusion_2d(nx, peclet=4.0 * (nx + 1),
+                                 dtype=torch.float32, fmt="stencil",
+                                 device="cuda")
+    starts = [(f"seed{s}", {"seed": s}) for s in range(5)] + [
+        (f"numpy{s}", {"v1": np.random.default_rng(s).standard_normal(nx * nx)})
+        for s in range(1, 10)]
+    for name, start in starts:
+        t0 = time.perf_counter()
+        _, h = partial_schur(op, nev=10, which="LM", tol=1e-6, mindim=30,
+                             maxdim=60, restarts=1000, extended=True, **start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        emit({"phase": "conv_starts", "start": name, "converged": h.converged,
+              "nconverged": h.nconverged, "restarts": h.restarts,
+              "mvproducts": h.mvproducts, "wall_s": wall,
+              "ms_per_step": 1e3 * wall / h.mvproducts, "timings": h.timings})
+
+
 def main():
     import torch
 
@@ -1006,6 +1516,9 @@ def main():
 
     card = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--conv-starts"]:
+        conv_starts(torch)
+        return
     kernels = phase_kernel(torch)
     phase_small(torch)
     phase_readme(torch)
@@ -1037,39 +1550,50 @@ def main():
     cheb_launches = phase_e2e10m(torch)
     phase_shiftinv(torch)
     phase_conv1m(torch)
+    phase_default_device(torch)
+    phase_complex_bsr(torch)
+    df_shapes = phase_df_kernel(torch)
+    phase_ext_readme(torch)
+    phase_ext_dd(torch)
+    df_launches = phase_ext_conv(torch)
 
-    main_shape = kernels[0]
+    def entry(name, source, replaces, launches, shape, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, **extra, "launches": launches,
+                **{k: shape[k] for k in keys}}
+
+    xla = "; an XLA loop, not a Pallas kernel"
+    df_src = "arnoldimethod_torch/csrc/df.cu"
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "stencil5",
-        "route": "cuda",
-        "source": "arnoldimethod_torch/csrc/stencil5.cu",
-        "replaces": "arnoldimethod_tpu/ops/stencil_pallas.py:240",
-        "also_replaces": "arnoldimethod_tpu/ops/stencil_pallas.py:157",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }, {
-        "name": "bsr",
-        "route": "cuda",
-        "source": "arnoldimethod_torch/csrc/bsr.cu",
-        "replaces": "arnoldimethod_tpu/ops/bsr_pallas.py:138",
-        "launches": bsr_launches,
-        "max_abs_err": bsr_shape["max_abs_err"],
-        "ms": bsr_shape["ms"],
-        "plain_ms": bsr_shape["plain_ms"],
-    }, {
-        "name": "stencil5_cheb",
-        "route": "cuda",
-        "source": "arnoldimethod_torch/csrc/stencil5.cu",
-        "replaces": "arnoldimethod_tpu/transforms.py:199 (XLA-fused "
-                    "recurrence; not a Pallas kernel)",
-        "launches": cheb_launches,
-        "max_abs_err": cheb_shape["max_abs_err"],
-        "ms": cheb_shape["ms"],
-        "plain_ms": cheb_shape["plain_ms"],
-    }]})
+    emit({"kernels": [
+        entry("stencil5", "arnoldimethod_torch/csrc/stencil5.cu",
+              "arnoldimethod_tpu/ops/stencil_pallas.py:240", launches,
+              kernels[0],
+              also_replaces="arnoldimethod_tpu/ops/stencil_pallas.py:157"),
+        entry("bsr", "arnoldimethod_torch/csrc/bsr.cu",
+              "arnoldimethod_tpu/ops/bsr_pallas.py:138", bsr_launches,
+              bsr_shape),
+        entry("stencil5_cheb", "arnoldimethod_torch/csrc/stencil5.cu",
+              "arnoldimethod_tpu/transforms.py:199 (XLA-fused recurrence; "
+              "not a Pallas kernel)", cheb_launches, cheb_shape),
+        entry("df_project", df_src,
+              "arnoldimethod_tpu/ops/df32.py:201 df_project_coeffs_df with "
+              "df_sum at :147" + xla, df_launches["df_project"],
+              df_shapes["df_project"]),
+        entry("df_axpy", df_src,
+              "arnoldimethod_tpu/ops/df32.py:209 df_axpy_update_df" + xla,
+              df_launches["df_axpy"], df_shapes["df_axpy"]),
+        entry("df_basis_change", df_src,
+              "arnoldimethod_tpu/ops/df_expansion.py:150 "
+              "_df_basis_change_impl" + xla, df_launches["df_basis_change"],
+              df_shapes["df_basis_change"]),
+        entry("stencil5_df", df_src,
+              "arnoldimethod_tpu/models/operators.py:395 "
+              "Stencil5Operator.matvec_df" + xla, df_launches["stencil5_df"],
+              df_shapes["stencil5_df"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

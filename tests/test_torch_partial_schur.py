@@ -234,7 +234,8 @@ def test_q_rows_is_not_the_workspace():
     "kw",
     [
         dict(method="device"),
-        dict(extended=True),
+        # extended=True is ported; its sharded path is not.
+        dict(extended=True, sharding=object()),
         dict(lowsync=True),
         dict(split_complex=True),
         dict(sharding=object()),
