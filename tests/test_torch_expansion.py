@@ -31,6 +31,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 N, M = 60, 12
 
 

@@ -34,6 +34,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 TOL = 1e-13
 
 

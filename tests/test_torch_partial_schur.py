@@ -36,6 +36,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 EPS = np.finfo(np.float64).eps
 
 

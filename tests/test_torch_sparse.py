@@ -33,6 +33,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 DTYPES = [np.float32, np.float64, np.complex128]
 DTYPE_IDS = ["f32", "f64", "c128"]
 

@@ -32,6 +32,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 LAPLACE = (4.0, -1.0, -1.0, -1.0, -1.0)
 # convection_diffusion_2d coefficients at nx=128, peclet=10.
 _BETA = 10.0 * (1.0 / 129) / 2.0

@@ -55,6 +55,7 @@ def _on_the_cpu():
     yield
     _device.DEFAULT = saved
 
+
 LAPLACE = (4.0, -1.0, -1.0, -1.0, -1.0)
 GRID = (24, 20)
 TDTYPE = {np.float32: torch.float32, np.float64: torch.float64}
