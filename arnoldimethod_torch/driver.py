@@ -49,7 +49,7 @@ from .ops.expansion import (
     set_random_vector,
     truncate_and_expand,
 )
-from .targets import as_target, get_order
+from .targets import LI, SI, as_target, get_order
 from .workspace import ArnoldiWorkspace
 
 __all__ = ["History", "PartialSchur", "partial_schur"]
@@ -261,7 +261,8 @@ def partial_schur(
     mindim = min(max(10, nev), n); maxdim = min(max(20, 2 nev), n);
     restarts = 200.  Convergence: ||A x - lam x|| <= max(eps ||H||_F,
     tol |lam|), scale-invariant with a machine-epsilon floor
-    (ref: run.jl:188-208).
+    (ref: run.jl:188-208).  which='LI' or 'SI' needs a complex operator
+    dtype and raises ValueError for a real one.
 
     The solve runs where the basis lives: the workspace's device, else
     `device`, else the operator's device.  An operator built here from
@@ -325,6 +326,18 @@ def partial_schur(
     if op.shape[0] != op.shape[1]:
         raise ValueError("matrix is not square")
     target = as_target(which)
+    if isinstance(target, (LI, SI)) and not op.dtype.is_complex:
+        # A real operator's spectrum is symmetric about the real axis, so
+        # ordering by imaginary part is meaningless (docs/index.md:49-57);
+        # the JAX package accepts it and may return a wrong answer marked
+        # converged.
+        complex_dtype = (torch.complex64 if op.dtype == torch.float32
+                         else torch.complex128)
+        raise ValueError(
+            f"which={type(target).__name__} needs a complex operator dtype, "
+            f"got {op.dtype}: give the operator as {complex_dtype} (real "
+            f"data cast to complex solves correctly)"
+        )
 
     if nev is None:
         nev = min(6, n)
