@@ -31,15 +31,28 @@
 // Design:
 //   - df_project reproduces the tree of df32.df_sum: pad a row to N = 2^k,
 //     combine the lower half (left operand) with the upper, repeatedly.
-//     With M = G * T partial sums a row (a power of two), the first
-//     log2(N / M) levels only combine elements of one class {t + s * M};
-//     within a class they are the same halving tree, which equals the
-//     adjacent-pair tree over s in bit-reversed order.  Thread t walks its
-//     class in that order, folding with a log-depth stack (a binary
-//     counter), so every load is coalesced across the warp; pad positions
-//     load (0, 0).  A second small pass runs the last log2(M) levels of
-//     the halving tree in shared memory, one block a row, and writes the
-//     zeros beyond `rows` and the accumulation.
+//     That tree reduces the bits of the index i from the top down, so any
+//     grouping that reduces them in that order makes the same combines.
+//     One launch; the plan (ops/df.py project_plan) splits i, top to
+//     bottom, into [h: L bits | wt | b | c], with C = 2^|c| elements a run
+//     of 32 or 128 bytes, T = (wt, c) threads a block and G = 2^|b| blocks
+//     a row group:
+//       1. thread (wt, c) of block b loads its 2^L elements h (a warp reads
+//          whole runs; pad positions are (0, 0)), all loads first, and runs
+//          their halving tree in registers (L is a template parameter, the
+//          tree a template recursion: no local memory);
+//       2. the block runs the halving tree over its T values down to C,
+//          in shared memory, the levels with half < 32 by warp shuffles;
+//       3. the block writes its C partials; the last block of the row to
+//          arrive (a fence and an atomic counter a row) runs the halving
+//          tree over the row's G * C partials, the first levels in device
+//          memory while they outgrow the shared stage, and resets the
+//          counter (so CUDA-graph replays start from zero).  With G = 1
+//          the block finishes the row itself.
+//     A block takes one row: blocks of two rows sharing their w loads
+//     measured no faster on an H100 (w's re-reads come from L2).  Rows
+//     past `rows` are zero and, with acc, still go through acc + 0, by
+//     block (0, 0).
 //   - df_axpy: a thread owns columns and runs the rows j in order.
 //   - df_basis_change: a block stages a tile of V's columns (all rows,
 //     both words) in shared memory; each thread accumulates outputs (i, c)
@@ -127,112 +140,208 @@ __device__ __forceinline__ void df_scale(T xh, T xl, T c, T& zh, T& zl) {
   quick_two_sum(ph, pe, zh, zl);
 }
 
-constexpr int kMaxDepth = 48;  // stack levels: log2 of a class's length + 1
-
 // -- df_project ------------------------------------------------------------
 
-// Pass 1: partial sum t of row blockIdx.y over the class {t + s * M}, s in
-// bit-reversed order (L = log2(N / M) bits).
-template <typename T>
-__global__ void __launch_bounds__(128)
-project_pass1(const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t ld,
-              const T* __restrict__ wh, const T* __restrict__ wl, int64_t n,
-              int64_t M, int L, T* __restrict__ part_h, T* __restrict__ part_l,
-              int64_t rows) {
-  const int64_t row = blockIdx.y;
-  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= M) return;
-  const T* vh = Vh + row * ld;
-  const T* vl = Vl + row * ld;
-  T sh[kMaxDepth], sl[kMaxDepth];
-  const int64_t S = int64_t(1) << L;
-  for (int64_t r = 0; r < S; ++r) {
-    const int64_t s =
-        L ? int64_t(__brevll((unsigned long long)r) >> (64 - L)) : 0;
-    const int64_t i = t + s * M;
-    T ch = T(0), cl = T(0);
-    if (i < n) df_mul(__ldg(vh + i), __ldg(vl + i), __ldg(wh + i),
-                      __ldg(wl + i), ch, cl);
-    int lev = 0;
-    while ((r >> lev) & 1) {
-      df_add(sh[lev], sl[lev], ch, cl, ch, cl);
-      ++lev;
-    }
-    sh[lev] = ch;
-    sl[lev] = cl;
-  }
-  part_h[row * M + t] = sh[L];
-  part_l[row * M + t] = sl[L];
-}
+constexpr int kProjectThreads = 256;       // the most threads a block
+constexpr size_t kProjectStage = 48 * 1024;  // shared memory a block
 
-// Pass 2: the halving tree over the M partials of row blockIdx.x, in
-// shared memory; rows >= `rows` are zero.  With acc, acc <- acc + c.
+// The halving tree of df32.df_sum over the `len` pairs at (sh, sl)[t], down
+// to `keep` pairs (powers of two): levels with half >= 32 in shared
+// memory, a barrier each; the rest in warp 0 by shuffles.  The lower index
+// is the left operand.  Every thread of the block calls it; the result is
+// at (sh, sl)[t], t < keep, after its closing barrier.
 template <typename T>
-__global__ void __launch_bounds__(256)
-project_pass2(const T* __restrict__ part_h, const T* __restrict__ part_l,
-              int64_t rows, int64_t M, T* ch, T* cl, T* acc_h, T* acc_l) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);
-  T* sl = sh + M;
-  const int64_t row = blockIdx.x;
-  if (row < rows) {
-    for (int64_t t = threadIdx.x; t < M; t += blockDim.x) {
-      sh[t] = part_h[row * M + t];
-      sl[t] = part_l[row * M + t];
+__device__ void halve_shared(T* sh, T* sl, int len, int keep) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (; len > keep && len > 32; len /= 2) {
+    const int half = len / 2;
+    for (int t = tid; t < half; t += nt)
+      df_add(sh[t], sl[t], sh[t + half], sl[t + half], sh[t], sl[t]);
+    __syncthreads();
+  }
+  if (len > keep) {
+    if (tid < 32) {
+      const unsigned mask = nt >= 32 ? 0xffffffffu : (1u << nt) - 1u;
+      T h = tid < len ? sh[tid] : T(0);
+      T l = tid < len ? sl[tid] : T(0);
+      for (int half = len / 2; half >= keep; half /= 2) {
+        const T uh = __shfl_down_sync(mask, h, half);
+        const T ul = __shfl_down_sync(mask, l, half);
+        df_add(h, l, uh, ul, h, l);  // valid in lanes < half
+      }
+      if (tid < keep) {
+        sh[tid] = h;
+        sl[tid] = l;
+      }
     }
     __syncthreads();
-    for (int64_t half = M / 2; half >= 1; half /= 2) {
-      for (int64_t t = threadIdx.x; t < half; t += blockDim.x)
-        df_add(sh[t], sl[t], sh[t + half], sl[t + half], sh[t], sl[t]);
-      __syncthreads();
-    }
-  }
-  if (threadIdx.x == 0) {
-    const T h = row < rows ? sh[0] : T(0);
-    const T l = row < rows ? sl[0] : T(0);
-    ch[row] = h;
-    cl[row] = l;
-    if (acc_h != nullptr) {
-      T zh, zl;
-      df_add(acc_h[row], acc_l[row], h, l, zh, zl);
-      acc_h[row] = zh;
-      acc_l[row] = zl;
-    }
   }
 }
+
+// The halving tree of df32.df_sum over K pairs in registers: one level a
+// template recursion, so every index is a compile-time constant.
+template <int K, typename T>
+__device__ __forceinline__ void halve_registers(T* h, T* l) {
+  if constexpr (K > 1) {
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i)
+      df_add(h[i], l[i], h[i + K / 2], l[i + K / 2], h[i], l[i]);
+    halve_registers<K / 2>(h, l);
+  }
+}
+
+// Row `row`'s result (h, l) into (ch, cl); with acc, acc <- acc + c.
+template <typename T>
+__device__ __forceinline__ void project_out(int64_t row, T h, T l, T* ch,
+                                            T* cl, T* acc_h, T* acc_l) {
+  ch[row] = h;
+  cl[row] = l;
+  if (acc_h != nullptr) {
+    T zh, zl;
+    df_add(acc_h[row], acc_l[row], h, l, zh, zl);
+    acc_h[row] = zh;
+    acc_l[row] = zl;
+  }
+}
+
+// One launch of df_project: grid (G, rows), T threads; see the design
+// above.  `stage` is the most partials of its row the last block holds in
+// shared memory; the scratch (part_h, part_l) holds rows * G * C pairs and
+// `arrivals` one counter a row, zero between launches.
+template <typename T, int L>
+__global__ void __launch_bounds__(kProjectThreads)
+project_kernel(const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t ld,
+               const T* __restrict__ wh, const T* __restrict__ wl, int64_t n,
+               int64_t rows, int64_t m1, int C, int stage,
+               T* __restrict__ part_h, T* __restrict__ part_l,
+               unsigned* __restrict__ arrivals, T* __restrict__ ch,
+               T* __restrict__ cl, T* acc_h, T* acc_l) {
+  constexpr int S = 1 << L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ bool last;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t G = gridDim.x, b = blockIdx.x, row = blockIdx.y;
+
+  if (b == 0 && row == 0) {
+    for (int64_t r = rows + tid; r < m1; r += nt)
+      project_out(r, T(0), T(0), ch, cl, acc_h, acc_l);
+  }
+  if (rows == 0) return;  // uniform across the launch
+
+  // 1. The halving tree over the thread's elements i = base + h * step,
+  //    all loads issued first.
+  const int64_t base = int64_t(tid / C) * G * C + b * C + tid % C;
+  const int64_t step = int64_t(nt) * G;
+  T ph[S], pl[S];
+  {
+    T w_h[S], w_l[S];
+#pragma unroll
+    for (int h = 0; h < S; ++h) {
+      const int64_t i = base + h * step;
+      w_h[h] = i < n ? __ldg(wh + i) : T(0);
+      w_l[h] = i < n ? __ldg(wl + i) : T(0);
+      ph[h] = i < n ? __ldg(Vh + row * ld + i) : T(0);
+      pl[h] = i < n ? __ldg(Vl + row * ld + i) : T(0);
+    }
+#pragma unroll
+    for (int h = 0; h < S; ++h) {
+      if (base + h * step < n)
+        df_mul(ph[h], pl[h], w_h[h], w_l[h], ph[h], pl[h]);
+    }
+    halve_registers<S>(ph, pl);
+  }
+
+  // 2. The block's tree over its T values, down to C.
+  T* sh = reinterpret_cast<T*>(smem_raw);
+  T* sl = sh + (nt > stage ? nt : stage);
+  sh[tid] = ph[0];
+  sl[tid] = pl[0];
+  __syncthreads();
+  halve_shared(sh, sl, nt, C);
+  if (G == 1) {  // the block holds the whole row: finish here
+    halve_shared(sh, sl, C, 1);
+    if (tid == 0) project_out(row, sh[0], sl[0], ch, cl, acc_h, acc_l);
+    return;
+  }
+
+  // 3. The last block of the row to arrive sums the G * C partials.
+  const int64_t M = G * C;
+  T* rh = part_h + row * M;
+  T* rl = part_l + row * M;
+  if (tid < C) {
+    __stcg(rh + b * C + tid, sh[tid]);
+    __stcg(rl + b * C + tid, sl[tid]);
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrivals + row, 1u) == unsigned(G - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int64_t len = M;
+  for (; len > stage; len /= 2) {  // levels in device memory
+    const int64_t half = len / 2;
+    for (int64_t t = tid; t < half; t += nt) {
+      T zh, zl;
+      df_add(__ldcg(rh + t), __ldcg(rl + t), __ldcg(rh + t + half),
+             __ldcg(rl + t + half), zh, zl);
+      __stcg(rh + t, zh);
+      __stcg(rl + t, zl);
+    }
+    __syncthreads();
+  }
+  for (int t = tid; t < len; t += nt) {
+    sh[t] = __ldcg(rh + t);
+    sl[t] = __ldcg(rl + t);
+  }
+  __syncthreads();
+  halve_shared(sh, sl, int(len), 1);
+  if (tid == 0) {
+    project_out(row, sh[0], sl[0], ch, cl, acc_h, acc_l);
+    arrivals[row] = 0u;
+  }
+}
+
+// The largest fold instantiated: 2^L element pairs of V a thread.
+constexpr int kMaxFold = 4;
 
 template <typename T>
 int project(const void* Vh, const void* Vl, int64_t ld, const void* wh,
-            const void* wl, int64_t n, int64_t rows, int64_t m1, void* part,
-            int64_t M, int64_t threads, void* ch, void* cl, void* acc_h,
+            const void* wl, int64_t n, int64_t rows, int64_t m1,
+            int64_t threads, int64_t C, int64_t G, int64_t L, int64_t stage,
+            void* part, int64_t part_words, void* arrivals,
+            int64_t arrival_slots, void* ch, void* cl, void* acc_h,
             void* acc_l, void* stream) {
-  if (n < 1 || rows < 0 || rows > m1 || M < 1 || (M & (M - 1)) || threads < 1
-      || M % threads || threads > 128 || M > 2048)
-    return int(cudaErrorInvalidValue);
+  auto pow2 = [](int64_t x) { return x >= 1 && (x & (x - 1)) == 0; };
   int64_t N = 1;
   while (N < n) N *= 2;
-  if (M > N) return int(cudaErrorInvalidValue);
-  int L = 0;
-  while ((M << L) < N) ++L;
-  if (L + 1 > kMaxDepth) return int(cudaErrorInvalidValue);
+  const int64_t span = threads > stage ? threads : stage;
+  if (n < 1 || ld < n || rows < 0 || rows > m1 || !pow2(threads)
+      || threads > kProjectThreads || !pow2(C) || C > threads || L < 0
+      || L > kMaxFold || G < 1 || (threads << L) * G != N || !pow2(stage)
+      || size_t(2 * span) * sizeof(T) > kProjectStage
+      || rows * G * C * 2 > part_words || rows > arrival_slots)
+    return int(cudaErrorInvalidValue);
+  if (rows > 65535 || G > INT32_MAX) return int(cudaErrorInvalidConfiguration);
+  const dim3 grid(rows > 0 ? unsigned(G) : 1u, rows > 0 ? unsigned(rows) : 1u);
+  const size_t smem = size_t(2 * span) * sizeof(T);
   auto s = static_cast<cudaStream_t>(stream);
   T* ph = static_cast<T*>(part);
-  T* pl = ph + (rows > 0 ? rows : 1) * M;
-  if (rows > 0) {
-    if (rows > 65535) return int(cudaErrorInvalidConfiguration);
-    project_pass1<T><<<dim3(unsigned(M / threads), unsigned(rows)),
-                       dim3(unsigned(threads)), 0, s>>>(
-        static_cast<const T*>(Vh), static_cast<const T*>(Vl), ld,
-        static_cast<const T*>(wh), static_cast<const T*>(wl), n, M, L, ph, pl,
-        rows);
-    const int err = int(cudaGetLastError());
-    if (err) return err;
+  T* pl = ph + rows * G * C;
+#define DF_PROJECT_CASE(LL)                                                    \
+  if (L == LL) {                                                               \
+    project_kernel<T, LL><<<grid, unsigned(threads), smem, s>>>(               \
+        static_cast<const T*>(Vh), static_cast<const T*>(Vl), ld,              \
+        static_cast<const T*>(wh), static_cast<const T*>(wl), n, rows, m1,     \
+        int(C), int(stage), ph, pl, static_cast<unsigned*>(arrivals),          \
+        static_cast<T*>(ch), static_cast<T*>(cl), static_cast<T*>(acc_h),      \
+        static_cast<T*>(acc_l));                                               \
+    return int(cudaGetLastError());                                            \
   }
-  project_pass2<T><<<dim3(unsigned(m1)), dim3(256),
-                     size_t(2 * M) * sizeof(T), s>>>(
-      ph, pl, rows, M, static_cast<T*>(ch), static_cast<T*>(cl),
-      static_cast<T*>(acc_h), static_cast<T*>(acc_l));
-  return int(cudaGetLastError());
+  DF_PROJECT_CASE(0) DF_PROJECT_CASE(1) DF_PROJECT_CASE(2) DF_PROJECT_CASE(3)
+  DF_PROJECT_CASE(4)
+#undef DF_PROJECT_CASE
+  return int(cudaErrorInvalidValue);
 }
 
 // -- df_axpy and df_mul_by -------------------------------------------------
@@ -421,10 +530,12 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
 #define DF_ENTRIES(SUFFIX, T)                                                  \
   extern "C" int df_project##SUFFIX(                                           \
       const void* Vh, const void* Vl, int64_t ld, const void* wh,              \
-      const void* wl, int64_t n, int64_t rows, int64_t m1, void* part,         \
-      int64_t M, int64_t threads, void* ch, void* cl, void* acc_h,             \
-      void* acc_l, void* stream) {                                             \
-    return project<T>(Vh, Vl, ld, wh, wl, n, rows, m1, part, M, threads, ch,   \
+      const void* wl, int64_t n, int64_t rows, int64_t m1, int64_t threads,    \
+      int64_t C, int64_t G, int64_t L, int64_t stage, void* part,              \
+      int64_t part_words, void* arrivals, int64_t arrival_slots, void* ch,     \
+      void* cl, void* acc_h, void* acc_l, void* stream) {                      \
+    return project<T>(Vh, Vl, ld, wh, wl, n, rows, m1, threads, C, G, L,       \
+                      stage, part, part_words, arrivals, arrival_slots, ch,    \
                       cl, acc_h, acc_l, stream);                               \
   }                                                                            \
   extern "C" int df_axpy##SUFFIX(const void* wh, const void* wl,               \

@@ -30,6 +30,7 @@ the wrapper calls that launched each kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +40,7 @@ from . import df32
 
 __all__ = [
     "KERNEL",
+    "ProjectPlan",
     "df_axpy",
     "df_axpy_plain",
     "df_basis_change",
@@ -54,20 +56,54 @@ __all__ = [
 ]
 
 _SOURCE = PACKAGE_DIR / "csrc" / "df.cu"
-# df_project: threads per block of the first pass and the most partial
-# sums a row leaves for the second pass (a power of two).
-_THREADS = 128
-_MAX_PARTIALS = 2048
+# df_project (csrc/df.cu kProjectThreads, kProjectStage, kMaxFold): the
+# most threads a block, the shared memory a block and the largest fold L.
+# The plan folds 2^L elements a thread, as far as the grid keeps
+# _MIN_BLOCKS blocks, up to 16 for one row and 8 for more; a warp reads
+# runs of 32 bytes for one row and 128 for more.  All four were measured
+# on an H100 (PERF.md, PR 7): a wider grid or longer runs lose more in the
+# last block's sum over the partials than they gain in reading.
+_PROJECT_THREADS = 256
+_PROJECT_STAGE_BYTES = 48 * 1024
+_MIN_BLOCKS = 64
+_MAX_FOLD = {"one_row": 4, "rows": 3}
+_RUN_BYTES = {"one_row": 32, "rows": 128}
 # df_basis_change: the shared memory a block stages (csrc/df.cu kBasisSmem).
 _BASIS_STAGE_BYTES = 48 * 1024
 
 
-def project_plan(n):
-    """(M, T) for df_project over rows of length n: M partial sums a row
-    (a power of two, at most the padded length), T threads a block."""
-    pow2 = 1 << max(0, n - 1).bit_length()
-    M = min(pow2, _MAX_PARTIALS)
-    return M, min(_THREADS, M)
+class ProjectPlan(NamedTuple):
+    """df_project's launch over rows of length n (padded to N = 2^k): the
+    index splits, top bit to bottom, into [h | wt | b | c] with
+    N = 2^L * T * G: thread (wt, c) of block b of a row holds the 2^L
+    elements h; T = (T / C) * C threads a block; G blocks a row."""
+
+    T: int      # threads a block (a power of two)
+    C: int      # elements of a warp's runs, the lowest bits
+    G: int      # blocks a row
+    L: int      # elements a thread folds: 2^L
+    stage: int  # the most partials the last block holds in shared memory
+
+    @property
+    def M(self):
+        """Partial sums a row: the G blocks' C each."""
+        return self.G * self.C
+
+
+def project_plan(n, rows=1, item=4):
+    """The launch of df_project over `rows` rows of length n in words of
+    `item` bytes (see _MIN_BLOCKS)."""
+    N = 1 << max(0, n - 1).bit_length()
+    T = min(_PROJECT_THREADS, N)
+    form = "one_row" if rows <= 1 else "rows"
+    C = min(_RUN_BYTES[form] // item, T)
+    L = max((L for L in range(_MAX_FOLD[form] + 1)
+             if T << L <= N and N // (T << L) * rows >= _MIN_BLOCKS),
+            default=0)
+    G = N // (T << L)
+    cap = _PROJECT_STAGE_BYTES // (2 * item)
+    stage = min(1 << (cap.bit_length() - 1), G * C)
+    return ProjectPlan(T, C, G, L, stage)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -162,12 +198,17 @@ def _check(*tensors):
 
 class _DfKernel:
     """The built CUDA library of csrc/df.cu and the launch count of each of
-    its kernels (`launches[name]`, one a wrapper call)."""
+    its kernels (`launches[name]`, one a wrapper call); `project_forms`
+    splits df_project's launches into the one-row form (a one-row V, every
+    norm) and the full form."""
 
     def __init__(self):
         self.launches = dict.fromkeys(_NAMES, 0)
+        self.project_forms = {"one_row": 0, "full": 0}
         self.build_log = ""
         self._lib = None
+        self._scratch = {}
+        self._retired = []
 
     def load(self):
         """Build (once per source hash) and load the library."""
@@ -178,7 +219,8 @@ class _DfKernel:
             lib = ctypes.CDLL(str(path))
             p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
             sigs = {
-                "df_project": [p, p, i, p, p, i, i, i, p, i, i, p, p, p, p, p],
+                "df_project": [p, p, i, p, p, i, i, i, i, i, i, i, i, p, i, p,
+                               i, p, p, p, p, p],
                 "df_axpy": [p, p, p, p, p, p, i, i, i, p, p, p],
                 "df_mul_by": [p, p, d, d, i, p, p, p],
                 "df_basis_change": [p, p, p, p, i, i, p, p, p],
@@ -205,22 +247,51 @@ class _DfKernel:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
         self.launches[count] += 1
 
-    def project(self, Vh, Vl, wh, wl, rows, acc=None):
+    def _project_scratch(self, like, words, slots):
+        """df_project's partials (`words` of like's dtype) and arrival
+        counters (`slots`, one a row, int32), kept per (device, dtype) and
+        grown by doubling.  The counters are zeroed when allocated and
+        every launch leaves them zero.  An outgrown buffer is kept, not
+        freed: a CUDA graph captured earlier may still launch on it."""
+
+        def grow(old, need, make):
+            if old is not None and old.numel() >= need:
+                return old
+            if old is not None:
+                self._retired.append(old)
+            return make(max(need, 2 * (0 if old is None else old.numel()), 1))
+
+        key = (like.device, like.dtype)
+        part, arrivals = self._scratch.get(key, (None, None))
+        part = grow(part, words, lambda k: torch.empty(
+            k, dtype=like.dtype, device=like.device))
+        arrivals = grow(arrivals, slots, lambda k: torch.zeros(
+            k, dtype=torch.int32, device=like.device))
+        self._scratch[key] = (part, arrivals)
+        return part, arrivals
+
+    def project(self, Vh, Vl, wh, wl, rows, acc=None, plan=None):
+        """df_project's launch; `plan` (a ProjectPlan) replaces
+        project_plan's, for measuring others."""
         _check(Vh, Vl, wh, wl, *(acc or ()))
         m1, n = Vh.shape
         if not 0 <= rows <= m1 or wh.shape != (n,) or wl.shape != (n,):
             raise ValueError(f"df_project: rows={rows}, V {tuple(Vh.shape)}, "
                              f"w {tuple(wh.shape)}")
-        M, T = project_plan(n)
-        part = torch.empty(2 * max(rows, 1) * M, dtype=Vh.dtype, device=Vh.device)
+        if plan is None:
+            plan = project_plan(n, max(rows, 1), Vh.element_size())
+        part, arrivals = self._project_scratch(Vh, 2 * rows * plan.M, rows)
         ch = torch.empty(m1, dtype=Vh.dtype, device=Vh.device)
         cl = torch.empty_like(ch)
         ah, al = acc if acc is not None else (None, None)
         self._launch("df_project", "df_project", Vh, Vh.data_ptr(),
                      Vl.data_ptr(), n, wh.data_ptr(), wl.data_ptr(), n, rows,
-                     m1, part.data_ptr(), M, T, ch.data_ptr(), cl.data_ptr(),
+                     m1, plan.T, plan.C, plan.G, plan.L, plan.stage,
+                     part.data_ptr(), part.numel(), arrivals.data_ptr(),
+                     arrivals.numel(), ch.data_ptr(), cl.data_ptr(),
                      None if ah is None else ah.data_ptr(),
                      None if al is None else al.data_ptr())
+        self.project_forms["one_row" if m1 == 1 else "full"] += 1
         return ch, cl
 
     def axpy(self, wh, wl, hh, hl, Vh, Vl, rows):

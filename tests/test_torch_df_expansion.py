@@ -11,8 +11,8 @@ expansion agrees with the port to 1e-13 in H (its low words move).
 On the CPU every wrapper of ops/df.py takes its plain version; the CUDA
 kernels are held bitwise to those plain versions by chip_smoke.py
 (`df_kernel`).  The kernels' order of sums is checked here by emulating it
-with the plain ops: the class walk in bit-reversed order plus the halving
-of the partials reproduces df32.df_sum's tree exactly.
+with the plain ops: df_project's thread, block and last-block levels
+reproduce df32.df_sum's tree exactly.
 """
 
 import jax
@@ -76,35 +76,61 @@ def _same(jax_out, port_out):
 # -- the kernels' order of sums --------------------------------------------
 
 
-def _bitrev(r, bits):
-    return int(format(r, f"0{bits}b")[::-1], 2) if bits else 0
+def _halve(xh, xl, keep, levels):
+    """df32.df_sum's halving levels along axis 0 while longer than `keep`
+    and `levels(length)` holds: the lower half is the left operand."""
+    while xh.shape[0] > keep and levels(xh.shape[0]):
+        half = xh.shape[0] // 2
+        xh, xl = df32.df_add(xh[:half], xl[:half], xh[half:], xl[half:])
+    return xh, xl
 
 
-def _kernel_order_sum(xh, xl, M):
-    """df_project's two passes emulated with the plain ops: thread t folds
-    the class {t + s M} with s in bit-reversed order through a binary-counter
-    stack, then the M partials go through the halving tree."""
+def _kernel_order_sum(xh, xl, plan):
+    """df_project's grouping for one row (csrc/df.cu project_kernel),
+    emulated with the plain ops.  The padded index splits, top bit to
+    bottom, into i = h (T G) + wt (G C) + b C + c; thread tid = wt C + c of
+    block b holds the elements h."""
+    T, C, G, L = plan.T, plan.C, plan.G, plan.L
     n = xh.shape[-1]
     N = 1 << max(0, n - 1).bit_length()
-    L = (N // M).bit_length() - 1
-    pad = (0, N - n)
-    xh = torch.nn.functional.pad(xh, pad)
-    xl = torch.nn.functional.pad(xl, pad)
-    t = torch.arange(M)
-    stack = {}
-    for r in range(N // M):
-        idx = t + _bitrev(r, L) * M
-        ch, cl = xh[idx], xl[idx]
-        lev = 0
-        while (r >> lev) & 1:
-            ch, cl = df32.df_add(*stack[lev], ch, cl)
-            lev += 1
-        stack[lev] = (ch, cl)
-    ph, pl = stack[L]
-    while ph.shape[0] > 1:
-        half = ph.shape[0] // 2
-        ph, pl = df32.df_add(ph[:half], pl[:half], ph[half:], pl[half:])
+    assert N == (T << L) * G
+    x = [torch.nn.functional.pad(v, (0, N - n)).reshape(1 << L, T // C, G, C)
+         for v in (xh, xl)]
+    # 1. Each thread: the tree over its 2^L elements, in registers.
+    x = _halve(*x, 1, lambda _: True)
+    # 2. Each block: its T values a[tid] down to C, the levels with half >=
+    #    32 in shared memory, then warp shuffles.
+    x = [v[0].permute(0, 2, 1).reshape(T, G) for v in x]
+    x = _halve(*x, C, lambda ln: ln // 2 >= 32)
+    x = _halve(*x, C, lambda _: True)
+    # 3. The last block: partial b C + c of each block, down to one; levels
+    #    in device memory while the row outgrows the stage, then shared
+    #    memory, then shuffles.
+    x = [v.t().reshape(G * C) for v in x]
+    x = _halve(*x, 1, lambda ln: ln > plan.stage)
+    x = _halve(*x, 1, lambda ln: ln // 2 >= 32)
+    ph, pl = _halve(*x, 1, lambda _: True)
     return ph[0], pl[0]
+
+
+def _plan(n, T, C, L):
+    """A hand-made launch of one row (the grid follows from n)."""
+    N = 1 << max(0, n - 1).bit_length()
+    G = N // (T << L)
+    return df.ProjectPlan(T, C, G, L, min(G * C, 1024))
+
+
+def _plans(n):
+    """project_plan's launches at 1, 7 and 60 rows in both words, and hand
+    plans with other block widths, sector runs and folds."""
+    plans = {df.project_plan(n, rows, item) for rows in (1, 7, 60)
+             for item in (4, 8)}
+    N = 1 << max(0, n - 1).bit_length()
+    for T, C, L in ((32, 8, 2), (64, 4, 3), (256, 8, 4), (2, 2, 0),
+                    (256, 32, 3)):
+        if C <= T and (T << L) <= N:
+            plans.add(_plan(n, T, C, L))
+    return sorted(plans)
 
 
 @pytest.mark.parametrize("n", [1, 5, 64, 1000, 1024, 3000])
@@ -112,18 +138,51 @@ def test_kernel_order_of_sums_is_df_sums_tree(n):
     rng = np.random.default_rng(n)
     xh, xl = _t(*_pair(rng, n))
     want = df32.df_sum(xh, xl)
-    M_plan = df.project_plan(n)[0]
-    for M in sorted({m for m in (1, 4, 64, M_plan) if m <= M_plan}):
-        got = _kernel_order_sum(xh, xl, M)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), M
+    for plan in _plans(n):
+        got = _kernel_order_sum(xh, xl, plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), plan
 
 
-@pytest.mark.parametrize("n", [1, 2, 100, 1000, 4096, 1 << 20, 1021 * 1000])
-def test_project_plan(n):
-    M, T = df.project_plan(n)
-    pow2 = 1 << max(0, n - 1).bit_length()
-    assert M & (M - 1) == 0 and 1 <= M <= min(pow2, 2048)
-    assert 1 <= T <= 128 and M % T == 0
+@pytest.mark.parametrize("n,rows", [(65536, 1), (65536, 60), (1 << 20, 1),
+                                    (1 << 20, 60)])
+def test_kernel_order_of_sums_at_the_main_path_plans(n, rows):
+    """The plans of config 3 (n = 65,536) and of 1,048,576 rows, the
+    first levels in device memory among them (60 rows at 1M)."""
+    rng = np.random.default_rng(n + rows)
+    xh, xl = _t(*_pair(rng, n))
+    want = df32.df_sum(xh, xl)
+    for item in (4, 8):
+        plan = df.project_plan(n, rows, item)
+        got = _kernel_order_sum(xh, xl, plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), plan
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, 60])
+@pytest.mark.parametrize("n", [1, 2, 100, 1000, 4096, 1 << 16, 1 << 20,
+                               1021 * 1000, 1 << 24])
+def test_project_plan(n, rows):
+    N = 1 << max(0, n - 1).bit_length()
+    for item in (4, 8):
+        p = df.project_plan(n, rows, item)
+        assert p.T & (p.T - 1) == 0 and 1 <= p.T <= 256
+        assert p.C & (p.C - 1) == 0 and p.C <= p.T
+        assert p.C * item == (32 if rows == 1 else 128) or p.C == p.T
+        assert (p.T << p.L) * p.G == N
+        assert p.M & (p.M - 1) == 0 and p.M == p.G * p.C <= N
+        fold = 4 if rows == 1 else 3
+        assert 0 <= p.L <= fold
+        assert p.stage & (p.stage - 1) == 0 and p.stage <= p.M
+        assert 2 * item * max(p.T, p.stage) <= 48 * 1024
+        # The longest fold that keeps 64 blocks where n and rows allow it,
+        # else the widest grid; 132 blocks or more at the main path's
+        # 60-row shapes.
+        blocks = p.G * rows
+        if N // p.T * rows < 64:
+            assert p.L == 0
+        else:
+            assert blocks >= 64 and (p.L == fold or blocks < 128)
+        if rows == 60 and n >= 1 << 16:
+            assert blocks >= 132
 
 
 # -- plain versions of the kernels against JAX -----------------------------
@@ -371,6 +430,24 @@ def test_kernel_wrappers_reject_bad_input():
         K.stencil(v, v, COEFFS, (3, 3))
 
 
+def test_project_scratch_is_kept_and_grown_by_doubling():
+    """df_project's partials and zeroed arrival counters are reused across
+    calls; an outgrown buffer stays referenced (a captured CUDA graph may
+    still use it)."""
+    K = df._DfKernel()
+    like = torch.zeros(1, dtype=torch.float64)
+    part, arrivals = K._project_scratch(like, 100, 3)
+    assert part.numel() == 100 and part.dtype == torch.float64
+    assert arrivals.dtype == torch.int32 and torch.equal(
+        arrivals, torch.zeros(3, dtype=torch.int32))
+    assert K._project_scratch(like, 60, 2) == (part, arrivals)
+    bigger, more = K._project_scratch(like, 150, 7)
+    assert bigger.numel() == 200 and more.numel() == 7
+    assert K._retired[0] is part and K._retired[1] is arrivals
+    other, _ = K._project_scratch(like.float(), 10, 1)
+    assert other.dtype == torch.float32 and bigger.numel() == 200
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version():
     v = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -388,8 +465,11 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 def test_launch_counts_start_at_zero_and_plain_does_not_count():
     assert df._DfKernel().launches == dict.fromkeys(
         ("df_project", "df_axpy", "df_basis_change", "stencil5_df"), 0)
+    assert df._DfKernel().project_forms == {"one_row": 0, "full": 0}
     before = dict(df.KERNEL.launches)
+    forms = dict(df.KERNEL.project_forms)
     v = torch.ones(8)
     df.df_project(v[None], v[None], v, v, 1)
     df.df_mul_by(v, v, 1.0, 0.0)
     assert df.KERNEL.launches == before
+    assert df.KERNEL.project_forms == forms
