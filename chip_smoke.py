@@ -104,7 +104,8 @@ Phases, each printed as one JSON line:
            restarts, residual 3.872e-12); df_project's launches split into
            its one-row and full forms; a profile of its first restarts
            gives the device's busy share and df_project's share of the
-           device time (chiprun_out/profile_conv.txt)
+           device time (chiprun_out/profile_conv.txt), and shows one
+           device launch a df_project call (ext_conv_one_launch)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
 launches on its main path, error against its plain version, ms, plain ms,
@@ -423,7 +424,7 @@ def _profile(torch, phase, op, kernel, out_name, label=None, parts=None,
     table goes to chiprun_out/<out_name>.  `kernel` is matched in the
     kernels' names; `label` (default `kernel`) names its time.  `parts`
     maps more labels to name fragments, each reported with its share of
-    the device time.  Returns the printed line."""
+    the device time and its count of launches.  Returns the printed line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -480,6 +481,8 @@ def _profile(torch, phase, op, kernel, out_name, label=None, parts=None,
         line[f"{name}_device_ms"] = ms
         line[f"{name}_share_of_device"] = (ms / busy_us * 1e3 if measured
                                            else "not measured")
+        line[f"{name}_device_launches"] = sum(
+            c for k, (_, c) in by_name.items() if fragment in k)
     line["top"] = [{"kernel": k[:80], "device_ms": us / 1e3, "count": c}
                    for us, k, c in rows[:8]]
     emit(line)
@@ -1363,7 +1366,7 @@ def project_sweep(torch):
     """`--project-sweep`: df_project under other launch plans than
     project_plan's, one JSON line a case: every plan with 128 or 256
     threads, runs of 32 or 128 bytes and folds L = 0-4 (bitwise against the
-    plain version), the default plan's ms and the four fastest."""
+    plain version), the default plan's ms and every plan's, fastest first."""
     from arnoldimethod_torch.ops import df
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1407,7 +1410,7 @@ def project_sweep(torch):
               "default": default._asdict(),
               "default_ms": graph_ms(lambda: df.df_project(Vh, Vl, wh, wl,
                                                            rows)),
-              "fastest": [{"ms": ms, **p} for ms, p in timed[:4]]})
+              "plans": [{"ms": ms, **p} for ms, p in timed]})
         if not same:
             sys.exit("chip_smoke: a swept df_project plan is not bitwise")
 
@@ -1731,10 +1734,18 @@ def phase_ext_conv(torch):
                           "schur_residual": 4.228e-10, "complex_pairs": 5,
                           "wall_s": 107.65})
     # The double-word kernels are the file's anonymous-namespace kernels.
-    _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
-             "profile_conv.txt", label="df_kernels",
-             parts={"df_project": "project_kernel"}, nev=10, which="LM",
-             tol=1e-6, mindim=30, maxdim=60, restarts=3, extended=True, v1=v1)
+    calls = df.KERNEL.launches["df_project"]
+    prof = _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
+                    "profile_conv.txt", label="df_kernels",
+                    parts={"df_project": "project_kernel"}, nev=10,
+                    which="LM", tol=1e-6, mindim=30, maxdim=60, restarts=3,
+                    extended=True, v1=v1)
+    # One device launch a df_project call, both forms, in the profiled solve.
+    calls = df.KERNEL.launches["df_project"] - calls
+    check("ext_conv_one_launch",
+          calls > 0 and prof["df_project_device_launches"] == calls,
+          wrapper_calls=calls,
+          device_launches=prof["df_project_device_launches"])
     return launches, forms
 
 
