@@ -61,7 +61,7 @@ _SOURCE = PACKAGE_DIR / "csrc" / "df.cu"
 # The plan folds 2^L elements a thread, as far as the grid keeps
 # _MIN_BLOCKS blocks, up to 16 for one row and 8 for more; a warp reads
 # runs of 32 bytes for one row and 128 for more.  All four were measured
-# on an H100 (PERF.md, PR 7): a wider grid or longer runs lose more in the
+# on an H100 (PERF.md §6): a wider grid or longer runs lose more in the
 # last block's sum over the partials than they gain in reading.
 _PROJECT_THREADS = 256
 _PROJECT_STAGE_BYTES = 48 * 1024

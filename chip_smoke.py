@@ -84,12 +84,12 @@ Phases, each printed as one JSON line:
            plain versions, bitwise, in float32 and float64 words at config
            3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021 x 1000;
            ms (CUDA graph of 20 calls), GB/s and the bound, df_project's
-           beside PR 5's; then df_project alone: the full form at rows 1,
-           7 and 60, the one-row form at n = 1, 1,000, 65,536 and
-           1,048,576 (bitwise with acc, both words), 20 calls in a CUDA
-           graph replayed 10 times against one eager call, and ptxas'
-           registers, stack and spills of each instantiation (no local
-           memory)
+           beside the two-pass kernel's it replaced; then df_project alone:
+           the full form at rows 1, 7 and 60, the one-row form at n = 1,
+           1,000, 65,536 and 1,048,576 (bitwise with acc, both words), 20
+           calls in a CUDA graph replayed 10 times against one eager call,
+           and ptxas' registers, stack and spills of each instantiation (no
+           local memory)
   ext_readme  extended=True, laplacian_1d(100), float32 words, tol=1e-12
            from one v1: residual below 1e-11, same count on card and CPU
   ext_dd   float64 words (double-double dense layer), tol=1e-28: at most
@@ -100,8 +100,9 @@ Phases, each printed as one JSON line:
            nev=10, :LM, extended=True, from a numpy-seeded v1): converged,
            complex pairs, residual in host float64 at most 1e-8, every
            double-word kernel launched, no plain double-word op on the
-           card, and PR 5's result repeated exactly (6,387 matvecs, 213
-           restarts, residual 3.872e-12); df_project's launches split into
+           card, and the two-pass kernel's result repeated exactly (6,387
+           matvecs, 213 restarts, residual 3.872e-12); df_project's
+           launches split into
            its one-row and full forms; a profile of its first restarts
            gives the device's busy share and df_project's share of the
            device time (chiprun_out/profile_conv.txt), and shows one
@@ -1251,19 +1252,20 @@ def _df_case(torch, grid, dtype, gen, time_plain):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
                "share_of_bound": bound_ms / ms, "bytes": nbytes, "ops": ops}
-        pr5 = PR5_PROJECT_MS.get((name, case, word))
-        if pr5 is not None:
-            res["pr5_ms"] = pr5
-            res["slower_than_pr5"] = ms > pr5
+        was = TWO_PASS_PROJECT_MS.get((name, case, word))
+        if was is not None:
+            res["two_pass_ms"] = was
+            res["slower_than_two_pass"] = ms > was
         if time_plain:
             res["plain_ms"] = median_ms(lambda: plain(None), reps=3, warm=1)
         out[name] = res
     return out
 
 
-# df_project's device ms in PR 5's run F (PERF.md §6, NVIDIA H100 80GB
+# df_project's device ms as the two-pass kernel this one replaced took them
+# (PERF.md §6, run F, NVIDIA H100 80GB
 # HBM3, 700.00 W), by (form, case, word): the times this design is held to.
-PR5_PROJECT_MS = {
+TWO_PASS_PROJECT_MS = {
     ("df_project", "config3", "float32"): 0.0301200,
     ("df_project", "1m", "float32"): 0.3943,
     ("df_project", "odd", "float32"): 0.4008,
@@ -1314,8 +1316,8 @@ def _project_forms(torch, dtype, gen):
     """df_project against its plain version, bitwise with acc, in the full
     form at rows 1, 7 and 60 of a 61 x 65,536 basis and in the one-row
     form at n = 1, 1,000, 65,536 and 1,048,576; each with its launch plan,
-    ms (CUDA graph of 20 calls), GB/s, bound and PR 5's ms where run F
-    measured the case."""
+    ms (CUDA graph of 20 calls), GB/s, bound and, where run F measured
+    the case, the two-pass kernel's ms."""
     from arnoldimethod_torch.ops import df
 
     word = str(dtype).split(".")[-1]
@@ -1329,7 +1331,7 @@ def _project_forms(torch, dtype, gen):
 
     cases = [("full", 61, 65536, r) for r in (1, 7, 60)]
     cases += [("one_row", 1, n, 1) for n in (1, 1000, 65536, 1 << 20)]
-    pr5 = {("one_row", 65536): ("df_project_norm", "config3"),
+    earlier = {("one_row", 65536): ("df_project_norm", "config3"),
            ("one_row", 1 << 20): ("df_project_norm", "1m"),
            ("full", 60): ("df_project", "config3")}
     out = []
@@ -1350,15 +1352,15 @@ def _project_forms(torch, dtype, gen):
         ms = graph_ms(lambda: df.df_project(Vh, Vl, wh, wl, rows))
         bound_ms, bound_by = roofline(nbytes, rows * n * (DF_MUL + DF_ADD),
                                       word)
-        key = pr5.get((form, n if form == "one_row" else rows))
-        was = PR5_PROJECT_MS.get((*key, word)) if key else None
+        key = earlier.get((form, n if form == "one_row" else rows))
+        was = TWO_PASS_PROJECT_MS.get((*key, word)) if key else None
         out.append({"form": form, "m1": m1, "n": n, "rows": rows,
                     "plan": df.project_plan(n, rows, item)._asdict(),
                     "bitwise": same, "ms": ms, "gbs": nbytes / ms / 1e6,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "share_of_bound": bound_ms / ms,
-                    "pr5_ms": was if was is not None else "not measured",
-                    "slower_than_pr5": was is not None and ms > was})
+                    "two_pass_ms": was if was is not None else "not measured",
+                    "slower_than_two_pass": was is not None and ms > was})
     return out
 
 
@@ -1498,7 +1500,8 @@ def phase_df_kernel(torch):
     norm = shape["df_project_norm"]
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
-        one_row_bound_ms=norm["bound_ms"], one_row_pr5_ms=norm["pr5_ms"])
+        one_row_bound_ms=norm["bound_ms"],
+        one_row_two_pass_ms=norm["two_pass_ms"])
     return shape
 
 
@@ -1707,7 +1710,7 @@ def phase_ext_conv(torch):
     resid = float(np.linalg.norm(AQg.reshape(nx * nx, -1) - Q @ d.R))
     pairs = int(np.sum(d.eigenvalues.imag > 0))
     # The solve is deterministic and every double-word kernel bitwise, so
-    # it repeats PR 5's run F to every printed digit.
+    # it repeats the two-pass kernel's run F to every printed digit.
     repeats = (h.mvproducts == 6387 and h.restarts == 213
                and f"{resid:.3e}" == "3.872e-12")
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
@@ -1716,12 +1719,12 @@ def phase_ext_conv(torch):
           and sum(forms.values()) == launches["df_project"],
           n=nx * nx, mvproducts=h.mvproducts, restarts=h.restarts,
           nconverged=h.nconverged, complex_pairs=pairs, schur_residual=resid,
-          repeats_pr5=repeats,
-          pr5_record={"mvproducts": 6387, "restarts": 213,
+          repeats_two_pass=repeats,
+          two_pass_record={"mvproducts": 6387, "restarts": 213,
                       "schur_residual": "3.872e-12", "wall_s": [3.779, 8.176],
                       "device_busy_share": [0.073, 0.122],
                       "df_project_share_of_device": 0.55,
-                      "source": "PERF.md, PR 5 runs F and H"},
+                      "source": "PERF.md §5, runs F and H"},
           wall_s=wall, timings=h.timings, dense_layer=h.dense_layer,
           host_syncs=h.host_syncs, syncs_per_step=h.host_syncs / h.mvproducts,
           df_launches=launches, df_project_forms=forms,
@@ -1863,8 +1866,8 @@ def main():
               one_row_launches=project_forms["one_row"],
               full_launches=project_forms["full"],
               **{k: df_shapes["df_project"][k] for k in (
-                  "one_row_ms", "one_row_bound_ms", "one_row_pr5_ms",
-                  "pr5_ms")}),
+                  "one_row_ms", "one_row_bound_ms", "one_row_two_pass_ms",
+                  "two_pass_ms")}),
         entry("df_axpy", df_src,
               "arnoldimethod_tpu/ops/df32.py:209 df_axpy_update_df" + xla,
               df_launches["df_axpy"], df_shapes["df_axpy"]),
