@@ -66,8 +66,8 @@ _SOURCE = PACKAGE_DIR / "csrc" / "df.cu"
 _PROJECT_THREADS = 256
 _PROJECT_STAGE_BYTES = 48 * 1024
 _MIN_BLOCKS = 64
-_MAX_FOLD = {"one_row": 4, "rows": 3}
-_RUN_BYTES = {"one_row": 32, "rows": 128}
+_MAX_FOLD = {"one_row": 4, "full": 3}
+_RUN_BYTES = {"one_row": 32, "full": 128}
 # df_basis_change: the shared memory a block stages (csrc/df.cu kBasisSmem).
 _BASIS_STAGE_BYTES = 48 * 1024
 
@@ -78,6 +78,7 @@ class ProjectPlan(NamedTuple):
     N = 2^L * T * G: thread (wt, c) of block b of a row holds the 2^L
     elements h; T = (T / C) * C threads a block; G blocks a row."""
 
+    form: str   # "one_row" (at most one row: every norm) or "full"
     T: int      # threads a block (a power of two)
     C: int      # elements of a warp's runs, the lowest bits
     G: int      # blocks a row
@@ -95,7 +96,7 @@ def project_plan(n, rows=1, item=4):
     `item` bytes (see _MIN_BLOCKS)."""
     N = 1 << max(0, n - 1).bit_length()
     T = min(_PROJECT_THREADS, N)
-    form = "one_row" if rows <= 1 else "rows"
+    form = "one_row" if rows <= 1 else "full"
     C = min(_RUN_BYTES[form] // item, T)
     L = max((L for L in range(_MAX_FOLD[form] + 1)
              if T << L <= N and N // (T << L) * rows >= _MIN_BLOCKS),
@@ -103,7 +104,7 @@ def project_plan(n, rows=1, item=4):
     G = N // (T << L)
     cap = _PROJECT_STAGE_BYTES // (2 * item)
     stage = min(1 << (cap.bit_length() - 1), G * C)
-    return ProjectPlan(T, C, G, L, stage)
+    return ProjectPlan(form, T, C, G, L, stage)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -199,8 +200,7 @@ def _check(*tensors):
 class _DfKernel:
     """The built CUDA library of csrc/df.cu and the launch count of each of
     its kernels (`launches[name]`, one a wrapper call); `project_forms`
-    splits df_project's launches into the one-row form (a one-row V, every
-    norm) and the full form."""
+    splits df_project's launches by their plan's form (ProjectPlan.form)."""
 
     def __init__(self):
         self.launches = dict.fromkeys(_NAMES, 0)
@@ -247,12 +247,24 @@ class _DfKernel:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
         self.launches[count] += 1
 
-    def _project_scratch(self, like, words, slots):
+    def _project_scratch(self, like, words, slots, stream, capturing=False):
         """df_project's partials (`words` of like's dtype) and arrival
-        counters (`slots`, one a row, int32), kept per (device, dtype) and
-        grown by doubling.  The counters are zeroed when allocated and
-        every launch leaves them zero.  An outgrown buffer is kept, not
-        freed: a CUDA graph captured earlier may still launch on it."""
+        counters (`slots`, one a row, int32), kept per (device, dtype,
+        stream) and grown by doubling, so that calls on two streams never
+        share them.  The counters are zeroed when allocated and every
+        launch leaves them zero.  An outgrown buffer is kept, not freed: a
+        CUDA graph captured earlier may still launch on it.  A graph
+        captured on a stream shares that stream's buffers when they are
+        large enough (so do not call df_project on that stream while the
+        graph replays on another); else a call under capture takes buffers
+        of its own from the graph's pool, zeroed by a memset in the graph."""
+        key = (like.device, like.dtype, stream)
+        part, arrivals = self._scratch.get(key, (None, None))
+        if part is not None and part.numel() >= words and arrivals.numel() >= slots:
+            return part, arrivals
+        if capturing:
+            return (torch.empty(max(words, 1), dtype=like.dtype, device=like.device),
+                    torch.zeros(max(slots, 1), dtype=torch.int32, device=like.device))
 
         def grow(old, need, make):
             if old is not None and old.numel() >= need:
@@ -261,8 +273,6 @@ class _DfKernel:
                 self._retired.append(old)
             return make(max(need, 2 * (0 if old is None else old.numel()), 1))
 
-        key = (like.device, like.dtype)
-        part, arrivals = self._scratch.get(key, (None, None))
         part = grow(part, words, lambda k: torch.empty(
             k, dtype=like.dtype, device=like.device))
         arrivals = grow(arrivals, slots, lambda k: torch.zeros(
@@ -270,17 +280,24 @@ class _DfKernel:
         self._scratch[key] = (part, arrivals)
         return part, arrivals
 
-    def project(self, Vh, Vl, wh, wl, rows, acc=None, plan=None):
-        """df_project's launch; `plan` (a ProjectPlan) replaces
-        project_plan's, for measuring others."""
+    def project(self, Vh, Vl, wh, wl, rows, acc=None):
         _check(Vh, Vl, wh, wl, *(acc or ()))
         m1, n = Vh.shape
         if not 0 <= rows <= m1 or wh.shape != (n,) or wl.shape != (n,):
             raise ValueError(f"df_project: rows={rows}, V {tuple(Vh.shape)}, "
                              f"w {tuple(wh.shape)}")
-        if plan is None:
-            plan = project_plan(n, max(rows, 1), Vh.element_size())
-        part, arrivals = self._project_scratch(Vh, 2 * rows * plan.M, rows)
+        plan = project_plan(n, max(rows, 1), Vh.element_size())
+        return self._project_launch(plan, Vh, Vl, wh, wl, rows, acc)
+
+    def _project_launch(self, plan, Vh, Vl, wh, wl, rows, acc=None):
+        """df_project's launch under `plan` (project_plan's, or another
+        when measuring plans); the operands are checked by `project`."""
+        m1, n = Vh.shape
+        with torch.cuda.device(Vh.device):
+            stream = torch.cuda.current_stream(Vh.device).cuda_stream
+            capturing = torch.cuda.is_current_stream_capturing()
+        part, arrivals = self._project_scratch(Vh, 2 * rows * plan.M, rows,
+                                               stream, capturing)
         ch = torch.empty(m1, dtype=Vh.dtype, device=Vh.device)
         cl = torch.empty_like(ch)
         ah, al = acc if acc is not None else (None, None)
@@ -291,7 +308,7 @@ class _DfKernel:
                      arrivals.numel(), ch.data_ptr(), cl.data_ptr(),
                      None if ah is None else ah.data_ptr(),
                      None if al is None else al.data_ptr())
-        self.project_forms["one_row" if m1 == 1 else "full"] += 1
+        self.project_forms[plan.form] += 1
         return ch, cl
 
     def axpy(self, wh, wl, hh, hl, Vh, Vl, rows):

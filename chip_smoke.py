@@ -161,7 +161,9 @@ def median_ms(fn, reps=30, warm=5):
 def graph_ms(fn, calls=20, reps=10):
     """Device time per call: `calls` calls captured in one CUDA graph,
     replayed `reps` times between CUDA events; median replay / calls.
-    Host launch overhead is out of the picture."""
+    Host launch overhead is out of the picture.  The graph is captured on
+    the stream that warmed it up, so that df_project's scratch, kept per
+    stream, is allocated outside the graph."""
     import torch
 
     side = torch.cuda.Stream()
@@ -171,7 +173,7 @@ def graph_ms(fn, calls=20, reps=10):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -1329,15 +1331,15 @@ def _project_forms(torch, dtype, gen):
         return h, torch.randn(*shape, dtype=dtype, device="cuda",
                               generator=gen) * lo
 
-    cases = [("full", 61, 65536, r) for r in (1, 7, 60)]
-    cases += [("one_row", 1, n, 1) for n in (1, 1000, 65536, 1 << 20)]
-    earlier = {("one_row", 65536): ("df_project_norm", "config3"),
-           ("one_row", 1 << 20): ("df_project_norm", "1m"),
-           ("full", 60): ("df_project", "config3")}
+    cases = [(61, 65536, r) for r in (1, 7, 60)]
+    cases += [(1, n, 1) for n in (1, 1000, 65536, 1 << 20)]
+    earlier = {(1, 65536, 1): ("df_project_norm", "config3"),
+               (1, 1 << 20, 1): ("df_project_norm", "1m"),
+               (61, 65536, 60): ("df_project", "config3")}
     out = []
-    for form, m1, n, rows in cases:
+    for m1, n, rows in cases:
         wh, wl = pair(n)
-        if form == "one_row":
+        if m1 == 1:
             Vh, Vl = wh[None], wl[None]
             nbytes = 2 * n * item
         else:
@@ -1352,9 +1354,9 @@ def _project_forms(torch, dtype, gen):
         ms = graph_ms(lambda: df.df_project(Vh, Vl, wh, wl, rows))
         bound_ms, bound_by = roofline(nbytes, rows * n * (DF_MUL + DF_ADD),
                                       word)
-        key = earlier.get((form, n if form == "one_row" else rows))
+        key = earlier.get((m1, n, rows))
         was = TWO_PASS_PROJECT_MS.get((*key, word)) if key else None
-        out.append({"form": form, "m1": m1, "n": n, "rows": rows,
+        out.append({"m1": m1, "n": n, "rows": rows,
                     "plan": df.project_plan(n, rows, item)._asdict(),
                     "bitwise": same, "ms": ms, "gbs": nbytes / ms / 1e6,
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1397,13 +1399,14 @@ def project_sweep(torch):
                     if G < 1:
                         continue
                     C = run // item
-                    p = df.ProjectPlan(T, C, G, L, min(
-                        1 << (cap.bit_length() - 1), G * C))
-                    got = df.KERNEL.project(Vh, Vl, wh, wl, rows, plan=p)
+                    p = df.ProjectPlan(
+                        "one_row" if rows <= 1 else "full", T, C, G, L,
+                        min(1 << (cap.bit_length() - 1), G * C))
+                    got = df.KERNEL._project_launch(p, Vh, Vl, wh, wl, rows)
                     torch.cuda.synchronize()
                     same = same and bitwise(zip(got, want))
-                    ms = graph_ms(lambda: df.KERNEL.project(
-                        Vh, Vl, wh, wl, rows, plan=p))
+                    ms = graph_ms(lambda: df.KERNEL._project_launch(
+                        p, Vh, Vl, wh, wl, rows))
                     timed.append((ms, p._asdict()))
         timed.sort(key=lambda t: t[0])
         default = df.project_plan(n, rows, item)
@@ -1418,9 +1421,12 @@ def project_sweep(torch):
 
 
 def _project_replay(torch, gen, n, m1, rows):
-    """20 df_project calls captured in one CUDA graph, replayed 10 times:
-    every output equals one eager call's bit for bit (the arrival counters
-    reset at the end of each launch)."""
+    """20 eager df_project calls, then 20 calls captured in one CUDA graph
+    and replayed 10 times, twice: captured on a stream that called it
+    before (the stream's scratch, whose arrival counters each launch
+    resets) and on torch.cuda.graph's own stream, which never called it
+    (scratch of each call's own, zeroed inside the graph).  Every output
+    equals the first eager call's bit for bit."""
     from arnoldimethod_torch.ops import df
 
     Vh = torch.randn(m1, n, device="cuda", generator=gen)
@@ -1429,23 +1435,31 @@ def _project_replay(torch, gen, n, m1, rows):
     if m1 == 1:
         wh, wl = Vh[0], Vl[0]
     want = df.df_project(Vh, Vl, wh, wl, rows)
+    eager = [df.df_project(Vh, Vl, wh, wl, rows) for _ in range(20)]
     torch.cuda.synchronize()
+    ok = {"eager": all(bitwise(zip(o, want)) for o in eager)}
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         df.df_project(Vh, Vl, wh, wl, rows)
     torch.cuda.current_stream().wait_stream(side)
-    graph, outs = torch.cuda.CUDAGraph(), []
-    with torch.cuda.graph(graph):
-        for _ in range(20):
-            outs.append(df.df_project(Vh, Vl, wh, wl, rows))
-    ok = True
-    for _ in range(10):
-        graph.replay()
-        torch.cuda.synchronize()
-        ok = ok and all(bitwise(zip(o, want)) for o in outs)
+    for name, stream in (("warm_stream", side), ("fresh_stream", None)):
+        graph, outs = torch.cuda.CUDAGraph(), []
+        with torch.cuda.graph(graph, stream=stream):
+            key = (Vh.device, Vh.dtype, torch.cuda.current_stream().cuda_stream)
+            ok[name + "_cached"] = key in df.KERNEL._scratch
+            for _ in range(20):
+                outs.append(df.df_project(Vh, Vl, wh, wl, rows))
+        same = True
+        for _ in range(10):
+            graph.replay()
+            torch.cuda.synchronize()
+            same = same and all(bitwise(zip(o, want)) for o in outs)
+        ok[name] = same
     return {"n": n, "m1": m1, "rows": rows, "calls": 20, "replays": 10,
-            "bitwise": ok}
+            **ok, "bitwise": ok["eager"] and ok["warm_stream"]
+            and ok["fresh_stream"] and ok["warm_stream_cached"]
+            and not ok["fresh_stream_cached"]}
 
 
 def phase_df_kernel(torch):
@@ -1500,8 +1514,7 @@ def phase_df_kernel(torch):
     norm = shape["df_project_norm"]
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
-        one_row_bound_ms=norm["bound_ms"],
-        one_row_two_pass_ms=norm["two_pass_ms"])
+        one_row_bound_ms=norm["bound_ms"])
     return shape
 
 
@@ -1715,8 +1728,7 @@ def phase_ext_conv(torch):
                and f"{resid:.3e}" == "3.872e-12")
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
           and resid <= 1e-8 and all(v > 0 for v in launches.values())
-          and plain == 0 and stencil.KERNEL.launches == 0 and repeats
-          and sum(forms.values()) == launches["df_project"],
+          and plain == 0 and stencil.KERNEL.launches == 0 and repeats,
           n=nx * nx, mvproducts=h.mvproducts, restarts=h.restarts,
           nconverged=h.nconverged, complex_pairs=pairs, schur_residual=resid,
           repeats_two_pass=repeats,
@@ -1866,8 +1878,7 @@ def main():
               one_row_launches=project_forms["one_row"],
               full_launches=project_forms["full"],
               **{k: df_shapes["df_project"][k] for k in (
-                  "one_row_ms", "one_row_bound_ms", "one_row_two_pass_ms",
-                  "two_pass_ms")}),
+                  "one_row_ms", "one_row_bound_ms")}),
         entry("df_axpy", df_src,
               "arnoldimethod_tpu/ops/df32.py:209 df_axpy_update_df" + xla,
               df_launches["df_axpy"], df_shapes["df_axpy"]),

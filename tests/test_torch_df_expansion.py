@@ -117,7 +117,7 @@ def _plan(n, T, C, L):
     """A hand-made launch of one row (the grid follows from n)."""
     N = 1 << max(0, n - 1).bit_length()
     G = N // (T << L)
-    return df.ProjectPlan(T, C, G, L, min(G * C, 1024))
+    return df.ProjectPlan("one_row", T, C, G, L, min(G * C, 1024))
 
 
 def _plans(n):
@@ -164,6 +164,7 @@ def test_project_plan(n, rows):
     N = 1 << max(0, n - 1).bit_length()
     for item in (4, 8):
         p = df.project_plan(n, rows, item)
+        assert p.form == ("one_row" if rows == 1 else "full")
         assert p.T & (p.T - 1) == 0 and 1 <= p.T <= 256
         assert p.C & (p.C - 1) == 0 and p.C <= p.T
         assert p.C * item == (32 if rows == 1 else 128) or p.C == p.T
@@ -432,20 +433,39 @@ def test_kernel_wrappers_reject_bad_input():
 
 def test_project_scratch_is_kept_and_grown_by_doubling():
     """df_project's partials and zeroed arrival counters are reused across
-    calls; an outgrown buffer stays referenced (a captured CUDA graph may
-    still use it)."""
+    calls on one stream; an outgrown buffer stays referenced (a captured
+    CUDA graph may still use it)."""
     K = df._DfKernel()
     like = torch.zeros(1, dtype=torch.float64)
-    part, arrivals = K._project_scratch(like, 100, 3)
+    part, arrivals = K._project_scratch(like, 100, 3, stream=7)
     assert part.numel() == 100 and part.dtype == torch.float64
     assert arrivals.dtype == torch.int32 and torch.equal(
         arrivals, torch.zeros(3, dtype=torch.int32))
-    assert K._project_scratch(like, 60, 2) == (part, arrivals)
-    bigger, more = K._project_scratch(like, 150, 7)
+    assert K._project_scratch(like, 60, 2, stream=7) == (part, arrivals)
+    bigger, more = K._project_scratch(like, 150, 7, stream=7)
     assert bigger.numel() == 200 and more.numel() == 7
     assert K._retired[0] is part and K._retired[1] is arrivals
-    other, _ = K._project_scratch(like.float(), 10, 1)
+    other, _ = K._project_scratch(like.float(), 10, 1, stream=7)
     assert other.dtype == torch.float32 and bigger.numel() == 200
+
+
+def test_project_scratch_is_kept_per_stream():
+    """Two streams never share df_project's scratch; a call under graph
+    capture takes its stream's scratch when it is large enough, else
+    zeroed buffers of its own that are not kept."""
+    K = df._DfKernel()
+    like = torch.zeros(1)
+    one = K._project_scratch(like, 100, 3, stream=1)
+    two = K._project_scratch(like, 100, 3, stream=2)
+    assert all(a is not b for a, b in zip(one, two))
+    assert sorted(k[2] for k in K._scratch) == [1, 2]
+    assert K._project_scratch(like, 50, 3, stream=2, capturing=True) == two
+    part, arrivals = K._project_scratch(like, 400, 5, stream=2, capturing=True)
+    assert part.numel() == 400 and torch.equal(
+        arrivals, torch.zeros(5, dtype=torch.int32))
+    assert K._scratch[(like.device, like.dtype, 2)] == two and not K._retired
+    fresh = K._project_scratch(like, 10, 1, stream=3, capturing=True)
+    assert fresh[0].numel() == 10 and len(K._scratch) == 2
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
