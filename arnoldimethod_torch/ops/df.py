@@ -5,7 +5,8 @@
                      zero beyond; optionally acc <- acc + c in place
     df_axpy          w - sum_{j < rows} h_j * V[j], j in order
     df_mul_by        w * (sh, sl), a double-word scalar
-    df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order
+    df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, for the
+                     first `rows` rows i, optionally into V itself
     stencil5_df      the Dirichlet 5-point stencil (center, west, east,
                      north, south) applied to a double-word vector
 
@@ -30,8 +31,10 @@ the wrapper calls that launched each kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,7 +43,11 @@ from . import df32
 
 __all__ = [
     "KERNEL",
+    "BasisPlan",
     "ProjectPlan",
+    "StencilPlan",
+    "basis_plan",
+    "coefficient_words",
     "df_axpy",
     "df_axpy_plain",
     "df_basis_change",
@@ -53,6 +60,7 @@ __all__ = [
     "project_plan",
     "stencil5_df",
     "stencil5_df_plain",
+    "stencil_plan",
 ]
 
 _SOURCE = PACKAGE_DIR / "csrc" / "df.cu"
@@ -68,8 +76,20 @@ _PROJECT_STAGE_BYTES = 48 * 1024
 _MIN_BLOCKS = 64
 _MAX_FOLD = {"one_row": 4, "full": 3}
 _RUN_BYTES = {"one_row": 32, "full": 128}
-# df_basis_change: the shared memory a block stages (csrc/df.cu kBasisSmem).
+# df_basis_change (csrc/df.cu): the tiles (R rows by C columns a thread)
+# instantiated for a word of `item` bytes, the plan's first (the fastest
+# on an H100, PERF.md §6), and the most rows a block sums (csrc/df.cu
+# kBasisSlabRows: 64 / R warps, one row group each).
+# _BASIS_STAGE_BYTES bounds m1 as the first kernel did (a column of both
+# words of every row in 48 KB), so every caller's range of m1 stays what
+# it was.
+_BASIS_TILES = {4: ((8, 2), (16, 2), (4, 4)), 8: ((4, 2), (8, 2))}
+_BASIS_SLAB_ROWS = 64
 _BASIS_STAGE_BYTES = 48 * 1024
+# stencil5_df (csrc/df.cu kStencilWarps): warps a block, and the blocks a
+# plan keeps where it can: two on each of an H100's 132 SMs.
+_STENCIL_WARPS = 4
+_STENCIL_MIN_BLOCKS = 2 * 132
 
 
 class ProjectPlan(NamedTuple):
@@ -105,6 +125,69 @@ def project_plan(n, rows=1, item=4):
     cap = _PROJECT_STAGE_BYTES // (2 * item)
     stage = min(1 << (cap.bit_length() - 1), G * C)
     return ProjectPlan(form, T, C, G, L, stage)
+
+
+class BasisPlan(NamedTuple):
+    """df_basis_change's launch: a thread sums R rows by C columns (one
+    vector load of each word); a block W warps, one row group each, over a
+    tile of 32 C columns; `slabs` blocks down the rows, `blocks` across."""
+
+    R: int       # output rows a thread
+    C: int       # columns a thread
+    W: int       # warps a block
+    J: int       # rows j of V and Q a shared stage holds
+    slabs: int   # row slabs of W R rows (grid y)
+    blocks: int  # column tiles of 32 C (grid x)
+    smem: int    # shared memory a block, bytes (two stages)
+
+    @property
+    def in_place(self):
+        """One slab: a block reads all rows of its columns before it
+        writes, so the output may be V itself."""
+        return self.slabs == 1
+
+
+def basis_plan(m1, n, rows, item=4, tile=None):
+    """The launch of df_basis_change over an m1 x n basis, computing the
+    first `rows` output rows, in words of `item` bytes; `tile` (R, C), one
+    of _BASIS_TILES[item], replaces the default when measuring tiles."""
+    R, C = tile or _BASIS_TILES[item][0]
+    groups = -(-rows // R)
+    W = min(groups, _BASIS_SLAB_ROWS // R)
+    J = 32 // R
+    smem = 2 * (J * W * R * 4 * item + J * 2 * 32 * C * item)
+    return BasisPlan(R, C, W, J, -(-groups // W), -(-n // (32 * C)), smem)
+
+
+class StencilPlan(NamedTuple):
+    """stencil5_df's launch: tiles of 32 columns by 4 P rows, one column
+    and P rows a thread, 4 warps a block, a block a tile."""
+
+    P: int       # points (rows) a thread
+    blocks: int  # tiles
+
+
+@functools.lru_cache(maxsize=64)
+def stencil_plan(ny, nx, item=4):
+    """The most points a thread, up to 16 / item (4 for float32 words, 2
+    for float64: the fastest at 1024^2 on an H100, PERF.md §6), that keeps
+    _STENCIL_MIN_BLOCKS tiles, else one."""
+    cols = -(-nx // 32)
+    for P in (4, 2, 1):
+        blocks = cols * -(-ny // (_STENCIL_WARPS * P))
+        if P * item <= 16 and (blocks >= _STENCIL_MIN_BLOCKS or P == 1):
+            return StencilPlan(P, blocks)
+
+
+def coefficient_words(coeffs, dtype):
+    """The five stencil coefficients rounded to the word type, then their
+    hi halves, then their lo halves (df32.split on host scalars: the values
+    a split in the kernel would make), as floats."""
+    word = np.float32 if dtype == torch.float32 else np.float64
+    cs = [word(c) for c in coeffs]
+    halves = [df32.split(c) for c in cs]
+    return [float(v) for v in (*cs, *(h for h, _ in halves),
+                               *(lo for _, lo in halves))]
 
 
 # -- plain versions ---------------------------------------------------------
@@ -147,15 +230,24 @@ def df_mul_by_plain(wh, wl, sh, sl, out=None):
     return out
 
 
-def df_basis_change_plain(Vh, Vl, Qh, Ql):
+def df_basis_change_plain(Vh, Vl, Qh, Ql, rows=None, out=None):
     """The plain version of df_basis_change: the JAX package's scan over the
-    rows of V, accumulating df_mul(Q[j, :, None], V[j]) with df_add."""
-    outh, outl = torch.zeros_like(Vh), torch.zeros_like(Vl)
+    rows of V, accumulating df_mul(Q[j, :rows, None], V[j]) with df_add
+    (every op elementwise, so the first `rows` rows are those of the full
+    result).  With `out`, a pair of at least `rows` rows (V itself among
+    them), the result is copied into its first rows."""
+    rows = Vh.shape[0] if rows is None else rows
+    outh = torch.zeros((rows, Vh.shape[1]), dtype=Vh.dtype, device=Vh.device)
+    outl = torch.zeros_like(outh)
     for j in range(Vh.shape[0]):
-        th, tl = df32.df_mul(Qh[j][:, None], Ql[j][:, None], Vh[j][None, :],
-                             Vl[j][None, :])
+        th, tl = df32.df_mul(Qh[j, :rows, None], Ql[j, :rows, None],
+                             Vh[j][None, :], Vl[j][None, :])
         outh, outl = df32.df_add(outh, outl, th, tl)
-    return outh, outl
+    if out is None:
+        return outh, outl
+    out[0][:rows].copy_(outh)
+    out[1][:rows].copy_(outl)
+    return out[0][:rows], out[1][:rows]
 
 
 def dirichlet_shifts(g):
@@ -223,8 +315,8 @@ class _DfKernel:
                                i, p, p, p, p, p],
                 "df_axpy": [p, p, p, p, p, p, i, i, i, p, p, p],
                 "df_mul_by": [p, p, d, d, i, p, p, p],
-                "df_basis_change": [p, p, p, p, i, i, p, p, p],
-                "stencil5_df": [p, p, p, p, i, i, d, d, d, d, d, p],
+                "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
+                "stencil5_df": [p, p, p, p, i, i, i, p, p],
             }
             for name, args in sigs.items():
                 for suffix in ("_f32", "_f64"):
@@ -332,31 +424,73 @@ class _DfKernel:
                      out[1].data_ptr())
         return out
 
-    def basis_change(self, Vh, Vl, Qh, Ql):
-        _check(Vh, Vl, Qh, Ql)
+    def basis_change(self, Vh, Vl, Qh, Ql, rows=None, out=None):
+        _check(Vh, Vl, Qh, Ql, *(out or ()))
         m1, n = Vh.shape
+        rows = m1 if rows is None else rows
         if Qh.shape != (m1, m1) or Ql.shape != (m1, m1):
             raise ValueError(f"df_basis_change: Q must be {(m1, m1)}")
+        if not 1 <= rows <= m1 or (out is not None and any(
+                o.dim() != 2 or o.shape[0] < rows or o.shape[1] != n
+                for o in out)):
+            raise ValueError(f"df_basis_change: rows={rows}, V {(m1, n)}")
         if 2 * m1 * Vh.element_size() > _BASIS_STAGE_BYTES:
             raise ValueError(
-                f"df_basis_change stages a column of both words of all "
-                f"{m1} rows in {_BASIS_STAGE_BYTES} bytes of shared memory")
-        outh, outl = torch.empty_like(Vh), torch.empty_like(Vl)
+                f"df_basis_change takes the bases whose column of both words "
+                f"fits {_BASIS_STAGE_BYTES} bytes of shared memory, not "
+                f"{m1} rows")
+        plan = basis_plan(m1, n, rows, Vh.element_size())
+        shares_v = out is not None and any(
+            o.untyped_storage().data_ptr() in (
+                Vh.untyped_storage().data_ptr(),
+                Vl.untyped_storage().data_ptr()) for o in out)
+        if out is None or (shares_v and not plan.in_place):
+            dst = (torch.empty((rows, n), dtype=Vh.dtype, device=Vh.device),
+                   torch.empty((rows, n), dtype=Vh.dtype, device=Vh.device))
+        else:
+            dst = out
+        self._basis_launch(plan, Vh, Vl, Qh, Ql, rows, dst)
+        if out is None:
+            return dst
+        if dst is not out:
+            out[0][:rows].copy_(dst[0])
+            out[1][:rows].copy_(dst[1])
+        return out[0][:rows], out[1][:rows]
+
+    def _basis_launch(self, plan, Vh, Vl, Qh, Ql, rows, dst):
+        """df_basis_change's launch under `plan` into the pair `dst` (not
+        V unless plan.in_place); the operands are checked by
+        `basis_change`."""
+        m1, n = Vh.shape
         self._launch("df_basis_change", "df_basis_change", Vh, Vh.data_ptr(),
-                     Vl.data_ptr(), Qh.data_ptr(), Ql.data_ptr(), m1, n,
-                     outh.data_ptr(), outl.data_ptr())
-        return outh, outl
+                     Vl.data_ptr(), Qh.data_ptr(), Ql.data_ptr(), m1, n, rows,
+                     plan.R, plan.C, plan.W, dst[0].data_ptr(),
+                     dst[1].data_ptr())
+        return dst
 
     def stencil(self, xh, xl, coeffs, grid):
         _check(xh, xl)
         ny, nx = grid
         if xh.dim() != 1 or xh.numel() != ny * nx or xl.shape != xh.shape:
             raise ValueError(f"stencil5_df: x must be flat of {ny * nx}")
+        return self._stencil_launch(
+            stencil_plan(ny, nx, xh.element_size()).P, xh, xl, coeffs, grid)
+
+    def _stencil_launch(self, P, xh, xl, coeffs, grid):
+        """stencil5_df's launch with P points a thread (stencil_plan's, or
+        another when measuring plans); the operands are checked by
+        `stencil`."""
         yh, yl = torch.empty_like(xh), torch.empty_like(xl)
         self._launch("stencil5_df", "stencil5_df", xh, xh.data_ptr(),
-                     xl.data_ptr(), yh.data_ptr(), yl.data_ptr(), ny, nx,
-                     *(float(c) for c in coeffs))
+                     xl.data_ptr(), yh.data_ptr(), yl.data_ptr(), *grid, P,
+                     _coefficient_array(tuple(coeffs), xh.dtype))
         return yh, yl
+
+
+@functools.lru_cache(maxsize=64)
+def _coefficient_array(coeffs, dtype):
+    """coefficient_words as the C array the kernel takes, made once."""
+    return (ctypes.c_double * 15)(*coefficient_words(coeffs, dtype))
 
 
 KERNEL = _DfKernel()
@@ -395,12 +529,14 @@ def df_mul_by(wh, wl, sh, sl, out=None):
     return df_mul_by_plain(wh, wl, sh, sl, out)
 
 
-def df_basis_change(Vh, Vl, Qh, Ql):
-    """(outh, outl) with out[i] = sum_j Q[j, i] V[j] in double word: the
-    basis change V <- Q^T V, out of place."""
+def df_basis_change(Vh, Vl, Qh, Ql, rows=None, out=None):
+    """(outh, outl) with out[i] = sum_j Q[j, i] V[j] in double word, j in
+    order, for the first `rows` rows i (all by default): the basis change
+    V <- Q^T V.  New tensors of `rows` rows, or the first `rows` rows of
+    `out` (a pair; V itself for the change in place)."""
     if _on_card(Vh, "df_basis_change"):
-        return KERNEL.basis_change(Vh, Vl, Qh, Ql)
-    return df_basis_change_plain(Vh, Vl, Qh, Ql)
+        return KERNEL.basis_change(Vh, Vl, Qh, Ql, rows, out)
+    return df_basis_change_plain(Vh, Vl, Qh, Ql, rows, out)
 
 
 def stencil5_df(xh, xl, coeffs, grid):

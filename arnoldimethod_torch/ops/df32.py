@@ -54,6 +54,7 @@ import torch
 __all__ = [
     "PLAIN_ON_CARD",
     "two_sum",
+    "split",
     "two_prod",
     "df_add",
     "df_sub",
@@ -126,18 +127,23 @@ def _quick_two_sum(a, b):
 
 
 @_counted
-def two_prod(a, b):
-    """Error-free product: (p, e) with p = fl(a*b) and p + e == a * b."""
-    split = _const(a, split_constant(a.dtype))
-    p = a * b
-    ac = split * a
+def split(a):
+    """Dekker's split: (hi, lo) with hi + lo == a, each about half of the
+    significand (4 operations)."""
+    ac = _const(a, split_constant(a.dtype)) * a
     ta = ac - a
-    ahi = ac - ta
-    alo = a - ahi
-    bc = split * b
-    tb = bc - b
-    bhi = bc - tb
-    blo = b - bhi
+    hi = ac - ta
+    return hi, a - hi
+
+
+@_counted
+def two_prod(a, b, a_split=None, b_split=None):
+    """Error-free product: (p, e) with p = fl(a*b) and p + e == a * b.
+    `a_split` / `b_split`, an operand's split(...) made beforehand, give the
+    same bits: a kernel splits an operand once for all its products."""
+    p = a * b
+    ahi, alo = split(a) if a_split is None else a_split
+    bhi, blo = split(b) if b_split is None else b_split
     e1 = ahi * bhi - p
     e2 = e1 + ahi * blo
     e3 = e2 + alo * bhi
@@ -167,9 +173,10 @@ def df_mul(xh, xl, yh, yl):
 
 
 @_counted
-def df_scale(xh, xl, c):
-    """(xh, xl) * c for a single-word scalar or tensor c."""
-    ph, pe = two_prod(xh, c)
+def df_scale(xh, xl, c, x_split=None, c_split=None):
+    """(xh, xl) * c for a single-word scalar or tensor c; `x_split` and
+    `c_split` as in two_prod."""
+    ph, pe = two_prod(xh, c, x_split, c_split)
     pe = pe + xl * c
     return _quick_two_sum(ph, pe)
 

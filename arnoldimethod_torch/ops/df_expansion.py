@@ -140,19 +140,23 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
     return syncs
 
 
-def df_apply_basis_change(Vh, Vl, Qh, Ql):
-    """V <- Q^T V with both the basis and the (m+1, m+1) matrix double
-    word: out[i] = sum_j Q[j, i] V[j], rows j in order, into a temporary
-    copied back into V."""
-    outh, outl = df.df_basis_change(Vh, Vl, Qh, Ql)
-    Vh.copy_(outh)
-    Vl.copy_(outl)
+def df_apply_basis_change(Vh, Vl, Qh, Ql, rows=None):
+    """V[:rows] <- (Q^T V)[:rows] with both the basis and the (m+1, m+1)
+    matrix double word: out[i] = sum_j Q[j, i] V[j], rows j in order (all
+    rows by default).  In place: the kernel writes V itself where its plan
+    allows, else a temporary copied back."""
+    df.df_basis_change(Vh, Vl, Qh, Ql, rows, out=(Vh, Vl))
 
 
 def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator):
     """One restart's device step: the truncation basis change, then the
-    expansion from j0 back to j1.  Returns the number of host reads."""
-    df_apply_basis_change(Vh, Vl, Qh, Ql)
+    expansion from j0 back to j1.  Returns the number of host reads.  When
+    the expansion runs to the last row (j1 = m, as every restart does), only
+    rows 0..j0 of the change are computed: the expansion rewrites rows
+    j0+1..j1 before it reads them (the JAX package computes them and
+    overwrites them, so V ends bitwise the same)."""
+    rows = j0 + 1 if j1 == Vh.shape[0] - 1 else None
+    df_apply_basis_change(Vh, Vl, Qh, Ql, rows)
     return df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator)
 
 

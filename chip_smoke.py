@@ -5,6 +5,8 @@
     python3 chip_smoke.py --conv-starts   # config 3 from fourteen starts
     python3 chip_smoke.py --df-kernel     # the double-word kernels only
     python3 chip_smoke.py --project-sweep # df_project under other plans
+    python3 chip_smoke.py --df-sweep      # df_basis_change's tiles and
+                                          # stencil5_df's points a thread
 
 Phases, each printed as one JSON line:
 
@@ -84,12 +86,17 @@ Phases, each printed as one JSON line:
            plain versions, bitwise, in float32 and float64 words at config
            3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021 x 1000;
            ms (CUDA graph of 20 calls), GB/s and the bound, df_project's
-           beside the two-pass kernel's it replaced; then df_project alone:
-           the full form at rows 1, 7 and 60, the one-row form at n = 1,
-           1,000, 65,536 and 1,048,576 (bitwise with acc, both words), 20
-           calls in a CUDA graph replayed 10 times against one eager call,
-           and ptxas' registers, stack and spills of each instantiation (no
-           local memory)
+           beside the two-pass kernel's it replaced, df_basis_change's and
+           stencil5_df's beside their run-F times and targets; then
+           df_project alone: the full form at rows 1, 7 and 60, the one-row
+           form at n = 1, 1,000, 65,536 and 1,048,576 (bitwise with acc,
+           both words), 20 calls in a CUDA graph replayed 10 times against
+           one eager call; df_basis_change at rows 31, 46, 61 (new tensors
+           and in place) and stencil5_df at 64^2; and ptxas' registers,
+           stack and spills of each instantiation (no local memory).  The
+           operations bound counts lane-instructions (each operand split
+           once) over SMs x 128 (float32) or 64 (float64) a clock at the
+           card's maximum SM clock
   ext_readme  extended=True, laplacian_1d(100), float32 words, tol=1e-12
            from one v1: residual below 1e-11, same count on card and CPU
   ext_dd   float64 words (double-double dense layer), tol=1e-28: at most
@@ -105,8 +112,9 @@ Phases, each printed as one JSON line:
            launches split into
            its one-row and full forms; a profile of its first restarts
            gives the device's busy share and df_project's share of the
-           device time (chiprun_out/profile_conv.txt), and shows one
-           device launch a df_project call (ext_conv_one_launch)
+           device time, and those of df_basis_change and stencil5_df
+           (chiprun_out/profile_conv.txt), and shows one device launch a
+           df_project call (ext_conv_one_launch)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
 launches on its main path, error against its plain version, ms, plain ms,
@@ -202,10 +210,18 @@ def phase_device(torch):
         capture_output=True, text=True, timeout=60,
     )
     card = smi.stdout.strip()
-    check("device", smi.returncode == 0 and card,
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    clock_mhz = float(clock.stdout.split()[0]) if clock.returncode == 0 else 0.0
+    sms = set_peak_ops(torch, clock_mhz)
+    check("device", smi.returncode == 0 and card and clock_mhz > 0,
           nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
           name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          python=sys.version.split()[0])
+          python=sys.version.split()[0], sm_count=sms,
+          sm_clock_max_mhz=clock_mhz, peak_ops_s=PEAK_OPS_S)
     return card
 
 
@@ -293,7 +309,8 @@ def phase_kernel(torch):
         library_ms = graph_ms(library)
         nbytes = 2 * n * x.element_size()
         word = str(dtype).split(".")[-1]
-        bound_ms, bound_by = roofline(nbytes, 9 * n, word)
+        # One multiply and four FMAs a point.
+        bound_ms, bound_by = roofline(nbytes, 5 * n, word)
         res = {"grid": list(grid), "dtype": word,
                "coeffs": "laplace" if coeffs is LAPLACE else "convdiff",
                "max_abs_err": err, "bound": bound, "ms": ms,
@@ -688,8 +705,9 @@ def phase_bsr_kernel(torch, op32, op64):
             block_bytes = logical[0] * logical[1] * B * B * dataT.element_size()
             nbytes = block_bytes + (x.numel() + nbr * B) * dataT.element_size()
             word = str(dataT.dtype).split(".")[-1]
+            # One FMA a stored block entry.
             bound_ms, bound_by = roofline(
-                nbytes, 2 * logical[0] * logical[1] * B * B, word)
+                nbytes, logical[0] * logical[1] * B * B, word)
             library_ms, library_note = (
                 _bsr_library_ms(torch, cols, dataT, logical, x, y_plain)
                 if name == "512x8x128_f32" else (None, "timed at the main case only"))
@@ -908,9 +926,10 @@ def phase_cheb_kernel(torch):
 
             ms, plain_ms = graph_ms(kernel), graph_ms(plain)
             nbytes = (2 if zz is None else 3) * n * x.element_size()
-            # 9 for the stencil, 4 (q = 0) or 6 for the recurrence.
+            # Instructions a point with FMAs: 5 for the stencil, 2 (q = 0)
+            # or 3 for the recurrence.
             bound_ms, bound_by = roofline(
-                nbytes, (13 if zz is None else 15) * n, str(dtype).split(".")[-1])
+                nbytes, (7 if zz is None else 8) * n, str(dtype).split(".")[-1])
             res = {"grid": list(grid), "dtype": str(dtype).split(".")[-1],
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None,
@@ -1129,22 +1148,58 @@ def phase_conv1m(torch):
                           "complex_pairs": 6, "max_resid": 4.6e-5})
 
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
-# bytes per second, and operations per second outside the tensor cores
-# (the double-word kernels use none: they cannot carry the compensation).
+# The H100's published memory rate (NVIDIA's data sheet, SXM, 700 W).
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
-# Operations of one double-word step of ops/df32.py: two_prod 17, df_mul
-# 24, df_scale 22, df_add 11.
-DF_MUL, DF_SCALE, DF_ADD = 24, 22, 11
+# Lane-instructions a clock an SM issues outside the tensor cores: 128 in
+# float32, 64 in float64 (an FMA is one instruction, as an add or a
+# multiply is; the double-word kernels issue no FMA and use no tensor
+# core).  The rate is that times the SMs times the SM clock nvidia-smi
+# reports as clocks.max.sm (phase_device sets PEAK_OPS_S).
+LANES = {"float32": 128, "float64": 64}
+PEAK_OPS_S = {}
+# Operations of the double-word steps of ops/df32.py with every operand
+# split beforehand, each split (4) counted once an operand: two_prod 9,
+# df_mul 16, df_scale 14, df_add 11 (17, 24, 22 with both splits).
+SPLIT, DF_MUL, DF_SCALE, DF_ADD = 4, 16, 14, 11
+
+
+def set_peak_ops(torch, clock_mhz):
+    """PEAK_OPS_S from the SM count and the SM clock in MHz."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for word, lanes in LANES.items():
+        PEAK_OPS_S[word] = sms * lanes * clock_mhz * 1e6
+    return sms
 
 
 def roofline(nbytes, ops, dtype):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of `dtype`."""
+    lane-instructions over the issue rate of `dtype`."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def df_ops(name, n, rows=1, m1=1):
+    """The fewest operations of a double-word kernel's bitwise result, each
+    operand split once: `rows` rows of length n (the basis change: `rows`
+    outputs over m1 rows).  df_sum's tree adds N - 1 pairs a row, N = n
+    padded to a power of two."""
+    N = 1 << max(0, n - 1).bit_length()
+    if name == "df_project":
+        return rows * n * DF_MUL + rows * (N - 1) * DF_ADD + SPLIT * (rows + 1) * n
+    if name == "df_project_norm":
+        return n * (DF_MUL + SPLIT) + (N - 1) * DF_ADD
+    if name == "df_axpy":
+        return rows * n * (DF_MUL + DF_ADD) + SPLIT * (rows * n + rows)
+    if name == "df_mul_by":
+        return n * (DF_MUL + SPLIT) + SPLIT
+    if name == "df_basis_change":
+        return rows * m1 * n * (DF_MUL + DF_ADD) + SPLIT * m1 * (n + rows)
+    if name == "stencil5_df":
+        # Five scaled points and four adds, x split once a point (the
+        # coefficients' splits are made on the host).
+        return n * (5 * DF_SCALE + 4 * DF_ADD + SPLIT)
+    raise KeyError(name)
 
 
 def bitwise(pairs):
@@ -1204,6 +1259,7 @@ def _df_case(torch, grid, dtype, gen, time_plain):
     wh, wl = pair(n)
     hh, hl = pair(m1)
     Qh, Ql = pair(m1, m1)
+    Oh, Ol = torch.empty_like(Vh), torch.empty_like(Vl)
     ah, al = pair(m1)
     sh, sl = (torch.tensor(v, dtype=dtype) for v in (0.7431, 0.7431 * lo))
     coeffs = (4.0, -1.0 - 0.5039, -1.0 + 0.5039, -1.0, -1.0)
@@ -1212,27 +1268,27 @@ def _df_case(torch, grid, dtype, gen, time_plain):
             lambda acc: df.df_project(Vh, Vl, wh, wl, rows, acc),
             lambda acc: df.df_project_plain(Vh, Vl, wh, wl, rows, acc),
             (rows + 1) * n * 2 * item + 4 * m1 * item,
-            rows * n * (DF_MUL + DF_ADD)),
+            df_ops("df_project", n, rows)),
         "df_project_norm": (
             lambda acc: df.df_project(wh[None], wl[None], wh, wl, 1),
             lambda acc: df.df_project_plain(wh[None], wl[None], wh, wl, 1),
-            2 * n * item, n * (DF_MUL + DF_ADD)),
+            2 * n * item, df_ops("df_project_norm", n)),
         "df_axpy": (
             lambda acc: df.df_axpy(wh, wl, hh, hl, Vh, Vl, rows),
             lambda acc: df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows),
-            (rows + 2) * n * 2 * item, rows * n * (DF_MUL + DF_ADD)),
+            (rows + 2) * n * 2 * item, df_ops("df_axpy", n, rows)),
         "df_mul_by": (
             lambda acc: df.df_mul_by(wh, wl, sh, sl),
             lambda acc: df.df_mul_by_plain(wh, wl, sh, sl),
-            2 * n * 2 * item, n * DF_MUL),
+            2 * n * 2 * item, df_ops("df_mul_by", n)),
         "df_basis_change": (
-            lambda acc: df.df_basis_change(Vh, Vl, Qh, Ql),
+            lambda acc: df.df_basis_change(Vh, Vl, Qh, Ql, out=(Oh, Ol)),
             lambda acc: df.df_basis_change_plain(Vh, Vl, Qh, Ql),
-            (2 * m1 * n + m1 * m1) * 2 * item, m1 * m1 * n * (DF_MUL + DF_ADD)),
+            basis_bytes(m1, m1, n, item), df_ops("df_basis_change", n, m1, m1)),
         "stencil5_df": (
             lambda acc: df.stencil5_df(wh, wl, coeffs, grid),
             lambda acc: df.stencil5_df_plain(wh, wl, coeffs, grid),
-            2 * n * 2 * item, n * (5 * DF_SCALE + 4 * DF_ADD)),
+            2 * n * 2 * item, df_ops("stencil5_df", n)),
     }
     out = {}
     word = str(dtype).split(".")[-1]
@@ -1258,6 +1314,7 @@ def _df_case(torch, grid, dtype, gen, time_plain):
         if was is not None:
             res["two_pass_ms"] = was
             res["slower_than_two_pass"] = ms > was
+        res.update(against_earlier(name, case, word, ms))
         if time_plain:
             res["plain_ms"] = median_ms(lambda: plain(None), reps=3, warm=1)
         out[name] = res
@@ -1283,9 +1340,124 @@ TWO_PASS_PROJECT_MS = {
 }
 
 
-def _project_ptxas(log):
-    """Registers, stack frame and spills of each df_project instantiation
-    (project_kernel<word, L>) from nvcc's -Xptxas -v output."""
+# df_basis_change's and stencil5_df's device ms before their redesign
+# (PERF.md §6, run F, NVIDIA H100 80GB HBM3, 700.00 W), by (kernel,
+# case, word): no case may be slower now.  TARGET_MS: the redesign's aims.
+RUN_F_MS = {
+    ("df_basis_change", "config3", "float32"): 0.4302696,
+    ("df_basis_change", "1m", "float32"): 6.512,
+    ("df_basis_change", "odd", "float32"): 6.331,
+    ("df_basis_change", "config3", "float64"): 0.657,
+    ("df_basis_change", "1m", "float64"): 9.927,
+    ("df_basis_change", "odd", "float64"): 9.685,
+    ("stencil5_df", "config3", "float32"): 0.0057136,
+    ("stencil5_df", "1m", "float32"): 0.0110,
+    ("stencil5_df", "odd", "float32"): 0.0110,
+    ("stencil5_df", "config3", "float64"): 0.0063,
+    ("stencil5_df", "1m", "float64"): 0.0162,
+    ("stencil5_df", "odd", "float64"): 0.0157,
+}
+TARGET_MS = {
+    ("df_basis_change", "config3", "float32"): 0.26,
+    ("df_basis_change_rows31", "config3", "float32"): 0.14,
+    ("df_basis_change", "1m", "float32"): 4.1,
+    ("df_basis_change", "config3", "float64"): 0.52,
+    ("df_basis_change", "1m", "float64"): 8.2,
+    ("stencil5_df", "config3", "float32"): 0.0032,
+    ("stencil5_df", "config3", "float64"): 0.0036,
+    ("stencil5_df", "1m", "float32"): 0.0070,
+    ("stencil5_df", "1m", "float64"): 0.0130,
+    ("stencil5_df", "odd", "float32"): 0.0070,
+    ("stencil5_df", "odd", "float64"): 0.0130,
+}
+
+
+def against_earlier(name, case, word, ms):
+    """Run F's time and the target of a case, where there are any."""
+    out = {}
+    was = RUN_F_MS.get((name, case, word))
+    if was is not None:
+        out.update(earlier_ms=was, slower_than_earlier=ms > was)
+    aim = TARGET_MS.get((name, case, word))
+    if aim is not None:
+        out.update(target_ms=aim, meets_target=ms <= aim)
+    return out
+
+
+def basis_bytes(m1, rows, n, item):
+    """df_basis_change's bytes: V read (both words), its first `rows` rows
+    written, Q's m1 x rows entries read."""
+    return ((m1 + rows) * n + m1 * rows) * 2 * item
+
+
+def _df_windows(torch, dtype, gen):
+    """df_basis_change over a 61 x 65,536 basis at rows 31, 46 and 61, into
+    new tensors and in place (V itself, the restart's form), and
+    stencil5_df at 64^2 (its launch floor): each bitwise against the plain
+    version, with its plan, ms (CUDA graph of 20 calls), bound and the
+    plain version's ms."""
+    from arnoldimethod_torch.ops import df
+
+    word = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    m1, n = 61, 65536
+    Vh, Vl = pair(m1, n)
+    Qh, Ql = pair(m1, m1)
+    Oh, Ol = torch.empty_like(Vh), torch.empty_like(Vl)
+    out = []
+    for rows in (31, 46, 61):
+        want = df.df_basis_change_plain(Vh, Vl, Qh, Ql, rows)
+        got = df.df_basis_change(Vh, Vl, Qh, Ql, rows)
+        Wh, Wl = Vh.clone(), Vl.clone()
+        df.df_basis_change(Wh, Wl, Qh, Ql, rows, out=(Wh, Wl))
+        torch.cuda.synchronize()
+        in_place = (bitwise(zip((Wh[:rows], Wl[:rows]), want)) and bitwise(
+            [(Wh[rows:], Vh[rows:]), (Wl[rows:], Vl[rows:])]))
+        same = bitwise(zip(got, want)) and in_place
+        ms = graph_ms(lambda: df.df_basis_change(Vh, Vl, Qh, Ql, rows,
+                                                 out=(Oh, Ol)))
+        nbytes = basis_bytes(m1, rows, n, item)
+        bound_ms, bound_by = roofline(
+            nbytes, df_ops("df_basis_change", n, rows, m1), word)
+        name = "df_basis_change" + ("" if rows == m1 else f"_rows{rows}")
+        out.append({"kernel": "df_basis_change", "m1": m1, "n": n,
+                    "rows": rows, "plan": df.basis_plan(m1, n, rows, item)._asdict(),
+                    "bitwise": same, "in_place_bitwise": in_place, "ms": ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / ms,
+                    "plain_ms": median_ms(lambda: df.df_basis_change_plain(
+                        Vh, Vl, Qh, Ql, rows), reps=3, warm=1),
+                    **against_earlier(name, "config3", word, ms)})
+    grid = (64, 64)
+    xh, xl = pair(64 * 64)
+    coeffs = (4.0, -1.0 - 0.5039, -1.0 + 0.5039, -1.0, -1.0)
+    got = df.stencil5_df(xh, xl, coeffs, grid)
+    want = df.stencil5_df_plain(xh, xl, coeffs, grid)
+    torch.cuda.synchronize()
+    ms = graph_ms(lambda: df.stencil5_df(xh, xl, coeffs, grid))
+    bound_ms, bound_by = roofline(2 * 64 * 64 * 2 * item,
+                                  df_ops("stencil5_df", 64 * 64), word)
+    out.append({"kernel": "stencil5_df", "grid": list(grid),
+                "plan": df.stencil_plan(*grid, item)._asdict(),
+                "bitwise": bitwise(zip(got, want)), "ms": ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms,
+                "plain_ms": median_ms(lambda: df.stencil5_df_plain(
+                    xh, xl, coeffs, grid), reps=3, warm=1)})
+    return out
+
+
+def _df_ptxas(log):
+    """Registers, stack frame and spills of each instantiation of csrc/df.cu
+    (project_kernel<word, L>, axpy_kernel<word, scale>, basis_kernel<word>,
+    stencil_kernel<word, P>) from nvcc's -Xptxas -v output."""
     import re
 
     out, entry, current = {}, None, None
@@ -1307,11 +1479,15 @@ def _project_ptxas(log):
             out.setdefault(entry, {})["registers"] = int(m.group(1))
     rows = []
     for name, info in out.items():
-        m = re.search(r"project_kernelI([fd])Li(\d+)EE", name)
+        m = re.search(r"(project|axpy|basis|stencil)_kernelI([fd])((?:L[ib]\d+E)*)E",
+                      name)
         if m:
-            rows.append({"word": {"f": "float32", "d": "float64"}[m.group(1)],
-                         "L": int(m.group(2)), **info})
-    return sorted(rows, key=lambda r: (r["word"], r["L"]))
+            rows.append({"kernel": m.group(1),
+                         "word": {"f": "float32", "d": "float64"}[m.group(2)],
+                         "params": [int(v) for v in
+                                    re.findall(r"L[ib](\d+)E", m.group(3))],
+                         **info})
+    return sorted(rows, key=lambda r: (r["kernel"], r["word"], r["params"]))
 
 
 def _project_forms(torch, dtype, gen):
@@ -1352,8 +1528,9 @@ def _project_forms(torch, dtype, gen):
         torch.cuda.synchronize()
         same = bitwise(zip(got, want)) and bitwise(zip(acc_k, acc_p))
         ms = graph_ms(lambda: df.df_project(Vh, Vl, wh, wl, rows))
-        bound_ms, bound_by = roofline(nbytes, rows * n * (DF_MUL + DF_ADD),
-                                      word)
+        bound_ms, bound_by = roofline(
+            nbytes, df_ops("df_project_norm" if m1 == 1 else "df_project", n,
+                           rows), word)
         key = earlier.get((m1, n, rows))
         was = TWO_PASS_PROJECT_MS.get((*key, word)) if key else None
         out.append({"m1": m1, "n": n, "rows": rows,
@@ -1420,6 +1597,95 @@ def project_sweep(torch):
             sys.exit("chip_smoke: a swept df_project plan is not bitwise")
 
 
+def _clock_under_load(torch, fn, seconds=1.5):
+    """nvidia-smi's SM clock and power, sampled every 200 ms while `fn`
+    runs in a loop for `seconds`: the clock the operations bound assumes
+    (clocks.max.sm) against the one the card holds."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    return out.strip().splitlines()[-3:]
+
+
+def df_sweep(torch):
+    """`--df-sweep`: df_basis_change under every tile of its word
+    (df._BASIS_TILES) at 61 x 65,536 (rows 61, 46 and 31) and 61 x
+    1,048,576, and stencil5_df with P = 1, 2 and 4 points a thread at 64^2,
+    256^2, 1024^2 and 1021 x 1000, in both words: one JSON line a case,
+    every plan bitwise against the plain version, the default plan and
+    every plan's ms (CUDA graph of 20 calls), fastest first; with all rows,
+    nvidia-smi's SM clock and power while the default plan runs."""
+    from arnoldimethod_torch.ops import df
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.float64):
+        word = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+
+        def pair(*shape):
+            h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+            return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                                  generator=gen) * lo
+
+        for m1, n, rows in ((61, 65536, 61), (61, 65536, 46), (61, 65536, 31),
+                            (61, 1 << 20, 61)):
+            Vh, Vl = pair(m1, n)
+            Qh, Ql = pair(m1, m1)
+            want = df.df_basis_change_plain(Vh, Vl, Qh, Ql, rows)
+            dst = (torch.empty_like(want[0]), torch.empty_like(want[1]))
+            timed, same = [], True
+            for tile in df._BASIS_TILES[item]:
+                plan = df.basis_plan(m1, n, rows, item, tile)
+                got = df.KERNEL._basis_launch(plan, Vh, Vl, Qh, Ql, rows, dst)
+                torch.cuda.synchronize()
+                same = same and bitwise(zip(got, want))
+                ms = graph_ms(lambda: df.KERNEL._basis_launch(
+                    plan, Vh, Vl, Qh, Ql, rows, dst))
+                timed.append((ms, plan._asdict()))
+            timed.sort(key=lambda t: t[0])
+            default = df.basis_plan(m1, n, rows, item)
+            clock = _clock_under_load(torch, lambda: df.KERNEL._basis_launch(
+                default, Vh, Vl, Qh, Ql, rows, dst)) if rows == m1 else None
+            emit({"phase": "df_sweep", "kernel": "df_basis_change", "m1": m1,
+                  "n": n, "rows": rows, "dtype": word, "bitwise": same,
+                  "default": default._asdict(),
+                  "plans": [{"ms": ms, **p} for ms, p in timed],
+                  "sm_clock_power_under_load": clock})
+            del Vh, Vl, want, dst
+            if not same:
+                sys.exit("chip_smoke: a swept df_basis_change plan is not bitwise")
+        coeffs = (4.0, -1.0 - 0.5039, -1.0 + 0.5039, -1.0, -1.0)
+        for grid in ((64, 64), (256, 256), (1024, 1024), (1021, 1000)):
+            xh, xl = pair(grid[0] * grid[1])
+            want = df.stencil5_df_plain(xh, xl, coeffs, grid)
+            timed, same = [], True
+            for P in (1, 2, 4):
+                got = df.KERNEL._stencil_launch(P, xh, xl, coeffs, grid)
+                torch.cuda.synchronize()
+                same = same and bitwise(zip(got, want))
+                ms = graph_ms(lambda: df.KERNEL._stencil_launch(
+                    P, xh, xl, coeffs, grid))
+                timed.append((ms, P))
+            timed.sort()
+            emit({"phase": "df_sweep", "kernel": "stencil5_df",
+                  "grid": list(grid), "dtype": word, "bitwise": same,
+                  "default": df.stencil_plan(*grid, item)._asdict(),
+                  "plans": [{"ms": ms, "P": P} for ms, P in timed]})
+            if not same:
+                sys.exit("chip_smoke: a swept stencil5_df plan is not bitwise")
+
+
 def _project_replay(torch, gen, n, m1, rows):
     """20 eager df_project calls, then 20 calls captured in one CUDA graph
     and replayed 10 times, twice: captured on a stream that called it
@@ -1471,8 +1737,12 @@ def phase_df_kernel(torch):
     graph of 20 calls, plain ms (config 3 only) from CUDA events.  First,
     two_prod's exactness for both words.  Then df_project alone: both
     forms at more shapes (`_project_forms`), 20 calls in a CUDA graph
-    replayed 10 times against one eager call, and ptxas' registers, stack
-    and spills for each of its 10 instantiations."""
+    replayed 10 times against one eager call.  Then df_basis_change at rows
+    31, 46 and 61, new and in place, and stencil5_df at 64^2
+    (`_df_windows`).  Last, ptxas' registers, stack and spills for each of
+    the file's 25 instantiations (none may use local memory).  Each timed
+    df_basis_change and stencil5_df case names run F's time before the
+    redesign (`slower_than_earlier`) and its target (`meets_target`)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype in (torch.float32, torch.float64):
@@ -1503,13 +1773,25 @@ def phase_df_kernel(torch):
           case="df_project_graph_replay", replays=replays)
     from arnoldimethod_torch.ops import df
 
-    ptxas = _project_ptxas(df.KERNEL.build_log)
+    # Windows of df_basis_change's rows, in place, and stencil5_df's floor.
+    for dtype in (torch.float32, torch.float64):
+        windows = _df_windows(torch, dtype, gen)
+        check("df_kernel", all(w["bitwise"] for w in windows),
+              case="df_windows", dtype=str(dtype).split(".")[-1],
+              windows=windows)
+        results[("windows", str(dtype).split(".")[-1])] = windows
+    # ptxas: 10 df_project, 4 df_axpy, 5 df_basis_change and 6 stencil5_df
+    # instantiations, none with local memory.
+    ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
+    counts = {k: sum(p["kernel"] == k for p in ptxas)
+              for k in ("project", "axpy", "basis", "stencil")}
     check("df_kernel", not built or (
-              len(ptxas) == 10 and all(
-                  p.get("stack") == 0 and p.get("spill_stores") == 0
-                  and p.get("spill_loads") == 0 for p in ptxas)),
-          case="df_project_ptxas", built_here=built, instantiations=ptxas)
+              counts == {"project": 10, "axpy": 4, "basis": 5, "stencil": 6}
+              and all(p.get("stack") == 0 and p.get("spill_stores") == 0
+                      and p.get("spill_loads") == 0 for p in ptxas)),
+          case="df_ptxas", built_here=built, counts=counts,
+          instantiations=ptxas)
     shape = dict(results[("config3", "float32")])
     norm = shape["df_project_norm"]
     shape["df_project"] = dict(
@@ -1752,7 +2034,9 @@ def phase_ext_conv(torch):
     calls = df.KERNEL.launches["df_project"]
     prof = _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
                     "profile_conv.txt", label="df_kernels",
-                    parts={"df_project": "project_kernel"}, nev=10,
+                    parts={"df_project": "project_kernel",
+                           "df_basis_change": "basis_kernel",
+                           "stencil5_df": "stencil_kernel"}, nev=10,
                     which="LM", tol=1e-6, mindim=30, maxdim=60, restarts=3,
                     extended=True, v1=v1)
     # One device launch a df_project call, both forms, in the profiled solve.
@@ -1811,6 +2095,9 @@ def main():
         return
     if sys.argv[1:] == ["--project-sweep"]:
         project_sweep(torch)
+        return
+    if sys.argv[1:] == ["--df-sweep"]:
+        df_sweep(torch)
         return
     kernels = phase_kernel(torch)
     phase_small(torch)

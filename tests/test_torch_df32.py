@@ -165,6 +165,43 @@ def test_jax_two_prod_is_not_exact_with_float64_words():
     assert _inexact(a, b, np.asarray(p), np.asarray(e)) > len(a) // 2
 
 
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int32 if x.dtype == np.float32 else np.int64)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_split_halves_sum_to_the_word(dtype):
+    a, _ = _pairs(dtype)
+    hi, lo = tdf.split(torch.from_numpy(a))
+    assert np.array_equal(hi.numpy() + lo.numpy(), a)
+    # The same split on host scalars (the stencil kernel's coefficients).
+    for x, h, lw in zip(a[:50], hi.numpy(), lo.numpy()):
+        hs, ls = tdf.split(x)
+        assert type(hs) is type(ls) is dtype
+        assert _bits(hs) == _bits(h) and _bits(ls) == _bits(lw)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pre_split_operands_give_the_same_bits(dtype):
+    """two_prod and df_scale from operands split beforehand (as the kernels
+    split each operand once for all its products) equal the unsplit ops bit
+    for bit, on tensors and on a host scalar coefficient."""
+    a, b = (torch.from_numpy(v) for v in _pairs(dtype))
+    lo = b * dtype(2.0 ** (-26 if dtype == np.float32 else -55))
+    want = tdf.two_prod(a, b)
+    for a_split, b_split in ((tdf.split(a), None), (None, tdf.split(b)),
+                             (tdf.split(a), tdf.split(b))):
+        got = tdf.two_prod(a, b, a_split, b_split)
+        assert all(np.array_equal(_bits(g.numpy()), _bits(w.numpy()))
+                   for g, w in zip(got, want))
+    for c in (dtype(-1.2), dtype(4.3), dtype(0.0)):
+        want = tdf.df_scale(b, lo, c)
+        got = tdf.df_scale(b, lo, c, tdf.split(b), tdf.split(c))
+        assert all(np.array_equal(_bits(g.numpy()), _bits(w.numpy()))
+                   for g, w in zip(got, want))
+
+
 def test_split_constant():
     assert tdf.split_constant(torch.float32) == 2.0 ** 12 + 1
     assert tdf.split_constant(torch.float64) == 2.0 ** 27 + 1

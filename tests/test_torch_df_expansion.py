@@ -259,6 +259,82 @@ def test_basis_change_matches_jax(basis):
     _same(jout, (tVh, tVl))
 
 
+@pytest.mark.parametrize("rows", [1, 3, 6, 7])
+def test_basis_change_rows_window(basis, rows):
+    """df_basis_change(rows=r): the first r rows of the full result and of
+    JAX's, into new tensors or in place (rows past r untouched)."""
+    Vh, Vl, _, _, Qh, Ql = basis
+    with jax.disable_jit():
+        jout = jde.df_apply_basis_change(*_j(Vh, Vl, Qh, Ql))
+    tVh, tVl, tQh, tQl = _t(Vh, Vl, Qh, Ql)
+    got = df.df_basis_change(tVh, tVl, tQh, tQl, rows)
+    assert got[0].shape == (rows, N)
+    _same([np.asarray(j)[:rows] for j in jout], got)
+    full = df.df_basis_change_plain(tVh, tVl, tQh, tQl)
+    _same([f[:rows].numpy() for f in full], got)
+    tde.df_apply_basis_change(tVh, tVl, tQh, tQl, rows)
+    _same([np.asarray(j)[:rows] for j in jout], (tVh[:rows], tVl[:rows]))
+    _same((Vh[rows:], Vl[rows:]), (tVh[rows:], tVl[rows:]))
+
+
+@pytest.mark.parametrize("m1,n", [(1, 1), (7, 1000), (31, 65536),
+                                  (61, 65536), (61, 1 << 20), (65, 1000),
+                                  (200, 4096), (3072, 10), (6144, 3)])
+def test_basis_plan(m1, n):
+    """Every tile of both words: one Q record a thread a stage, two stages
+    within 48 KB, the grid covering every row and column, and one slab (the
+    change in place) wherever rows <= 64."""
+    for item in (4, 8):
+        if 2 * m1 * item > df._BASIS_STAGE_BYTES:
+            continue
+        for rows in sorted({1, (m1 + 1) // 2, m1}):
+            default = df.basis_plan(m1, n, rows, item)
+            assert (default.R, default.C) == df._BASIS_TILES[item][0] == (
+                (8, 2) if item == 4 else (4, 2))
+            for tile in df._BASIS_TILES[item]:
+                p = df.basis_plan(m1, n, rows, item, tile)
+                assert (p.R, p.C) == tile and p.C * item <= 16
+                assert p.J * p.R == 32 and 1 <= p.W * p.R <= 64
+                assert p.smem <= 48 * 1024
+                assert p.slabs * p.W * p.R >= rows > (p.slabs - 1) * p.W * p.R
+                assert p.blocks * 32 * p.C >= n > (p.blocks - 1) * 32 * p.C
+                assert p.slabs <= 65535
+                assert p.in_place == (p.slabs == 1)
+                if rows <= 64:
+                    assert p.in_place
+
+
+@pytest.mark.parametrize("ny,nx", [(1, 1), (3, 9), (64, 64), (256, 256),
+                                   (1021, 1000), (1024, 1024), (4096, 4096),
+                                   (1, 100000)])
+def test_stencil_plan(ny, nx):
+    """Up to four points a thread in float32 words and two in float64, as
+    many as keep 264 tiles (two a SM of an H100) where the grid has them;
+    the tiles cover the grid, a block each."""
+    for item in (4, 8):
+        p = df.stencil_plan(ny, nx, item)
+        assert p.P in (1, 2, 4) and p.P * item <= 16
+        cols = -(-nx // 32)
+        assert p.blocks == cols * -(-ny // (4 * p.P))
+        if p.P > 1:
+            assert p.blocks >= 264
+        if 2 * p.P * item <= 16:
+            assert cols * -(-ny // (8 * p.P)) < 264
+        if (ny, nx) == (256, 256):
+            assert p.blocks >= 264  # at least two blocks on every SM
+
+
+def test_coefficient_words_are_the_kernel_splits():
+    """The stencil's host coefficient words: each coefficient rounded to
+    the word, then df32.split's halves, the values a split of a tensor of
+    the word type gives."""
+    for dtype in (torch.float32, torch.float64):
+        words = df.coefficient_words(COEFFS, dtype)
+        c = torch.tensor(COEFFS, dtype=dtype)
+        hi, lo = df32.split(c)
+        assert words == [*c.tolist(), *hi.tolist(), *lo.tolist()]
+
+
 def _dia_pair(rng):
     offsets = (-31, -1, 0, 2, 7)
     diags = rng.standard_normal((len(offsets), N)).astype(F32)
@@ -350,26 +426,44 @@ def test_expand_range_matches_jax(case):
     assert np.abs(Hj - Ht).max() <= 1e-13
 
 
+def _driver_qbig(m, k, purge, seed):
+    """The restart's basis-change matrix as driver.py builds it: identity,
+    columns [purge, k) from an orthogonal Q on rows [purge, m), column k
+    taking the old row m (the next-vector slot)."""
+    Q = np.linalg.qr(np.random.default_rng(seed).standard_normal((m, m)))[0]
+    Qbig = np.eye(m + 1)
+    Qbig[:, purge:k] = 0
+    Qbig[purge:m, purge:k] = Q[purge:m, purge:k]
+    Qbig[:, k] = 0
+    Qbig[m, k] = 1
+    return Qbig
+
+
 def test_truncate_and_expand_matches_jax():
     """A restart's device step: basis change by an orthogonal (m+1) matrix
-    split into two words, then expansion from k = 3."""
+    split into two words, then expansion from k = 3; then the same with a
+    Qbig built as the driver builds it (k < m).  The port computes only
+    rows 0..k of the change (the expansion rewrites the rest); V, H and
+    their low words end bitwise equal to JAX's in every row."""
     m, k = 6, 3
     jop, top = jp.laplacian_1d(N, dtype=F32), tp.laplacian_1d(N, dtype=torch.float32)
-    V0 = _start(N, m)
-    Vh, Vl = _port_start(V0)
-    Hh, Hl = torch.zeros(m + 1, m), torch.zeros(m + 1, m)
-    tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m, torch.Generator())
-    Q = np.linalg.qr(np.random.default_rng(2).standard_normal((m + 1, m + 1)))[0]
-    Qh, Ql = tde.split_f64(Q, torch.float32, "cpu")
-    with jax.disable_jit():
-        jQh, jQl = jde.split_f64(Q, np.float32)
-        args = [jnp.asarray(t.numpy()) for t in (Vh, Vl, Hh, Hl)]
-        jout = jde.df_truncate_and_expand(jop, *args, jQh, jQl, k, m,
-                                          jax.random.PRNGKey(0))
-    _same((jQh, jQl), (Qh, Ql))
-    tde.df_truncate_and_expand(top, Vh, Vl, Hh, Hl, Qh, Ql, k, m,
-                               torch.Generator())
-    _same(jout, (Vh, Vl, Hh, Hl))
+    orthogonal = np.linalg.qr(
+        np.random.default_rng(2).standard_normal((m + 1, m + 1)))[0]
+    for Q in (orthogonal, _driver_qbig(m, k, 1, 3)):
+        V0 = _start(N, m)
+        Vh, Vl = _port_start(V0)
+        Hh, Hl = torch.zeros(m + 1, m), torch.zeros(m + 1, m)
+        tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m, torch.Generator())
+        Qh, Ql = tde.split_f64(Q, torch.float32, "cpu")
+        with jax.disable_jit():
+            jQh, jQl = jde.split_f64(Q, np.float32)
+            args = [jnp.asarray(t.numpy()) for t in (Vh, Vl, Hh, Hl)]
+            jout = jde.df_truncate_and_expand(jop, *args, jQh, jQl, k, m,
+                                              jax.random.PRNGKey(0))
+        _same((jQh, jQl), (Qh, Ql))
+        tde.df_truncate_and_expand(top, Vh, Vl, Hh, Hl, Qh, Ql, k, m,
+                                   torch.Generator())
+        _same(jout, (Vh, Vl, Hh, Hl))
 
 
 def test_reorthogonalize_row_matches_jax():
@@ -429,6 +523,38 @@ def test_kernel_wrappers_reject_bad_input():
                        torch.zeros(7000, 7000, dtype=torch.float64))
     with pytest.raises(ValueError, match="flat"):
         K.stencil(v, v, COEFFS, (3, 3))
+    Q = torch.zeros(2, 2)
+    V2 = torch.zeros(2, 8)
+    for rows in (0, 3):
+        with pytest.raises(ValueError, match="rows"):
+            K.basis_change(V2, V2, Q, Q, rows)
+    with pytest.raises(ValueError, match="rows"):
+        K.basis_change(V2, V2, Q, Q, 2, out=(torch.zeros(1, 8),) * 2)
+
+
+def test_truncate_computes_only_the_kept_rows(monkeypatch):
+    """A restart asks for rows 0..k of the change; the final change (every
+    row) and an expansion that stops short of the last row ask for all."""
+    seen = []
+    real = df.df_basis_change
+
+    def spy(Vh, Vl, Qh, Ql, rows=None, out=None):
+        seen.append(rows)
+        return real(Vh, Vl, Qh, Ql, rows, out)
+
+    monkeypatch.setattr(df, "df_basis_change", spy)
+    m, k = 6, 3
+    top = tp.laplacian_1d(N, dtype=torch.float32)
+    Vh, Vl = _port_start(_start(N, m))
+    Hh, Hl = torch.zeros(m + 1, m), torch.zeros(m + 1, m)
+    eye = tde.split_f64(np.eye(m + 1), torch.float32, "cpu")
+    tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m, torch.Generator())
+    tde.df_truncate_and_expand(top, Vh, Vl, Hh, Hl, *eye, k, m,
+                               torch.Generator())
+    tde.df_truncate_and_expand(top, Vh, Vl, Hh, Hl, *eye, k, m - 1,
+                               torch.Generator())
+    tde.df_apply_basis_change(Vh, Vl, *eye)
+    assert seen == [k + 1, None, None]
 
 
 def test_project_scratch_is_kept_and_grown_by_doubling():
