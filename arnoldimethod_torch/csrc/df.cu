@@ -58,7 +58,21 @@
 //     measured no faster on an H100 (w's re-reads come from L2).  Rows
 //     past `rows` are zero and, with acc, still go through acc + 0, by
 //     block (0, 0).
-//   - df_axpy: a thread owns columns and runs the rows j in order.
+//   - df_axpy (plan: ops/df.py axpy_plan): each element keeps its rows j
+//     in order (df_mul(h_j, V[j, i]), then df_add(w, -t): JAX's scan), so
+//     the only parallelism is over the n elements; one V row is 2 n words
+//     and the chain is long, so bytes in flight, not threads, set the rate.
+//     A thread owns 2^L elements laid out as df_project's split [h | wt |
+//     b | c] (so the fused norm can run df_project's tree); h_j is split
+//     once a block into a shared record (h, l, hi, lo) read as a
+//     broadcast; V's rows stream through a ring of S shared stages of J
+//     rows by cp.async, S - 1 stages in flight whatever the occupancy (the
+//     alternative, U rows of registers loaded before their arithmetic, is
+//     kept for `--axpy-sweep`).  With NORM the result's squares
+//     (df_mul(out, out), pads (0, 0)) go through df_project's steps 1-3
+//     (finish_row, its scratch), so the norm of a Gram-Schmidt pass costs
+//     no second launch and no second read of w.  df_mul_by is a plain
+//     elementwise kernel.
 //   - df_basis_change (plan: ops/df.py basis_plan): only the first `rows`
 //     outputs (a restart keeps rows 0..k; the expansion rewrites the
 //     rest).  A register tile: a thread sums R rows by C columns over j in
@@ -83,6 +97,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -249,6 +264,65 @@ __device__ __forceinline__ void project_out(int64_t row, T h, T l, T* ch,
   }
 }
 
+// Steps 2 and 3 of row `row`'s sum over a grid of G = gridDim.x blocks a
+// row: the T values (sh, sl)[tid], stored by every thread before a
+// barrier, are halved down to C; with G = 1 the block finishes the row,
+// else it writes its C partials to the row's G * C in (part_h, part_l)
+// and the last block of the row to arrive halves them and resets the
+// row's counter.  sh and sl hold max(T, stage) pairs each.  Returns true
+// in the one thread that holds the row's sum (h, l).
+template <typename T>
+__device__ bool finish_row(T* sh, T* sl, int C, int stage, int64_t row,
+                           T* __restrict__ part_h, T* __restrict__ part_l,
+                           unsigned* __restrict__ arrivals, T& h, T& l) {
+  __shared__ bool last;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t G = gridDim.x, b = blockIdx.x;
+  halve_shared(sh, sl, nt, C);
+  if (G == 1) {  // the block holds the whole row: finish here
+    halve_shared(sh, sl, C, 1);
+    h = sh[0];
+    l = sl[0];
+    return tid == 0;
+  }
+  const int64_t M = G * C;
+  T* rh = part_h + row * M;
+  T* rl = part_l + row * M;
+  if (tid < C) {
+    __stcg(rh + b * C + tid, sh[tid]);
+    __stcg(rl + b * C + tid, sl[tid]);
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrivals + row, 1u) == unsigned(G - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  int64_t len = M;
+  for (; len > stage; len /= 2) {  // levels in device memory
+    const int64_t half = len / 2;
+    for (int64_t t = tid; t < half; t += nt) {
+      T zh, zl;
+      df_add(__ldcg(rh + t), __ldcg(rl + t), __ldcg(rh + t + half),
+             __ldcg(rl + t + half), zh, zl);
+      __stcg(rh + t, zh);
+      __stcg(rl + t, zl);
+    }
+    __syncthreads();
+  }
+  for (int t = tid; t < len; t += nt) {
+    sh[t] = __ldcg(rh + t);
+    sl[t] = __ldcg(rl + t);
+  }
+  __syncthreads();
+  halve_shared(sh, sl, int(len), 1);
+  if (tid != 0) return false;
+  arrivals[row] = 0u;
+  h = sh[0];
+  l = sl[0];
+  return true;
+}
+
 // One launch of df_project: grid (G, rows), T threads; see the design
 // above.  `stage` is the most partials of its row the last block holds in
 // shared memory; the scratch (part_h, part_l) holds rows * G * C pairs and
@@ -263,7 +337,6 @@ project_kernel(const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t ld,
                T* __restrict__ cl, T* acc_h, T* acc_l) {
   constexpr int S = 1 << L;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ bool last;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int64_t G = gridDim.x, b = blockIdx.x, row = blockIdx.y;
 
@@ -296,55 +369,15 @@ project_kernel(const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t ld,
     halve_registers<S>(ph, pl);
   }
 
-  // 2. The block's tree over its T values, down to C.
+  // 2-3. The block's tree over its T values, then the row's partials.
   T* sh = reinterpret_cast<T*>(smem_raw);
   T* sl = sh + (nt > stage ? nt : stage);
   sh[tid] = ph[0];
   sl[tid] = pl[0];
   __syncthreads();
-  halve_shared(sh, sl, nt, C);
-  if (G == 1) {  // the block holds the whole row: finish here
-    halve_shared(sh, sl, C, 1);
-    if (tid == 0) project_out(row, sh[0], sl[0], ch, cl, acc_h, acc_l);
-    return;
-  }
-
-  // 3. The last block of the row to arrive sums the G * C partials.
-  const int64_t M = G * C;
-  T* rh = part_h + row * M;
-  T* rl = part_l + row * M;
-  if (tid < C) {
-    __stcg(rh + b * C + tid, sh[tid]);
-    __stcg(rl + b * C + tid, sl[tid]);
-    __threadfence();
-  }
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(arrivals + row, 1u) == unsigned(G - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  int64_t len = M;
-  for (; len > stage; len /= 2) {  // levels in device memory
-    const int64_t half = len / 2;
-    for (int64_t t = tid; t < half; t += nt) {
-      T zh, zl;
-      df_add(__ldcg(rh + t), __ldcg(rl + t), __ldcg(rh + t + half),
-             __ldcg(rl + t + half), zh, zl);
-      __stcg(rh + t, zh);
-      __stcg(rl + t, zl);
-    }
-    __syncthreads();
-  }
-  for (int t = tid; t < len; t += nt) {
-    sh[t] = __ldcg(rh + t);
-    sl[t] = __ldcg(rl + t);
-  }
-  __syncthreads();
-  halve_shared(sh, sl, int(len), 1);
-  if (tid == 0) {
-    project_out(row, sh[0], sl[0], ch, cl, acc_h, acc_l);
-    arrivals[row] = 0u;
-  }
+  T h, l;
+  if (finish_row(sh, sl, C, stage, row, part_h, part_l, arrivals, h, l))
+    project_out(row, h, l, ch, cl, acc_h, acc_l);
 }
 
 // The largest fold instantiated: 2^L element pairs of V a thread.
@@ -389,65 +422,7 @@ int project(const void* Vh, const void* Vl, int64_t ld, const void* wh,
   return int(cudaErrorInvalidValue);
 }
 
-// -- df_axpy and df_mul_by -------------------------------------------------
-
-template <typename T, bool SCALE>
-__global__ void __launch_bounds__(256)
-axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
-            const T* __restrict__ hh, const T* __restrict__ hl,
-            const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t ld,
-            int64_t n, int64_t rows, T sh, T sl, T* outh, T* outl) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    T ah = wh[i], al = wl[i];
-    if constexpr (SCALE) {
-      df_mul(ah, al, sh, sl, ah, al);
-    } else {
-      for (int64_t j = 0; j < rows; ++j) {
-        T th, tl;
-        df_mul(__ldg(hh + j), __ldg(hl + j), __ldg(Vh + j * ld + i),
-               __ldg(Vl + j * ld + i), th, tl);
-        df_add(ah, al, -th, -tl, ah, al);
-      }
-    }
-    outh[i] = ah;
-    outl[i] = al;
-  }
-}
-
-int grid_for(int64_t n, int threads) {
-  const int64_t blocks = (n + threads - 1) / threads;
-  return int(blocks < 132 * 16 ? blocks : 132 * 16);
-}
-
-template <typename T>
-int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
-         const void* Vh, const void* Vl, int64_t ld, int64_t n, int64_t rows,
-         void* outh, void* outl, void* stream) {
-  if (n < 1 || rows < 0) return int(cudaErrorInvalidValue);
-  axpy_kernel<T, false><<<grid_for(n, 256), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(wh), static_cast<const T*>(wl),
-      static_cast<const T*>(hh), static_cast<const T*>(hl),
-      static_cast<const T*>(Vh), static_cast<const T*>(Vl), ld, n, rows, T(0),
-      T(0), static_cast<T*>(outh), static_cast<T*>(outl));
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int mul_by(const void* wh, const void* wl, double sh, double sl, int64_t n,
-           void* outh, void* outl, void* stream) {
-  if (n < 1) return int(cudaErrorInvalidValue);
-  axpy_kernel<T, true><<<grid_for(n, 256), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(wh), static_cast<const T*>(wl), nullptr, nullptr,
-      nullptr, nullptr, 0, n, 0, T(sh), T(sl), static_cast<T*>(outh),
-      static_cast<T*>(outl));
-  return int(cudaGetLastError());
-}
-
-// -- df_basis_change -------------------------------------------------------
+// -- copies ----------------------------------------------------------------
 
 // cp.async: a copy from device memory to shared memory that the thread
 // does not wait on; src_bytes below the copy's size zero-fills the rest.
@@ -476,6 +451,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most `pending` (0 to 2) of the thread's newest groups of
+// copies are still in flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  }
+}
+
+// (th, tl) = df_mul(q, v) from both operands' splits: 20 operations.
+template <typename T>
+__device__ __forceinline__ void mul_split(const SplitWord<T>& q, T vh, T vl,
+                                          T vhi, T vlo, T& th, T& tl) {
+  T p, e;
+  two_prod_split(q.h, q.hi, q.lo, vh, vhi, vlo, p, e);
+  e = add_(e, add_(mul_(q.h, vl), mul_(q.l, vh)));
+  quick_two_sum(p, e, th, tl);
+}
+
+// -- df_basis_change -------------------------------------------------------
+
 // The tile a thread sums is R rows by C columns (template parameters; the
 // plan picks them).  A stage holds J = 32 / R rows j, so that a block of W
 // warps has J * W R Q records a stage: one a thread.  A block sums at most
@@ -496,10 +495,8 @@ struct alignas(C * sizeof(T)) Cols {
 template <typename T>
 __device__ __forceinline__ void basis_madd(const SplitWord<T>& q, T vh, T vl,
                                            T vhi, T vlo, T& ah, T& al) {
-  T p, e, th, tl;
-  two_prod_split(q.h, q.hi, q.lo, vh, vhi, vlo, p, e);
-  e = add_(e, add_(mul_(q.h, vl), mul_(q.l, vh)));
-  quick_two_sum(p, e, th, tl);
+  T th, tl;
+  mul_split(q, vh, vl, vhi, vlo, th, tl);
   df_add(ah, al, th, tl, ah, al);
 }
 
@@ -707,6 +704,275 @@ int basis_change(const void* Vh, const void* Vl, const void* Qh,
   return int(cudaErrorInvalidValue);
 }
 
+// -- df_axpy and df_mul_by -------------------------------------------------
+
+constexpr int kAxpyThreads = 256;   // the most threads a block
+constexpr int kAxpyMaxRows = 256;   // rows of V a launch (h records staged)
+constexpr int kAxpyMaxFold = 3;     // the largest L: 2^L elements a thread
+constexpr int kAxpyMaxStages = 4;   // stages of the cp.async ring
+constexpr size_t kAxpyShared = 48 * 1024;  // shared memory a block
+
+// w <- w - h_j V[j] for one row j and one element (df_mul(h_j, V[j, i]),
+// then df_add(w, -t)), from h_j's split record and V's hi word split here.
+template <typename T>
+__device__ __forceinline__ void axpy_step(const SplitWord<T>& q, T vh, T vl,
+                                          T& ah, T& al) {
+  T vhi, vlo, th, tl;
+  split_(vh, vhi, vlo);
+  mul_split(q, vh, vl, vhi, vlo, th, tl);
+  df_add(ah, al, -th, -tl, ah, al);
+}
+
+// One launch of df_axpy over rows j < rows (at most kAxpyMaxRows): grid G
+// blocks of T threads; thread tid = (wt, c) of block b owns the K = 2^L
+// elements i = base + h * step of df_project's split [h | wt | b | c],
+// N = K T G.  The h records of every row are split into shared memory
+// first.  STAGED: V's rows (both words) stream through a ring of S stages
+// of J rows by cp.async, S - 1 stages in flight while one is summed (16
+// bytes a copy where `vec`, else a word); else a thread loads U rows of
+// its elements into registers, all loads first, then sums them.  With
+// NORM the block then halves the squares of its results as df_project's
+// one row does (finish_row), the sum into sum[0], sum[1].
+template <typename T, int L, bool NORM, bool STAGED>
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
+            const T* __restrict__ hh, const T* __restrict__ hl,
+            const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t n,
+            int rows, int C, int J, int S, bool vec, int stage,
+            T* __restrict__ part_h, T* __restrict__ part_l,
+            unsigned* __restrict__ arrivals, T* __restrict__ outh,
+            T* __restrict__ outl, T* __restrict__ sum) {
+  constexpr int K = 1 << L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x, KT = K * nt;
+  const int64_t G = gridDim.x, b = blockIdx.x;
+  const int64_t step = int64_t(nt) * G;
+  // The element of the block's h-th run slot t: thread t's h-th element.
+  auto element = [&](int h, int t) {
+    return h * step + int64_t(t / C) * G * C + b * C + t % C;
+  };
+  SplitWord<T>* rec = reinterpret_cast<SplitWord<T>*>(smem_raw);
+  T* sv = reinterpret_cast<T*>(rec + rows);
+
+  // Stage layout: [chunk % S][jj][word][h * T + t], zero past n and rows.
+  auto issue = [&](int chunk) {
+    T* dst = sv + (chunk % S) * J * 2 * KT;
+    const int j0 = chunk * J;
+    const int E = vec ? int(16 / sizeof(T)) : 1;  // words a copy
+    const int U = KT / E;                         // copies a row of a word
+    for (int u = tid; u < J * 2 * U; u += nt) {
+      const int g = u % U, word = (u / U) % 2, jj = u / (2 * U);
+      const int e = g * E;
+      const int64_t col = element(e / nt, e % nt);
+      const bool ok = j0 + jj < rows && col < n;
+      const T* src = (word ? Vl : Vh) + (ok ? int64_t(j0 + jj) * n + col : 0);
+      T* at = dst + (jj * 2 + word) * KT + e;
+      if (vec)
+        cp_async_16(at, src, ok ? 16 : 0);
+      else
+        cp_async_word<int(sizeof(T))>(at, src, ok ? int(sizeof(T)) : 0);
+    }
+    cp_async_commit();
+  };
+  const int chunks = STAGED ? (rows + J - 1) / J : 0;
+  if constexpr (STAGED) {
+    for (int c = 0; c < S - 1; ++c) {
+      if (c < chunks)
+        issue(c);
+      else
+        cp_async_commit();  // empty groups keep the count of groups uniform
+    }
+  }
+
+  T ah[K], al[K];
+#pragma unroll
+  for (int h = 0; h < K; ++h) {
+    const int64_t i = element(h, tid);
+    ah[h] = i < n ? __ldg(wh + i) : T(0);
+    al[h] = i < n ? __ldg(wl + i) : T(0);
+  }
+  for (int t = tid; t < rows; t += nt)
+    rec[t] = split_word(__ldg(hh + t), __ldg(hl + t));
+
+  if constexpr (STAGED) {
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+      cp_async_wait_pending(S - 2);
+      __syncthreads();  // the chunk is in; every thread is done with the last
+      if (chunk + S - 1 < chunks)
+        issue(chunk + S - 1);
+      else
+        cp_async_commit();
+      const T* v = sv + (chunk % S) * J * 2 * KT;
+      const int jn = min(J, rows - chunk * J);
+      for (int jj = 0; jj < jn; ++jj) {
+        const SplitWord<T> q = rec[chunk * J + jj];
+#pragma unroll
+        for (int h = 0; h < K; ++h)
+          axpy_step(q, v[jj * 2 * KT + h * nt + tid],
+                    v[(jj * 2 + 1) * KT + h * nt + tid], ah[h], al[h]);
+      }
+    }
+  } else {
+    constexpr int U = K >= 8 ? 1 : 8 / K;  // rows a group: 8 elements a word
+    __syncthreads();                       // the records are in
+    for (int j0 = 0; j0 < rows; j0 += U) {
+      T vh[U][K], vl[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int h = 0; h < K; ++h) {
+          const int64_t i = element(h, tid);
+          const bool ok = j0 + u < rows && i < n;
+          const int64_t at = ok ? int64_t(j0 + u) * n + i : 0;
+          vh[u][h] = ok ? __ldg(Vh + at) : T(0);
+          vl[u][h] = ok ? __ldg(Vl + at) : T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u < rows) {
+          const SplitWord<T> q = rec[j0 + u];
+#pragma unroll
+          for (int h = 0; h < K; ++h) axpy_step(q, vh[u][h], vl[u][h], ah[h], al[h]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < K; ++h) {
+    const int64_t i = element(h, tid);
+    if (i < n) {
+      outh[i] = ah[h];
+      outl[i] = al[h];
+    }
+  }
+  if constexpr (NORM) {
+    // df32.df_sum(df_mul(out, out)): pads (0, 0), the tree of df_project.
+    T ph[K], pl[K];
+#pragma unroll
+    for (int h = 0; h < K; ++h) {
+      ph[h] = pl[h] = T(0);
+      if (element(h, tid) < n) df_mul(ah[h], al[h], ah[h], al[h], ph[h], pl[h]);
+    }
+    halve_registers<K>(ph, pl);
+    __syncthreads();  // the stages and records are free: the sum takes them
+    T* sh = reinterpret_cast<T*>(smem_raw);
+    T* sl = sh + (nt > stage ? nt : stage);
+    sh[tid] = ph[0];
+    sl[tid] = pl[0];
+    __syncthreads();
+    T h, l;
+    if (finish_row(sh, sl, C, stage, 0, part_h, part_l, arrivals, h, l)) {
+      sum[0] = h;
+      sum[1] = l;
+    }
+  }
+}
+
+// The shared memory of an axpy launch: the records and the ring, or the
+// sum's max(T, stage) pairs, whichever is larger.
+template <typename T>
+size_t axpy_shared(int64_t threads, int64_t L, int64_t rows, int64_t J,
+                   int64_t S, bool staged, bool norm, int64_t stage) {
+  const size_t ring = staged ? size_t(S * J * 2 * (threads << L)) * sizeof(T) : 0;
+  const size_t body = size_t(rows) * sizeof(SplitWord<T>) + ring;
+  const size_t tail =
+      norm ? size_t(2 * (threads > stage ? threads : stage)) * sizeof(T) : 0;
+  return body > tail ? body : tail;
+}
+
+template <typename T, bool NORM, bool STAGED>
+int axpy_launch(int64_t L, unsigned G, unsigned threads, size_t smem,
+                cudaStream_t s, const T* wh, const T* wl, const T* hh,
+                const T* hl, const T* Vh, const T* Vl, int64_t n, int rows,
+                int C, int J, int S, bool vec, int stage, T* ph, T* pl,
+                unsigned* arrivals, T* outh, T* outl, T* sum) {
+#define DF_AXPY_CASE(LL)                                                       \
+  if (L == LL) {                                                               \
+    axpy_kernel<T, LL, NORM, STAGED><<<G, threads, smem, s>>>(                 \
+        wh, wl, hh, hl, Vh, Vl, n, rows, C, J, S, vec, stage, ph, pl,          \
+        arrivals, outh, outl, sum);                                            \
+    return int(cudaGetLastError());                                            \
+  }
+  DF_AXPY_CASE(0) DF_AXPY_CASE(1) DF_AXPY_CASE(2) DF_AXPY_CASE(3)
+#undef DF_AXPY_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+// sum == nullptr: the plain form; else the fused norm, whose scratch
+// (part: 2 G C words, arrivals: one counter, zero) is df_project's.
+template <typename T>
+int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
+         const void* Vh, const void* Vl, int64_t n, int64_t rows,
+         int64_t threads, int64_t C, int64_t G, int64_t L, int64_t J,
+         int64_t S, int64_t staged, int64_t stage, void* part,
+         int64_t part_words, void* arrivals, int64_t arrival_slots,
+         void* outh, void* outl, void* sum, void* stream) {
+  auto pow2 = [](int64_t x) { return x >= 1 && (x & (x - 1)) == 0; };
+  int64_t N = 1;
+  while (N < n) N *= 2;
+  const bool norm = sum != nullptr;
+  const size_t smem = axpy_shared<T>(threads, L, rows, J, S, staged != 0,
+                                     norm, stage);
+  if (n < 1 || rows < 0 || rows > kAxpyMaxRows || !pow2(threads)
+      || threads > kAxpyThreads || !pow2(C) || C > threads || L < 0
+      || L > kAxpyMaxFold || G < 1 || (threads << L) * G != N || J < 1
+      || S < 2 || S > kAxpyMaxStages || smem > kAxpyShared
+      || (norm && (!pow2(stage) || stage > G * C || part_words < 2 * G * C
+                   || arrival_slots < 1)))
+    return int(cudaErrorInvalidValue);
+  if (G > INT32_MAX) return int(cudaErrorInvalidConfiguration);
+  constexpr int E = 16 / sizeof(T);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = C % E == 0 && n % E == 0 && aligned(Vh) && aligned(Vl);
+  auto s = static_cast<cudaStream_t>(stream);
+  T* ph = static_cast<T*>(part);
+  T* pl = norm ? ph + G * C : nullptr;
+  auto go = [&](auto norm_tag, auto staged_tag) {
+    return axpy_launch<T, decltype(norm_tag)::value, decltype(staged_tag)::value>(
+        L, unsigned(G), unsigned(threads), smem, s, static_cast<const T*>(wh),
+        static_cast<const T*>(wl), static_cast<const T*>(hh),
+        static_cast<const T*>(hl), static_cast<const T*>(Vh),
+        static_cast<const T*>(Vl), n, int(rows), int(C), int(J), int(S), vec,
+        int(stage), ph, pl, static_cast<unsigned*>(arrivals),
+        static_cast<T*>(outh), static_cast<T*>(outl), static_cast<T*>(sum));
+  };
+  using yes = std::true_type;
+  using no = std::false_type;
+  if (norm) return staged ? go(yes{}, yes{}) : go(yes{}, no{});
+  return staged ? go(no{}, yes{}) : go(no{}, no{});
+}
+
+// df_mul_by: out = w * (sh, sl), one element a thread, grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(256)
+mul_by_kernel(const T* __restrict__ wh, const T* __restrict__ wl, int64_t n,
+              T sh, T sl, T* __restrict__ outh, T* __restrict__ outl) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    T zh, zl;
+    df_mul(wh[i], wl[i], sh, sl, zh, zl);
+    outh[i] = zh;
+    outl[i] = zl;
+  }
+}
+
+template <typename T>
+int mul_by(const void* wh, const void* wl, double sh, double sl, int64_t n,
+           void* outh, void* outl, void* stream) {
+  if (n < 1) return int(cudaErrorInvalidValue);
+  const int64_t blocks = (n + 255) / 256;
+  const unsigned grid = unsigned(blocks < 132 * 16 ? blocks : 132 * 16);
+  mul_by_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(wh), static_cast<const T*>(wl), n, T(sh), T(sl),
+      static_cast<T*>(outh), static_cast<T*>(outl));
+  return int(cudaGetLastError());
+}
+
 // -- stencil5_df -----------------------------------------------------------
 
 constexpr int kStencilWarps = 4;  // a block: 4 warps, a tile 32 columns wide
@@ -856,12 +1122,16 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
                       stage, part, part_words, arrivals, arrival_slots, ch,    \
                       cl, acc_h, acc_l, stream);                               \
   }                                                                            \
-  extern "C" int df_axpy##SUFFIX(const void* wh, const void* wl,               \
-                                 const void* hh, const void* hl,               \
-                                 const void* Vh, const void* Vl, int64_t ld,   \
-                                 int64_t n, int64_t rows, void* outh,          \
-                                 void* outl, void* stream) {                   \
-    return axpy<T>(wh, wl, hh, hl, Vh, Vl, ld, n, rows, outh, outl, stream);   \
+  extern "C" int df_axpy##SUFFIX(                                              \
+      const void* wh, const void* wl, const void* hh, const void* hl,          \
+      const void* Vh, const void* Vl, int64_t n, int64_t rows,                 \
+      int64_t threads, int64_t C, int64_t G, int64_t L, int64_t J, int64_t S,  \
+      int64_t staged, int64_t stage, void* part, int64_t part_words,           \
+      void* arrivals, int64_t arrival_slots, void* outh, void* outl,           \
+      void* sum, void* stream) {                                               \
+    return axpy<T>(wh, wl, hh, hl, Vh, Vl, n, rows, threads, C, G, L, J, S,    \
+                   staged, stage, part, part_words, arrivals, arrival_slots,   \
+                   outh, outl, sum, stream);                                   \
   }                                                                            \
   extern "C" int df_mul_by##SUFFIX(const void* wh, const void* wl, double sh,  \
                                    double sl, int64_t n, void* outh,           \

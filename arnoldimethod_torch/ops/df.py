@@ -3,7 +3,9 @@
 
     df_project       (ch, cl)[j] = sum_i V[j, i] * w[i] for rows j < rows,
                      zero beyond; optionally acc <- acc + c in place
-    df_axpy          w - sum_{j < rows} h_j * V[j], j in order
+    df_axpy          w - sum_{j < rows} h_j * V[j], j in order; with
+                     norm=True also the double-word sum of squares of the
+                     result (df_project's one row on it), in the same launch
     df_mul_by        w * (sh, sl), a double-word scalar
     df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, for the
                      first `rows` rows i, optionally into V itself
@@ -25,7 +27,8 @@ error-free transforms; the CUDA source rounds every step explicitly.
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel, built with nvcc at first use, or raises.  Nothing
 falls back from the kernel to the plain version.  `KERNEL.launches` counts
-the wrapper calls that launched each kernel.
+the launches of each kernel (`project_forms` and `axpy_forms` split
+df_project's and df_axpy's by form).
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ from . import df32
 
 __all__ = [
     "KERNEL",
+    "AxpyPlan",
     "BasisPlan",
     "ProjectPlan",
     "StencilPlan",
+    "axpy_plan",
     "basis_plan",
     "coefficient_words",
     "df_axpy",
@@ -86,6 +91,24 @@ _RUN_BYTES = {"one_row": 32, "full": 128}
 _BASIS_TILES = {4: ((8, 2), (16, 2), (4, 4)), 8: ((4, 2), (8, 2))}
 _BASIS_SLAB_ROWS = 64
 _BASIS_STAGE_BYTES = 48 * 1024
+# df_axpy (csrc/df.cu kAxpyThreads, kAxpyMaxRows, kAxpyMaxFold, kAxpyShared):
+# the most threads a block, rows of V a launch (more are chained), the
+# largest fold L and the shared memory a block.  The plan folds 2^L
+# elements a thread as far as the grid keeps _AXPY_MIN_BLOCKS blocks and
+# one row of the block's elements fits a stage, a
+# warp reads runs of _AXPY_RUN_BYTES (the fused norm's last block sums G C
+# partials, so C stays small), V streams through _AXPY_STAGES stages of
+# about _AXPY_STAGE_BYTES each, and the norm's last block holds up to
+# _AXPY_SUM_PAIRS partials in shared memory.
+_AXPY_THREADS = 256
+_AXPY_MAX_ROWS = 256
+_AXPY_MAX_FOLD = 3
+_AXPY_SHARED_BYTES = 48 * 1024
+_AXPY_MIN_BLOCKS = 128
+_AXPY_RUN_BYTES = 32
+_AXPY_STAGES = 3
+_AXPY_STAGE_BYTES = 8 * 1024
+_AXPY_SUM_PAIRS = 1024
 # stencil5_df (csrc/df.cu kStencilWarps): warps a block, and the blocks a
 # plan keeps where it can: two on each of an H100's 132 SMs.
 _STENCIL_WARPS = 4
@@ -125,6 +148,51 @@ def project_plan(n, rows=1, item=4):
     cap = _PROJECT_STAGE_BYTES // (2 * item)
     stage = min(1 << (cap.bit_length() - 1), G * C)
     return ProjectPlan(form, T, C, G, L, stage)
+
+
+class AxpyPlan(NamedTuple):
+    """df_axpy's launch over n elements (padded to N = 2^k): thread (wt, c)
+    of block b owns the 2^L elements h of the split [h | wt | b | c] of
+    df_project's plan, N = 2^L * T * G; V's rows stream through S stages
+    of J rows (staged) or J rows of registers a thread (not staged)."""
+
+    T: int        # threads a block (a power of two)
+    C: int        # elements of a warp's runs, the lowest bits
+    G: int        # blocks
+    L: int        # elements a thread: 2^L
+    J: int        # rows of V a stage
+    S: int        # stages of the cp.async ring
+    staged: bool  # the cp.async ring, else loads into registers
+    stage: int    # the most partials the norm's last block holds in shared memory
+
+    @property
+    def M(self):
+        """The fused norm's partial sums: the G blocks' C each."""
+        return self.G * self.C
+
+    def smem(self, rows, item, norm):
+        """Shared memory a block, bytes (csrc/df.cu axpy_shared)."""
+        ring = self.S * self.J * 2 * (self.T << self.L) * item if self.staged else 0
+        body = rows * 4 * item + ring
+        return max(body, 2 * max(self.T, self.stage) * item if norm else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def axpy_plan(n, rows=1, item=4, norm=False):
+    """The launch of df_axpy over `rows` (at most _AXPY_MAX_ROWS) rows of
+    length n in words of `item` bytes, with or without the fused norm (see
+    _AXPY_MIN_BLOCKS)."""
+    N = 1 << max(0, n - 1).bit_length()
+    T = min(_AXPY_THREADS, N)
+    C = min(_AXPY_RUN_BYTES // item, T)
+    L = max((L for L in range(_AXPY_MAX_FOLD + 1)
+             if T << L <= N and N // (T << L) >= _AXPY_MIN_BLOCKS
+             and 2 * (T << L) * item <= _AXPY_STAGE_BYTES),
+            default=0)
+    G = N // (T << L)
+    J = max(1, min(_AXPY_STAGE_BYTES // (2 * (T << L) * item), max(rows, 1)))
+    return AxpyPlan(T, C, G, L, J, _AXPY_STAGES, True,
+                    min(_AXPY_SUM_PAIRS, G * C))
 
 
 class BasisPlan(NamedTuple):
@@ -209,10 +277,16 @@ def df_project_plain(Vh, Vl, wh, wl, rows, acc=None):
     return ch, cl
 
 
-def df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows):
-    """The plain version of df_axpy (df32.df_axpy_update_df)."""
-    return df32.df_axpy_update_df(wh, wl, hh[:rows], hl[:rows], Vh[:rows],
-                                  Vl[:rows])
+def df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm=False):
+    """The plain version of df_axpy (df32.df_axpy_update_df); with norm,
+    also the sum of squares of the result by df_project's one-row form
+    (df32.df_sum(df_mul(out, out)), df_norm's sum)."""
+    out = df32.df_axpy_update_df(wh, wl, hh[:rows], hl[:rows], Vh[:rows],
+                                 Vl[:rows])
+    if not norm:
+        return out
+    ch, cl = df_project_plain(out[0][None], out[1][None], *out, 1)
+    return out, (ch[0], cl[0])
 
 
 def _scalar(v, like):
@@ -274,7 +348,8 @@ def stencil5_df_plain(xh, xl, coeffs, grid, shifts=dirichlet_shifts):
 
 # -- the CUDA kernels -------------------------------------------------------
 
-_NAMES = ("df_project", "df_axpy", "df_basis_change", "stencil5_df")
+_NAMES = ("df_project", "df_axpy", "df_mul_by", "df_basis_change",
+          "stencil5_df")
 
 
 def _check(*tensors):
@@ -291,12 +366,14 @@ def _check(*tensors):
 
 class _DfKernel:
     """The built CUDA library of csrc/df.cu and the launch count of each of
-    its kernels (`launches[name]`, one a wrapper call); `project_forms`
-    splits df_project's launches by their plan's form (ProjectPlan.form)."""
+    its kernels (`launches[name]`, one a launch); `project_forms` splits
+    df_project's launches by their plan's form (ProjectPlan.form) and
+    `axpy_forms` df_axpy's into the plain form and the fused norm."""
 
     def __init__(self):
         self.launches = dict.fromkeys(_NAMES, 0)
         self.project_forms = {"one_row": 0, "full": 0}
+        self.axpy_forms = {"plain": 0, "norm": 0}
         self.build_log = ""
         self._lib = None
         self._scratch = {}
@@ -313,7 +390,8 @@ class _DfKernel:
             sigs = {
                 "df_project": [p, p, i, p, p, i, i, i, i, i, i, i, i, p, i, p,
                                i, p, p, p, p, p],
-                "df_axpy": [p, p, p, p, p, p, i, i, i, p, p, p],
+                "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                            p, i, p, i, p, p, p, p],
                 "df_mul_by": [p, p, d, d, i, p, p, p],
                 "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
                 "stencil5_df": [p, p, p, p, i, i, i, p, p],
@@ -381,15 +459,18 @@ class _DfKernel:
         plan = project_plan(n, max(rows, 1), Vh.element_size())
         return self._project_launch(plan, Vh, Vl, wh, wl, rows, acc)
 
+    def _stream_scratch(self, like, words, slots):
+        """_project_scratch on the current stream of `like`'s device."""
+        with torch.cuda.device(like.device):
+            stream = torch.cuda.current_stream(like.device).cuda_stream
+            capturing = torch.cuda.is_current_stream_capturing()
+        return self._project_scratch(like, words, slots, stream, capturing)
+
     def _project_launch(self, plan, Vh, Vl, wh, wl, rows, acc=None):
         """df_project's launch under `plan` (project_plan's, or another
         when measuring plans); the operands are checked by `project`."""
         m1, n = Vh.shape
-        with torch.cuda.device(Vh.device):
-            stream = torch.cuda.current_stream(Vh.device).cuda_stream
-            capturing = torch.cuda.is_current_stream_capturing()
-        part, arrivals = self._project_scratch(Vh, 2 * rows * plan.M, rows,
-                                               stream, capturing)
+        part, arrivals = self._stream_scratch(Vh, 2 * rows * plan.M, rows)
         ch = torch.empty(m1, dtype=Vh.dtype, device=Vh.device)
         cl = torch.empty_like(ch)
         ah, al = acc if acc is not None else (None, None)
@@ -403,23 +484,54 @@ class _DfKernel:
         self.project_forms[plan.form] += 1
         return ch, cl
 
-    def axpy(self, wh, wl, hh, hl, Vh, Vl, rows):
+    def axpy(self, wh, wl, hh, hl, Vh, Vl, rows, norm=False):
         _check(wh, wl, hh, hl, Vh, Vl)
         n = wh.shape[0]
-        if not 0 <= rows <= min(Vh.shape[0], hh.shape[0]) or Vh.shape[1] != n:
+        if (not 0 <= rows <= min(Vh.shape[0], hh.shape[0]) or Vh.dim() != 2
+                or Vh.shape[1] != n or Vl.shape != Vh.shape
+                or wl.shape != wh.shape or hl.shape != hh.shape):
             raise ValueError("df_axpy: rows or shapes out of range")
+        item = wh.element_size()
+        # More rows than a launch stages go through launches in turn, each
+        # continuing the last one's result: the same chain, j in order.
+        r0 = 0
+        while rows - r0 > _AXPY_MAX_ROWS:
+            wh, wl = self._axpy_launch(
+                axpy_plan(n, _AXPY_MAX_ROWS, item), wh, wl, hh[r0:], hl[r0:],
+                Vh[r0:], Vl[r0:], _AXPY_MAX_ROWS)
+            r0 += _AXPY_MAX_ROWS
+        return self._axpy_launch(axpy_plan(n, rows - r0, item, norm), wh, wl,
+                                 hh[r0:], hl[r0:], Vh[r0:], Vl[r0:],
+                                 rows - r0, norm)
+
+    def _axpy_launch(self, plan, wh, wl, hh, hl, Vh, Vl, rows, norm=False):
+        """df_axpy's launch over at most _AXPY_MAX_ROWS rows under `plan`
+        (axpy_plan's, or another when measuring plans); the operands are
+        checked by `axpy`.  With norm, the sum is a pair of 0-dim tensors
+        on the card; its scratch is df_project's."""
+        n = wh.shape[0]
         outh, outl = torch.empty_like(wh), torch.empty_like(wl)
+        if norm:
+            part, arrivals = self._stream_scratch(wh, 2 * plan.M, 1)
+            s = torch.empty(2, dtype=wh.dtype, device=wh.device)
+            scratch = (part.data_ptr(), part.numel(), arrivals.data_ptr(),
+                       arrivals.numel(), s.data_ptr())
+        else:
+            scratch = (None, 0, None, 0, None)
         self._launch("df_axpy", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
                      hh.data_ptr(), hl.data_ptr(), Vh.data_ptr(),
-                     Vl.data_ptr(), n, n, rows, outh.data_ptr(),
-                     outl.data_ptr())
-        return outh, outl
+                     Vl.data_ptr(), n, rows, plan.T, plan.C, plan.G, plan.L,
+                     plan.J, plan.S, int(plan.staged), plan.stage,
+                     *scratch[:4], outh.data_ptr(), outl.data_ptr(),
+                     scratch[4])
+        self.axpy_forms["norm" if norm else "plain"] += 1
+        return ((outh, outl), (s[0], s[1])) if norm else (outh, outl)
 
     def mul_by(self, wh, wl, sh, sl, out=None):
         _check(wh, wl, *(out or ()))
         if out is None:
             out = (torch.empty_like(wh), torch.empty_like(wl))
-        self._launch("df_mul_by", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
+        self._launch("df_mul_by", "df_mul_by", wh, wh.data_ptr(), wl.data_ptr(),
                      float(sh), float(sl), wh.numel(), out[0].data_ptr(),
                      out[1].data_ptr())
         return out
@@ -514,11 +626,14 @@ def df_project(Vh, Vl, wh, wl, rows, acc=None):
     return df_project_plain(Vh, Vl, wh, wl, rows, acc)
 
 
-def df_axpy(wh, wl, hh, hl, Vh, Vl, rows):
-    """w - sum_{j < rows} h_j V[j] in double word, j in order; new tensors."""
+def df_axpy(wh, wl, hh, hl, Vh, Vl, rows, norm=False):
+    """w - sum_{j < rows} h_j V[j] in double word, j in order; new tensors.
+    With norm=True, ((outh, outl), (sh, sl)): also the double-word sum of
+    squares of the result, df32.df_sum(df_mul(out, out)), as 0-dim tensors
+    (on the card, from the same launch)."""
     if _on_card(wh, "df_axpy"):
-        return KERNEL.axpy(wh, wl, hh, hl, Vh, Vl, rows)
-    return df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows)
+        return KERNEL.axpy(wh, wl, hh, hl, Vh, Vl, rows, norm)
+    return df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm)
 
 
 def df_mul_by(wh, wl, sh, sl, out=None):

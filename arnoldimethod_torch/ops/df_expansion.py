@@ -19,6 +19,8 @@ operator applied through `matvec_df(xh, xl) -> (yh, yl)`.  What differs:
     DGKS and breakdown tests) runs on the host, on numpy scalars of the
     word type, with the operations of df32.py: one device-to-host read
     after the first Gram-Schmidt pass, one more when the second pass runs.
+    The sum of squares of a pass's result comes from the pass's own
+    df_axpy launch (norm=True), the same bits as df_norm's sum.
   - Random rows come from the solve's `torch.Generator`.
   - V and the device Hessenberg pair (Hh, Hl) are updated in place.
 """
@@ -59,18 +61,26 @@ def _sumsq(wh, wl):
     return ch[0], cl[0]
 
 
-def _norm(wh, wl):
-    """The double-word norm of w on the host (one read)."""
-    s = _host(*_sumsq(wh, wl))
+def _root(sh, sl):
+    """The double-word square root on the host of a device sum of
+    squares (one read)."""
+    s = _host(sh, sl)
     return df32.df_sqrt(s[0], s[1])
 
 
-def _masked_project(Vh, Vl, wh, wl, rows, acc=None):
+def _norm(wh, wl):
+    """The double-word norm of w on the host (one read)."""
+    return _root(*_sumsq(wh, wl))
+
+
+def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False):
     """h = V[:rows] w and the projection update w - h V[:rows] in double
     word; with acc, acc <- acc + h as well (the JAX package's
-    _df_masked_project)."""
+    _df_masked_project).  With norm, also the updated w's sum of squares
+    (df_axpy's fused form): (h, w, sum)."""
     ch, cl = df.df_project(Vh, Vl, wh, wl, rows, acc)
-    return (ch, cl), df.df_axpy(wh, wl, ch, cl, Vh, Vl, rows)
+    out = df.df_axpy(wh, wl, ch, cl, Vh, Vl, rows, norm)
+    return ((ch, cl), *out) if norm else ((ch, cl), out)
 
 
 def _normalize(wh, wl, nh, nl, out=None):
@@ -84,13 +94,14 @@ def _dgks(Vh, Vl, wh, wl, rows):
     hl, norm, ref, syncs): norm the host double-word norm of the returned w,
     ref the hi word of the norm before the last pass."""
     r2 = _sumsq(wh, wl)
-    (hh, hl), (wh, wl) = _masked_project(Vh, Vl, wh, wl, rows)
-    s = _host(*r2, *_sumsq(wh, wl))
+    (hh, hl), (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, rows, norm=True)
+    s = _host(*r2, *w2)
     rnorm = df32.df_sqrt(s[0], s[1])[0]
     wnorm = df32.df_sqrt(s[2], s[3])
     if wnorm[0] < _eta(rnorm) * rnorm:
-        _, (wh, wl) = _masked_project(Vh, Vl, wh, wl, rows, acc=(hh, hl))
-        return wh, wl, hh, hl, _norm(wh, wl), wnorm[0], 2
+        _, (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, rows, acc=(hh, hl),
+                                          norm=True)
+        return wh, wl, hh, hl, _root(*w2), wnorm[0], 2
     return wh, wl, hh, hl, wnorm, rnorm, 1
 
 
@@ -100,8 +111,8 @@ def _random_unit(generator, Vh, Vl, rows):
                      generator=generator)
     zl = torch.zeros_like(zh)
     _, (zh, zl) = _masked_project(Vh, Vl, zh, zl, rows)
-    _, (zh, zl) = _masked_project(Vh, Vl, zh, zl, rows)
-    return _normalize(zh, zl, *_norm(zh, zl))
+    _, (zh, zl), z2 = _masked_project(Vh, Vl, zh, zl, rows, norm=True)
+    return _normalize(zh, zl, *_root(*z2))
 
 
 def _matvec_df(op, xh, xl):
@@ -172,8 +183,8 @@ def df_reorthogonalize_row(Vh, Vl, j):
     word: on a warm start the seed row was placed by the single-word path."""
     wh, wl = Vh[j].clone(), Vl[j].clone()
     _, (wh, wl) = _masked_project(Vh, Vl, wh, wl, j)
-    _, (wh, wl) = _masked_project(Vh, Vl, wh, wl, j)
-    _normalize(wh, wl, *_norm(wh, wl), out=(Vh[j], Vl[j]))
+    _, (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, j, norm=True)
+    _normalize(wh, wl, *_root(*w2), out=(Vh[j], Vl[j]))
 
 
 def df_set_random_vector(Vh, Vl, j, generator):

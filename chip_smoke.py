@@ -7,6 +7,7 @@
     python3 chip_smoke.py --project-sweep # df_project under other plans
     python3 chip_smoke.py --df-sweep      # df_basis_change's tiles and
                                           # stencil5_df's points a thread
+    python3 chip_smoke.py --axpy-sweep    # df_axpy under other plans
 
 Phases, each printed as one JSON line:
 
@@ -82,18 +83,23 @@ Phases, each printed as one JSON line:
            solve in complex128 on the CPU
   df_kernel  two_prod's exactness for both words, then the double-word
            kernels (df_project, its one-row norm form, df_axpy and its
-           df_mul_by mode, df_basis_change, stencil5_df) against their
-           plain versions, bitwise, in float32 and float64 words at config
-           3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021 x 1000;
-           ms (CUDA graph of 20 calls), GB/s and the bound, df_project's
-           beside the two-pass kernel's it replaced, df_basis_change's and
-           stencil5_df's beside their run-F times and targets; then
+           fused norm, df_mul_by, df_basis_change, stencil5_df) against
+           their plain versions, bitwise, in float32 and float64 words at
+           config 3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021
+           x 1000; ms (CUDA graph of 20 calls), GB/s and the bound,
+           df_project's beside the two-pass kernel's it replaced,
+           df_basis_change's and stencil5_df's beside their run-F times,
+           df_axpy's, its fused form's and df_mul_by's beside PR 5's
+           kernel's (COLUMN_AXPY_MS), with their targets; df_axpy in both
+           forms at rows 31 and 46, and its fused form under CUDA-graph
+           replays on a warm and a fresh stream; then
            df_project alone: the full form at rows 1, 7 and 60, the one-row
            form at n = 1, 1,000, 65,536 and 1,048,576 (bitwise with acc,
            both words), 20 calls in a CUDA graph replayed 10 times against
            one eager call; df_basis_change at rows 31, 46, 61 (new tensors
            and in place) and stencil5_df at 64^2; and ptxas' registers,
-           stack and spills of each instantiation (no local memory).  The
+           stack and spills of each of the 57 instantiations (no local
+           memory).  The
            operations bound counts lane-instructions (each operand split
            once) over SMs x 128 (float32) or 64 (float64) a clock at the
            card's maximum SM clock
@@ -109,10 +115,11 @@ Phases, each printed as one JSON line:
            double-word kernel launched, no plain double-word op on the
            card, and the two-pass kernel's result repeated exactly (6,387
            matvecs, 213 restarts, residual 3.872e-12); df_project's
-           launches split into
-           its one-row and full forms; a profile of its first restarts
-           gives the device's busy share and df_project's share of the
-           device time, and those of df_basis_change and stencil5_df
+           launches split into its one-row and full forms (one-row fewer
+           than 7,000: every pass's norm comes from its df_axpy), df_axpy's
+           into plain and fused; a profile of its first restarts gives the
+           device's busy share and the share of the device time of
+           df_project, df_axpy, df_mul_by, df_basis_change and stencil5_df
            (chiprun_out/profile_conv.txt), and shows one device launch a
            df_project call (ext_conv_one_launch)
 
@@ -1191,6 +1198,9 @@ def df_ops(name, n, rows=1, m1=1):
         return n * (DF_MUL + SPLIT) + (N - 1) * DF_ADD
     if name == "df_axpy":
         return rows * n * (DF_MUL + DF_ADD) + SPLIT * (rows * n + rows)
+    if name == "df_axpy_norm":
+        # The axpy, then df_sum's tree over the n squares of the result.
+        return df_ops("df_axpy", n, rows) + n * DF_MUL + (N - 1) * DF_ADD
     if name == "df_mul_by":
         return n * (DF_MUL + SPLIT) + SPLIT
     if name == "df_basis_change":
@@ -1277,6 +1287,11 @@ def _df_case(torch, grid, dtype, gen, time_plain):
             lambda acc: df.df_axpy(wh, wl, hh, hl, Vh, Vl, rows),
             lambda acc: df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows),
             (rows + 2) * n * 2 * item, df_ops("df_axpy", n, rows)),
+        "df_axpy_norm": (
+            lambda acc: _flat(df.df_axpy(wh, wl, hh, hl, Vh, Vl, rows, True)),
+            lambda acc: _flat(df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows,
+                                               True)),
+            axpy_norm_bytes(n, rows, item), df_ops("df_axpy_norm", n, rows)),
         "df_mul_by": (
             lambda acc: df.df_mul_by(wh, wl, sh, sl),
             lambda acc: df.df_mul_by_plain(wh, wl, sh, sl),
@@ -1340,9 +1355,34 @@ TWO_PASS_PROJECT_MS = {
 }
 
 
+# df_axpy's and df_mul_by's device ms with PR 5's kernel (a thread a
+# column, one launch for both; PERF.md §6, run E of PR 8, NVIDIA H100 80GB
+# HBM3, 700.00 W), by (form, case, word); the fused form against that axpy
+# plus the one-row df_project of its result: no case may be slower now.
+COLUMN_AXPY_MS = {
+    ("df_axpy", "config3", "float32"): 0.0197944,
+    ("df_axpy", "1m", "float32"): 0.2037,
+    ("df_axpy", "odd", "float32"): 0.2093,
+    ("df_axpy", "config3", "float64"): 0.0447,
+    ("df_axpy", "1m", "float64"): 0.4166,
+    ("df_axpy", "odd", "float64"): 0.4018,
+    ("df_axpy_norm", "config3", "float32"): 0.0197944 + 0.0054288,
+    ("df_axpy_norm", "1m", "float32"): 0.2037 + 0.0113,
+    ("df_axpy_norm", "odd", "float32"): 0.2093 + 0.0112,
+    ("df_axpy_norm", "config3", "float64"): 0.0447 + 0.0058,
+    ("df_axpy_norm", "1m", "float64"): 0.4166 + 0.0186,
+    ("df_axpy_norm", "odd", "float64"): 0.4018 + 0.0187,
+    ("df_mul_by", "1m", "float32"): 0.0053,
+    ("df_mul_by", "odd", "float32"): 0.0054,
+    ("df_mul_by", "config3", "float64"): 0.0027,
+    ("df_mul_by", "1m", "float64"): 0.0096,
+    ("df_mul_by", "odd", "float64"): 0.0088,
+}
+
+
 # df_basis_change's and stencil5_df's device ms before their redesign
 # (PERF.md §6, run F, NVIDIA H100 80GB HBM3, 700.00 W), by (kernel,
-# case, word): no case may be slower now.  TARGET_MS: the redesign's aims.
+# case, word): no case may be slower now.  TARGET_MS: the redesigns' aims.
 RUN_F_MS = {
     ("df_basis_change", "config3", "float32"): 0.4302696,
     ("df_basis_change", "1m", "float32"): 6.512,
@@ -1369,19 +1409,37 @@ TARGET_MS = {
     ("stencil5_df", "1m", "float64"): 0.0130,
     ("stencil5_df", "odd", "float32"): 0.0070,
     ("stencil5_df", "odd", "float64"): 0.0130,
+    ("df_axpy", "config3", "float32"): 0.0130,
+    ("df_axpy", "config3", "float64"): 0.026,
+    ("df_axpy_norm", "config3", "float32"): 0.0150,
 }
 
 
 def against_earlier(name, case, word, ms):
-    """Run F's time and the target of a case, where there are any."""
+    """The earlier kernel's time (RUN_F_MS, COLUMN_AXPY_MS) and the target
+    of a case, where there are any."""
     out = {}
-    was = RUN_F_MS.get((name, case, word))
+    was = RUN_F_MS.get((name, case, word), COLUMN_AXPY_MS.get((name, case, word)))
     if was is not None:
         out.update(earlier_ms=was, slower_than_earlier=ms > was)
     aim = TARGET_MS.get((name, case, word))
     if aim is not None:
         out.update(target_ms=aim, meets_target=ms <= aim)
     return out
+
+
+def _flat(pairs):
+    """((outh, outl), (sh, sl)) as (outh, outl, sh, sl)."""
+    return (*pairs[0], *pairs[1])
+
+
+def axpy_norm_bytes(n, rows, item):
+    """df_axpy's fused form: V's rows and w read, the result written (both
+    words), the plan's partials written and the sum's two words."""
+    from arnoldimethod_torch.ops import df
+
+    M = df.axpy_plan(n, rows, item, True).M
+    return (rows + 2) * n * 2 * item + 2 * M * item + 2 * item
 
 
 def basis_bytes(m1, rows, n, item):
@@ -1456,8 +1514,9 @@ def _df_windows(torch, dtype, gen):
 
 def _df_ptxas(log):
     """Registers, stack frame and spills of each instantiation of csrc/df.cu
-    (project_kernel<word, L>, axpy_kernel<word, scale>, basis_kernel<word>,
-    stencil_kernel<word, P>) from nvcc's -Xptxas -v output."""
+    (project_kernel<word, L>, axpy_kernel<word, L, norm, staged>,
+    mul_by_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
+    from nvcc's -Xptxas -v output."""
     import re
 
     out, entry, current = {}, None, None
@@ -1479,8 +1538,8 @@ def _df_ptxas(log):
             out.setdefault(entry, {})["registers"] = int(m.group(1))
     rows = []
     for name, info in out.items():
-        m = re.search(r"(project|axpy|basis|stencil)_kernelI([fd])((?:L[ib]\d+E)*)E",
-                      name)
+        m = re.search(r"(project|axpy|mul_by|basis|stencil)_kernelI([fd])"
+                      r"((?:L[ib]\d+E)*)E", name)
         if m:
             rows.append({"kernel": m.group(1),
                          "word": {"f": "float32", "d": "float64"}[m.group(2)],
@@ -1686,13 +1745,47 @@ def df_sweep(torch):
                 sys.exit("chip_smoke: a swept stencil5_df plan is not bitwise")
 
 
+def _replay(torch, call):
+    """20 eager calls of `call` (a double-word kernel that keeps
+    df_project's scratch), then 20 calls captured in one CUDA graph and
+    replayed 10 times, twice: captured on a stream that called it before
+    (the stream's scratch, whose arrival counters each launch resets) and
+    on torch.cuda.graph's own stream, which never called it (scratch of
+    each call's own, zeroed inside the graph).  Every output equals the
+    first eager call's bit for bit."""
+    from arnoldimethod_torch.ops import df
+
+    want = call()
+    eager = [call() for _ in range(20)]
+    torch.cuda.synchronize()
+    ok = {"eager": all(bitwise(zip(o, want)) for o in eager)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    like = want[0]
+    for name, stream in (("warm_stream", side), ("fresh_stream", None)):
+        graph, outs = torch.cuda.CUDAGraph(), []
+        with torch.cuda.graph(graph, stream=stream):
+            key = (like.device, like.dtype, torch.cuda.current_stream().cuda_stream)
+            ok[name + "_cached"] = key in df.KERNEL._scratch
+            for _ in range(20):
+                outs.append(call())
+        same = True
+        for _ in range(10):
+            graph.replay()
+            torch.cuda.synchronize()
+            same = same and all(bitwise(zip(o, want)) for o in outs)
+        ok[name] = same
+    return {"calls": 20, "replays": 10, **ok,
+            "bitwise": ok["eager"] and ok["warm_stream"]
+            and ok["fresh_stream"] and ok["warm_stream_cached"]
+            and not ok["fresh_stream_cached"]}
+
+
 def _project_replay(torch, gen, n, m1, rows):
-    """20 eager df_project calls, then 20 calls captured in one CUDA graph
-    and replayed 10 times, twice: captured on a stream that called it
-    before (the stream's scratch, whose arrival counters each launch
-    resets) and on torch.cuda.graph's own stream, which never called it
-    (scratch of each call's own, zeroed inside the graph).  Every output
-    equals the first eager call's bit for bit."""
+    """df_project under `_replay`."""
     from arnoldimethod_torch.ops import df
 
     Vh = torch.randn(m1, n, device="cuda", generator=gen)
@@ -1700,49 +1793,155 @@ def _project_replay(torch, gen, n, m1, rows):
     wh, wl = Vh[0].clone(), Vl[0].clone() * 0.5
     if m1 == 1:
         wh, wl = Vh[0], Vl[0]
-    want = df.df_project(Vh, Vl, wh, wl, rows)
-    eager = [df.df_project(Vh, Vl, wh, wl, rows) for _ in range(20)]
-    torch.cuda.synchronize()
-    ok = {"eager": all(bitwise(zip(o, want)) for o in eager)}
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        df.df_project(Vh, Vl, wh, wl, rows)
-    torch.cuda.current_stream().wait_stream(side)
-    for name, stream in (("warm_stream", side), ("fresh_stream", None)):
-        graph, outs = torch.cuda.CUDAGraph(), []
-        with torch.cuda.graph(graph, stream=stream):
-            key = (Vh.device, Vh.dtype, torch.cuda.current_stream().cuda_stream)
-            ok[name + "_cached"] = key in df.KERNEL._scratch
-            for _ in range(20):
-                outs.append(df.df_project(Vh, Vl, wh, wl, rows))
-        same = True
-        for _ in range(10):
-            graph.replay()
-            torch.cuda.synchronize()
-            same = same and all(bitwise(zip(o, want)) for o in outs)
-        ok[name] = same
-    return {"n": n, "m1": m1, "rows": rows, "calls": 20, "replays": 10,
-            **ok, "bitwise": ok["eager"] and ok["warm_stream"]
-            and ok["fresh_stream"] and ok["warm_stream_cached"]
-            and not ok["fresh_stream_cached"]}
+    return {"n": n, "m1": m1, "rows": rows,
+            **_replay(torch, lambda: df.df_project(Vh, Vl, wh, wl, rows))}
+
+
+def _axpy_replay(torch, gen, n, rows, dtype):
+    """df_axpy's fused form under `_replay` (its scratch is df_project's)."""
+    from arnoldimethod_torch.ops import df
+
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+    Vh = torch.randn(61, n, dtype=dtype, device="cuda", generator=gen)
+    Vl = torch.randn(61, n, dtype=dtype, device="cuda", generator=gen) * lo
+    wh, wl = Vh[60].clone() * 0.5, Vl[60].clone()
+    hh, hl = Vh[:, 0].clone(), Vl[:, 0].clone()
+    return {"kernel": "df_axpy_norm", "n": n, "rows": rows,
+            "dtype": str(dtype).split(".")[-1],
+            **_replay(torch, lambda: _flat(df.df_axpy(
+                wh, wl, hh, hl, Vh, Vl, rows, norm=True)))}
+
+
+def _axpy_rows(torch, dtype, gen):
+    """df_axpy in both forms over rows 31 and 46 of a 61 x 65,536 basis
+    (the range of config 3's passes), against the plain version, bitwise:
+    plan, ms (a graph of 20 calls), bound and plain ms.  PR 5's kernel was
+    not timed at these rows."""
+    from arnoldimethod_torch.ops import df
+
+    word = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    m1, n = 61, 65536
+    Vh, Vl = pair(m1, n)
+    wh, wl = pair(n)
+    hh, hl = pair(m1)
+    out = []
+    for rows in (31, 46):
+        for norm in (False, True):
+            def kernel():
+                got = df.df_axpy(wh, wl, hh, hl, Vh, Vl, rows, norm)
+                return _flat(got) if norm else got
+
+            def plain():
+                got = df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm)
+                return _flat(got) if norm else got
+
+            same = bitwise(zip(kernel(), plain()))
+            ms = graph_ms(kernel)
+            name = "df_axpy_norm" if norm else "df_axpy"
+            nbytes = (axpy_norm_bytes(n, rows, item) if norm
+                      else (rows + 2) * n * 2 * item)
+            bound_ms, bound_by = roofline(nbytes, df_ops(name, n, rows), word)
+            out.append({"kernel": name, "m1": m1, "n": n, "rows": rows,
+                        "plan": df.axpy_plan(n, rows, item, norm)._asdict(),
+                        "bitwise": same, "ms": ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                        "plain_ms": median_ms(plain, reps=3, warm=1),
+                        "earlier_ms": "not measured"})
+    return out
+
+
+def axpy_sweep(torch):
+    """`--axpy-sweep`: df_axpy, plain and fused, under launch plans other
+    than axpy_plan's at 61 x 65,536 and 61 x 1,048,576 (60 rows), both
+    words: T = 128 or 256 threads, folds L = 0-3, the cp.async ring (2-4
+    stages of about 4, 8 or 16 KB) and the register form; every plan
+    bitwise against the plain version and timed (a graph of 20 calls), one
+    JSON line a case, fastest first, beside the default plan's ms."""
+    from arnoldimethod_torch.ops import df
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.float64):
+        word = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+        for n in (65536, 1 << 20):
+            rows = 60
+            Vh = torch.randn(61, n, dtype=dtype, device="cuda", generator=gen)
+            Vl = torch.randn(61, n, dtype=dtype, device="cuda",
+                             generator=gen) * lo
+            wh, wl = Vh[60].clone() * 0.5, Vl[60].clone()
+            hh, hl = Vh[:, 0].clone(), Vl[:, 0].clone()
+            N = 1 << (n - 1).bit_length()
+            for norm in (False, True):
+                want = df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm)
+                want = _flat(want) if norm else want
+                default = df.axpy_plan(n, rows, item, norm)
+                plans = []
+                for T in (128, 256):
+                    C = 32 // item
+                    for L in range(4):
+                        G = N // (T << L)
+                        if G < 1:
+                            continue
+                        stage = min(df._AXPY_SUM_PAIRS, G * C)
+                        plans.append(df.AxpyPlan(T, C, G, L, 1, 2, False, stage))
+                        for S in (2, 3, 4):
+                            for kb in (4, 8, 16):
+                                J = max(1, kb * 1024 // (2 * (T << L) * item))
+                                plans.append(df.AxpyPlan(T, C, G, L, J, S, True,
+                                                         stage))
+                plans = [p for p in dict.fromkeys(plans)
+                         if p.smem(rows, item, norm) <= df._AXPY_SHARED_BYTES]
+                timed, same = [], True
+
+                def call(p):
+                    got = df.KERNEL._axpy_launch(p, wh, wl, hh, hl, Vh, Vl,
+                                                 rows, norm)
+                    return _flat(got) if norm else got
+
+                for p in plans:
+                    got = call(p)
+                    torch.cuda.synchronize()
+                    ok = bitwise(zip(got, want))
+                    same = same and ok
+                    timed.append((graph_ms(lambda: call(p)), ok, p._asdict()))
+                timed.sort(key=lambda t: t[0])
+                emit({"phase": "axpy_sweep", "n": n, "rows": rows,
+                      "dtype": word, "norm": norm, "bitwise": same,
+                      "default": default._asdict(),
+                      "default_ms": graph_ms(lambda: call(default)),
+                      "plans": [{"ms": ms, "bitwise": ok, **p}
+                                for ms, ok, p in timed]})
+                if not same:
+                    sys.exit("chip_smoke: a swept df_axpy plan is not bitwise")
+            del Vh, Vl
 
 
 def phase_df_kernel(torch):
-    """The four double-word kernels (and df_axpy's scaling mode,
-    df_mul_by, and df_project on one row, the form every norm takes)
-    against their plain versions, bitwise, in float32 and float64 words, at
-    config 3's shapes (61 x 65,536 on the 256^2 grid), 61 x 1,048,576
-    (1024^2) and a non-power-of-two n (1021 x 1000); kernel ms from a CUDA
-    graph of 20 calls, plain ms (config 3 only) from CUDA events.  First,
-    two_prod's exactness for both words.  Then df_project alone: both
-    forms at more shapes (`_project_forms`), 20 calls in a CUDA graph
-    replayed 10 times against one eager call.  Then df_basis_change at rows
-    31, 46 and 61, new and in place, and stencil5_df at 64^2
-    (`_df_windows`).  Last, ptxas' registers, stack and spills for each of
-    the file's 25 instantiations (none may use local memory).  Each timed
-    df_basis_change and stencil5_df case names run F's time before the
-    redesign (`slower_than_earlier`) and its target (`meets_target`)."""
+    """The five double-word kernels (with df_project on one row, the form
+    the r2 of every step takes, and df_axpy's fused norm, the form every
+    other norm takes) against their plain versions, bitwise, in float32
+    and float64 words, at config 3's shapes (61 x 65,536 on the 256^2
+    grid), 61 x 1,048,576 (1024^2) and a non-power-of-two n (1021 x 1000);
+    kernel ms from a CUDA graph of 20 calls, plain ms (config 3 only) from
+    CUDA events.  First, two_prod's exactness for both words.  Then
+    df_project alone: both forms at more shapes (`_project_forms`), 20
+    calls in a CUDA graph replayed 10 times against one eager call; df_axpy
+    in both forms at rows 31 and 46 (`_axpy_rows`) and its fused form under
+    graph replays (`_axpy_replay`).  Then df_basis_change at rows 31, 46
+    and 61, new and in place, and stencil5_df at 64^2 (`_df_windows`).
+    Last, ptxas' registers, stack and spills for each of the file's 57
+    instantiations (none may use local memory).  Each timed case of a
+    redesigned kernel names the earlier kernel's time
+    (`slower_than_earlier`) and, where set, its target (`meets_target`)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype in (torch.float32, torch.float64):
@@ -1771,6 +1970,18 @@ def phase_df_kernel(torch):
                              (1 << 20, 61, 60), (1000, 61, 7))]
     check("df_kernel", all(r["bitwise"] for r in replays),
           case="df_project_graph_replay", replays=replays)
+    # df_axpy in both forms at config 3's other rows, and its fused form
+    # under graph replays, both words.
+    for dtype in (torch.float32, torch.float64):
+        rows = _axpy_rows(torch, dtype, gen)
+        check("df_kernel", all(r["bitwise"] for r in rows),
+              case="df_axpy_rows", dtype=str(dtype).split(".")[-1], rows=rows)
+    replays = [_axpy_replay(torch, gen, n, rows, dtype)
+               for dtype in (torch.float32, torch.float64)
+               for n, rows in ((65536, 60), (65536, 31), (1 << 20, 60),
+                               (1021 * 1000, 46))]
+    check("df_kernel", all(r["bitwise"] for r in replays),
+          case="df_axpy_graph_replay", replays=replays)
     from arnoldimethod_torch.ops import df
 
     # Windows of df_basis_change's rows, in place, and stencil5_df's floor.
@@ -1780,14 +1991,15 @@ def phase_df_kernel(torch):
               case="df_windows", dtype=str(dtype).split(".")[-1],
               windows=windows)
         results[("windows", str(dtype).split(".")[-1])] = windows
-    # ptxas: 10 df_project, 4 df_axpy, 5 df_basis_change and 6 stencil5_df
+    # ptxas: 10 df_project, 32 df_axpy (L 0-3, plain or fused, ring or
+    # registers), 2 df_mul_by, 5 df_basis_change and 6 stencil5_df
     # instantiations, none with local memory.
     ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
-    counts = {k: sum(p["kernel"] == k for p in ptxas)
-              for k in ("project", "axpy", "basis", "stencil")}
+    want = {"project": 10, "axpy": 32, "mul_by": 2, "basis": 5, "stencil": 6}
+    counts = {k: sum(p["kernel"] == k for p in ptxas) for k in want}
     check("df_kernel", not built or (
-              counts == {"project": 10, "axpy": 4, "basis": 5, "stencil": 6}
+              counts == want
               and all(p.get("stack") == 0 and p.get("spill_stores") == 0
                       and p.get("spill_loads") == 0 for p in ptxas)),
           case="df_ptxas", built_here=built, counts=counts,
@@ -1797,6 +2009,10 @@ def phase_df_kernel(torch):
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
         one_row_bound_ms=norm["bound_ms"])
+    fused = shape["df_axpy_norm"]
+    shape["df_axpy"] = dict(
+        shape["df_axpy"], norm_ms=fused["ms"], norm_bound_ms=fused["bound_ms"],
+        norm_plain_ms=fused["plain_ms"])
     return shape
 
 
@@ -1982,6 +2198,7 @@ def phase_ext_conv(torch):
     stencil.KERNEL.launches = bsr.KERNEL.launches = 0
     df.KERNEL.launches = dict.fromkeys(df.KERNEL.launches, 0)
     df.KERNEL.project_forms = dict.fromkeys(df.KERNEL.project_forms, 0)
+    df.KERNEL.axpy_forms = dict.fromkeys(df.KERNEL.axpy_forms, 0)
     df32.PLAIN_ON_CARD = 0
     v1 = np.random.default_rng(3).standard_normal(nx * nx)
     t0 = time.perf_counter()
@@ -1991,6 +2208,7 @@ def phase_ext_conv(torch):
     wall = time.perf_counter() - t0
     launches = dict(df.KERNEL.launches)
     forms = dict(df.KERNEL.project_forms)
+    axpy_forms = dict(df.KERNEL.axpy_forms)
     plain = df32.PLAIN_ON_CARD
     peak = torch.cuda.max_memory_allocated()
 
@@ -2008,9 +2226,13 @@ def phase_ext_conv(torch):
     # it repeats the two-pass kernel's run F to every printed digit.
     repeats = (h.mvproducts == 6387 and h.restarts == 213
                and f"{resid:.3e}" == "3.872e-12")
+    # Every Gram-Schmidt pass that reads a norm takes it from its df_axpy
+    # launch: the one-row df_project is left to the r2 of each step and the
+    # start (PR 8's run E: 18,188 one-row launches).
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
           and resid <= 1e-8 and all(v > 0 for v in launches.values())
-          and plain == 0 and stencil.KERNEL.launches == 0 and repeats,
+          and plain == 0 and stencil.KERNEL.launches == 0 and repeats
+          and axpy_forms["norm"] > 0 and forms["one_row"] < 7000,
           n=nx * nx, mvproducts=h.mvproducts, restarts=h.restarts,
           nconverged=h.nconverged, complex_pairs=pairs, schur_residual=resid,
           repeats_two_pass=repeats,
@@ -2022,6 +2244,10 @@ def phase_ext_conv(torch):
           wall_s=wall, timings=h.timings, dense_layer=h.dense_layer,
           host_syncs=h.host_syncs, syncs_per_step=h.host_syncs / h.mvproducts,
           df_launches=launches, df_project_forms=forms,
+          df_axpy_forms=axpy_forms,
+          column_axpy_record={"df_axpy_with_df_mul_by": 18186,
+                              "one_row_df_project": 18188,
+                              "source": "PERF.md §5, run E of PR 8"},
           plain_df_calls_on_card=plain,
           stencil_launches=stencil.KERNEL.launches, peak_mem_bytes=peak,
           resident_before_bytes=resident,
@@ -2035,6 +2261,8 @@ def phase_ext_conv(torch):
     prof = _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
                     "profile_conv.txt", label="df_kernels",
                     parts={"df_project": "project_kernel",
+                           "df_axpy": "axpy_kernel",
+                           "df_mul_by": "mul_by_kernel",
                            "df_basis_change": "basis_kernel",
                            "stencil5_df": "stencil_kernel"}, nev=10,
                     which="LM", tol=1e-6, mindim=30, maxdim=60, restarts=3,
@@ -2045,7 +2273,7 @@ def phase_ext_conv(torch):
           calls > 0 and prof["df_project_device_launches"] == calls,
           wrapper_calls=calls,
           device_launches=prof["df_project_device_launches"])
-    return launches, forms
+    return launches, forms, axpy_forms
 
 
 def conv_starts(torch):
@@ -2099,6 +2327,9 @@ def main():
     if sys.argv[1:] == ["--df-sweep"]:
         df_sweep(torch)
         return
+    if sys.argv[1:] == ["--axpy-sweep"]:
+        axpy_sweep(torch)
+        return
     kernels = phase_kernel(torch)
     phase_small(torch)
     phase_readme(torch)
@@ -2135,7 +2366,7 @@ def main():
     df_shapes = phase_df_kernel(torch)
     phase_ext_readme(torch)
     phase_ext_dd(torch)
-    df_launches, project_forms = phase_ext_conv(torch)
+    df_launches, project_forms, axpy_forms = phase_ext_conv(torch)
 
     def entry(name, source, replaces, launches, shape, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2168,7 +2399,16 @@ def main():
                   "one_row_ms", "one_row_bound_ms")}),
         entry("df_axpy", df_src,
               "arnoldimethod_tpu/ops/df32.py:209 df_axpy_update_df" + xla,
-              df_launches["df_axpy"], df_shapes["df_axpy"]),
+              df_launches["df_axpy"], df_shapes["df_axpy"],
+              plain_launches=axpy_forms["plain"],
+              norm_launches=axpy_forms["norm"],
+              also_replaces="arnoldimethod_tpu/ops/df32.py:238 df_norm's sum",
+              **{k: df_shapes["df_axpy"][k] for k in (
+                  "norm_ms", "norm_bound_ms", "norm_plain_ms")}),
+        entry("df_mul_by", df_src,
+              "arnoldimethod_tpu/ops/df_expansion.py:71 _df_normalize "
+              "(df_mul by 1 / ||w||)" + xla, df_launches["df_mul_by"],
+              df_shapes["df_mul_by"]),
         entry("df_basis_change", df_src,
               "arnoldimethod_tpu/ops/df_expansion.py:150 "
               "_df_basis_change_impl" + xla, df_launches["df_basis_change"],

@@ -1,17 +1,20 @@
-// The CUDA features arnoldimethod_torch/csrc/df.cu's basis-change and
-// stencil kernels use, emulated on the host so that their source runs on a
-// CPU (tests/test_torch_df_source.py): one std::thread per CUDA thread,
-// the blocks of a launch one after another, __syncthreads as a
-// std::barrier, shared memory as statics, cp.async as a copy that has
-// landed when it returns.  Each rounded intrinsic is one IEEE operation
-// (the test builds with -ffp-contract=off).  Not emulated: warp shuffles
-// and atomics (df_project), which abort.
+// The CUDA features arnoldimethod_torch/csrc/df.cu's kernels use, emulated
+// on the host so that their source runs on a CPU
+// (tests/test_torch_df_source.py): one std::thread per CUDA thread, the
+// blocks of a launch one after another, __syncthreads as a std::barrier,
+// shared memory as statics, cp.async as a copy that has landed when it
+// returns, atomicAdd under a mutex, and __shfl_down_sync through a slot a
+// lane and a barrier a warp (every lane of the warp's threads takes part,
+// as every shuffle in df.cu does).  Each rounded intrinsic is one IEEE
+// operation (the test builds with -ffp-contract=off).
 #pragma once
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -34,6 +37,10 @@ inline thread_local emu_uint3 threadIdx;
 inline emu_uint3 blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
+// A barrier and 32 exchange slots of 8 bytes for each warp of the block.
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+alignas(8) inline unsigned char emu_lane_slots[32][32][8];
+inline std::mutex emu_atomic_mutex;
 alignas(16) inline unsigned char emu_dynamic_shared[256 * 1024];
 
 enum cudaError_t {
@@ -55,8 +62,27 @@ template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline void __threadfence() {}
-inline unsigned atomicAdd(unsigned*, unsigned) { std::abort(); }
-template <class T> T __shfl_down_sync(unsigned, T, int) { std::abort(); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> hold(emu_atomic_mutex);
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+// Lane l gets lane l + delta's value, its own where that lane is past the
+// warp's threads.
+template <class T> T __shfl_down_sync(unsigned, T v, int delta) {
+  static_assert(sizeof(T) <= 8, "a shuffled value fits a slot");
+  const unsigned t = threadIdx.x, w = t / 32, lane = t % 32;
+  const unsigned width = blockDim.x - w * 32 < 32 ? blockDim.x - w * 32 : 32;
+  std::barrier<>& bar = *emu_warp_barriers[w];
+  std::memcpy(emu_lane_slots[w][lane], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T out = v;
+  if (lane + delta < width)
+    std::memcpy(&out, emu_lane_slots[w][lane + delta], sizeof(T));
+  bar.arrive_and_wait();  // every lane has read before the slots are reused
+  return out;
+}
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 
@@ -76,12 +102,18 @@ void emu_launch(dim3 grid, dim3 block, F f) {
       blockIdx = {bx, by, 0};
       std::barrier<> bar(block.x);
       emu_barrier = &bar;
+      emu_warp_barriers.clear();
+      for (unsigned w = 0; w * 32 < block.x; ++w)
+        emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(
+            block.x - w * 32 < 32 ? block.x - w * 32 : 32));
       std::vector<std::thread> threads;
       for (unsigned t = 0; t < block.x; ++t)
         threads.emplace_back([&, t] {
           threadIdx = {t, 0, 0};
           f();
-          bar.arrive_and_drop();  // an exited thread leaves the barrier
+          // An exited thread leaves its block's and its warp's barriers.
+          bar.arrive_and_drop();
+          emu_warp_barriers[t / 32]->arrive_and_drop();
         });
       for (auto& th : threads) th.join();
     }

@@ -7,6 +7,10 @@ into build/arnoldimethod_torch and must agree with its numpy layer
 (to 1e-12, the tolerance of the JAX package's own native test) and with the
 JAX package's binding (bitwise: the same code on the same input)."""
 
+import importlib
+import os
+import time
+
 import numpy as np
 import pytest
 
@@ -167,16 +171,45 @@ def test_native_binding_matches_numpy_layer(dtype, seed, which):
         np.testing.assert_allclose(Qn, Qr, rtol=0, atol=1e-12)
 
 
+def _jax_native_or_skip(timeout=120.0):
+    """The JAX package's native core, loaded.  Its module builds the library
+    with g++ straight to its final path when imported, so a test worker that
+    imports it while a sibling worker's g++ is still writing the file finds
+    a half-written library and stays without it.  Once the file exists and
+    its size holds still, import the module again (the JAX package itself
+    is left as it is)."""
+    path = jnative._LIB_PATH
+    deadline = time.monotonic() + timeout
+    last = -1
+    while not jnative.available() and time.monotonic() < deadline:
+        size = os.path.getsize(path) if os.path.exists(path) else -1
+        if size > 0 and size == last:
+            importlib.reload(jnative)
+        time.sleep(0.5)
+        last = size
+    if not jnative.available():
+        pytest.skip("the JAX package's native core is not built")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_native_binding_matches_jax_binding(dtype):
     _native_or_skip()
-    if not jnative.available():
-        pytest.skip("the JAX package's native core is not built")
+    _jax_native_or_skip()
     H0 = _hessenberg(6, dtype)
     ours, theirs = _steps(tnative, H0, "SR"), _steps(jnative, H0, "SR")
     for step in ours:
         for a, b in zip(ours[step], theirs[step]):
             np.testing.assert_array_equal(a, b, err_msg=step)
+
+
+def test_jax_native_is_reloaded_after_a_build_race(monkeypatch):
+    """A worker that lost the race (no library loaded, the file complete)
+    loads it by importing the module again."""
+    _jax_native_or_skip()
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert not jnative.available()
+    _jax_native_or_skip(timeout=10.0)
+    assert jnative.available()
 
 
 def test_native_builds_outside_the_package():

@@ -610,12 +610,15 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_launch_counts_start_at_zero_and_plain_does_not_count():
     assert df._DfKernel().launches == dict.fromkeys(
-        ("df_project", "df_axpy", "df_basis_change", "stencil5_df"), 0)
+        ("df_project", "df_axpy", "df_mul_by", "df_basis_change",
+         "stencil5_df"), 0)
     assert df._DfKernel().project_forms == {"one_row": 0, "full": 0}
+    assert df._DfKernel().axpy_forms == {"plain": 0, "norm": 0}
     before = dict(df.KERNEL.launches)
-    forms = dict(df.KERNEL.project_forms)
+    forms = dict(df.KERNEL.project_forms), dict(df.KERNEL.axpy_forms)
     v = torch.ones(8)
     df.df_project(v[None], v[None], v, v, 1)
     df.df_mul_by(v, v, 1.0, 0.0)
+    df.df_axpy(v, v, v, v, v[None], v[None], 1, norm=True)
     assert df.KERNEL.launches == before
-    assert df.KERNEL.project_forms == forms
+    assert (df.KERNEL.project_forms, df.KERNEL.axpy_forms) == forms

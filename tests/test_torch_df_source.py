@@ -1,10 +1,14 @@
-"""The CUDA source of the double-word basis change and stencil
-(arnoldimethod_torch/csrc/df.cu) run on the CPU: compiled with g++ against
-tests/cuda_host_shim.h, which emulates the few CUDA features those kernels
-use (a thread per CUDA thread, blocks in turn, barriers, shared memory,
-cp.async), and held bit for bit to their plain PyTorch versions, under
-every tile and every number of points a thread the kernels take, into new
-tensors and (the basis change) in place.
+"""The CUDA source of the double-word kernels (arnoldimethod_torch/csrc/
+df.cu) run on the CPU: compiled with g++ against tests/cuda_host_shim.h,
+which emulates the few CUDA features they use (a thread per CUDA thread,
+blocks in turn, barriers, shared memory, cp.async, atomics, warp
+shuffles), and held bit for bit to their plain PyTorch versions: the basis
+change and the stencil under every tile and every number of points a
+thread, into new tensors and (the basis change) in place; df_axpy, plain
+and with its fused norm, under several launch plans (the cp.async ring and
+the register form, one block and many, the norm's last block with levels
+in device memory); df_project at its plan.  A copy of the source with one
+operand swapped must fail.
 
 This checks the kernels' indexing, staging and order of operations where
 there is no card; only chip_smoke.py shows that nvcc builds them and that
@@ -76,28 +80,54 @@ def host_source(cu):
     return s.replace("#include <cuda_runtime.h>", f'#include "{SHIM}"')
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("the host build of df.cu needs g++")
-    d = tmp_path_factory.mktemp("df_host")
-    src = d / "df_host.cpp"
-    src.write_text(host_source(
-        (REPO / "arnoldimethod_torch" / "csrc" / "df.cu").read_text()))
-    so = d / "libdf_host.so"
+def _host_build(directory, cu):
+    """df.cu's text `cu` built for the host shim into `directory`."""
+    src = directory / "df_host.cpp"
+    src.write_text(host_source(cu))
+    so = directory / "libdf_host.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
                     "-shared", "-pthread", "-Wno-unknown-pragmas", "-o",
                     str(so), str(src)], check=True, capture_output=True,
                    timeout=300)
     out = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int64
-    for word in ("_f32", "_f64"):
-        f = getattr(out, "df_basis_change" + word)
-        f.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
-        g = getattr(out, "stencil5_df" + word)
-        g.argtypes = [p, p, p, p, i, i, i, p, p]
-        f.restype = g.restype = ctypes.c_int
+    sigs = {"df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
+            "stencil5_df": [p, p, p, p, i, i, i, p, p],
+            "df_axpy": [p, p, p, p, p, p, *[i] * 10, p, i, p, i, p, p, p, p],
+            "df_project": [p, p, i, p, p, *[i] * 8, p, i, p, i, p, p, p, p,
+                           p]}
+    for name, args in sigs.items():
+        for word in ("_f32", "_f64"):
+            f = getattr(out, name + word)
+            f.argtypes = args
+            f.restype = ctypes.c_int
     return out
+
+
+CU = REPO / "arnoldimethod_torch" / "csrc" / "df.cu"
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("the host build of df.cu needs g++")
+    return _host_build(tmp_path_factory.mktemp("df_host"), CU.read_text())
+
+
+# One operand swapped in df_axpy's step: the hi and lo words of the term
+# subtracted.
+AXPY_STEP = "df_add(ah, al, -th, -tl, ah, al);"
+MUTANT = "df_add(ah, al, -tl, -th, ah, al);"
+
+
+@pytest.fixture(scope="module")
+def mutant(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("the host build of df.cu needs g++")
+    cu = CU.read_text()
+    assert cu.count(AXPY_STEP) == 1
+    return _host_build(tmp_path_factory.mktemp("df_mutant"),
+                       cu.replace(AXPY_STEP, MUTANT))
 
 
 INTS = {torch.float32: torch.int32, torch.float64: torch.int64}
@@ -176,3 +206,126 @@ def test_stencil_source_is_bitwise(lib, dtype, grid):
     yh = torch.empty_like(xh)
     assert fn(xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yh.data_ptr(), ny,
               nx, 3, words, None) != 0
+
+
+def _axpy_plans(n, rows, item, norm):
+    """axpy_plan's launch and hand plans: few threads and many blocks (the
+    norm's last block halving partials in device memory first), the
+    register form, one block, and a longer ring."""
+    N = 1 << max(0, n - 1).bit_length()
+    C = min(32 // item, 32)
+
+    def plan(T, L, J, S, staged, stage):
+        G = N // (T << L)
+        return df.AxpyPlan(T, C, G, L, J, S, staged, min(stage, G * C))
+
+    return [df.axpy_plan(n, rows, item, norm),
+            plan(32, 1, 3, 2, True, 4),
+            plan(64, 2, 1, 4, True, 64),
+            plan(32, 0, 1, 3, False, 1024),
+            plan(64, 3, 1, 3, False, 64),
+            plan(min(256, N // 2), (N // min(256, N // 2)).bit_length() - 1,
+                 2, 3, True, 1024)]
+
+
+def _axpy_host(fn, plan, w, h, V, rows, norm):
+    """One launch of the host-built df_axpy; ((outh, outl), sum or None)."""
+    (wh, wl), (hh, hl), (Vh, Vl) = w, h, V
+    outh, outl = torch.full_like(wh, 7.0), torch.full_like(wl, 7.0)
+    part = torch.full((2 * plan.M,), 7.0, dtype=wh.dtype)
+    arrivals = torch.zeros(1, dtype=torch.int32)
+    s = torch.full((2,), 7.0, dtype=wh.dtype)
+    err = fn(wh.data_ptr(), wl.data_ptr(), hh.data_ptr(), hl.data_ptr(),
+             Vh.data_ptr(), Vl.data_ptr(), wh.shape[0], rows, plan.T, plan.C,
+             plan.G, plan.L, plan.J, plan.S, int(plan.staged), plan.stage,
+             part.data_ptr(), part.numel(), arrivals.data_ptr(), 1,
+             outh.data_ptr(), outl.data_ptr(), s.data_ptr() if norm else None,
+             None)
+    assert err == 0, plan
+    assert int(arrivals[0]) == 0  # the last block leaves the counter zero
+    return (outh, outl), ((s[0], s[1]) if norm else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,rows", [(1000, 61), (997, 31), (1000, 0),
+                                    (100, 7)])
+@pytest.mark.parametrize("norm", [False, True])
+def test_axpy_source_is_bitwise(lib, dtype, n, rows, norm):
+    """df_axpy's source under each plan: the ring with 16-byte copies and
+    (n % 4 != 0) word copies, the register form, one block (n = 100 at
+    T = 64) and many; with the fused norm, its sum too."""
+    rng = np.random.default_rng(n + rows)
+    m1 = max(rows, 1)
+    w, h, V = (_pair(rng, dtype, n), _pair(rng, dtype, m1),
+               _pair(rng, dtype, m1, n))
+    want = df.df_axpy_plain(*w, *h, *V, rows, norm)
+    wout, wsum = want if norm else (want, None)
+    fn = getattr(lib, "df_axpy" + _word(dtype))
+    item = torch.finfo(dtype).bits // 8
+    plans = _axpy_plans(n, rows, item, norm)
+    assert any(p.G > 1 and p.M > p.stage for p in plans)
+    assert {p.staged for p in plans} == {True, False}
+    for plan in plans:
+        if plan.G < 1 or plan.smem(rows, item, norm) > 48 * 1024:
+            continue
+        out, got = _axpy_host(fn, plan, w, h, V, rows, norm)
+        assert _bitwise(out[0], wout[0]) and _bitwise(out[1], wout[1]), plan
+        if norm:
+            assert all(_bitwise(a.reshape(1), b.reshape(1))
+                       for a, b in zip(got, wsum)), plan
+
+
+def test_axpy_source_refuses_bad_plans(lib):
+    """A valid launch of 64 elements, then each field made invalid."""
+    w = torch.zeros(64)
+    fn = lib.df_axpy_f32
+    good = dict(T=64, C=8, G=1, L=0, J=1, S=3, rows=1)
+
+    def launch(T, C, G, L, J, S, rows):
+        return fn(*[w.data_ptr()] * 6, 64, rows, T, C, G, L, J, S, 1, 8, None,
+                  0, None, 0, w.data_ptr(), w.data_ptr(), None, None)
+
+    assert launch(**good) == 0
+    for bad in ({"G": 2}, {"L": 1}, {"T": 512, "L": -3}, {"C": 3}, {"J": 0},
+                {"S": 1}, {"S": 5}, {"rows": 257}):
+        assert launch(**{**good, **bad}) != 0, bad
+
+
+def test_axpy_source_mutation_fails(mutant):
+    """The swapped operand changes the result: the comparison above sees
+    it."""
+    rng = np.random.default_rng(3)
+    w, h, V = (_pair(rng, torch.float32, 1000), _pair(rng, torch.float32, 7),
+               _pair(rng, torch.float32, 7, 1000))
+    want = df.df_axpy_plain(*w, *h, *V, 7)
+    plan = df.axpy_plan(1000, 7, 4)
+    out, _ = _axpy_host(mutant.df_axpy_f32, plan, w, h, V, 7, False)
+    assert not (_bitwise(out[0], want[0]) and _bitwise(out[1], want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m1,n,rows", [(7, 1000, 5), (1, 3000, 1)])
+def test_project_source_is_bitwise(lib, dtype, m1, n, rows):
+    """df_project at project_plan's launch (several blocks a row: the last
+    block's tree, shared memory and shuffles), with acc."""
+    rng = np.random.default_rng(m1 * n)
+    Vh, Vl = _pair(rng, dtype, m1, n)
+    wh, wl = _pair(rng, dtype, n)
+    ah, al = _pair(rng, dtype, m1)
+    acc = (ah.clone(), al.clone())
+    want = df.df_project_plain(Vh, Vl, wh, wl, rows, acc)
+    plan = df.project_plan(n, rows, Vh.element_size())
+    assert plan.G > 1
+    ch, cl = torch.full((m1,), 7.0, dtype=dtype), torch.full((m1,), 7.0,
+                                                             dtype=dtype)
+    part = torch.empty(2 * rows * plan.M, dtype=dtype)
+    arrivals = torch.zeros(rows, dtype=torch.int32)
+    gh, gl = ah.clone(), al.clone()
+    assert getattr(lib, "df_project" + _word(dtype))(
+        Vh.data_ptr(), Vl.data_ptr(), n, wh.data_ptr(), wl.data_ptr(), n,
+        rows, m1, plan.T, plan.C, plan.G, plan.L, plan.stage, part.data_ptr(),
+        part.numel(), arrivals.data_ptr(), rows, ch.data_ptr(), cl.data_ptr(),
+        gh.data_ptr(), gl.data_ptr(), None) == 0
+    assert _bitwise(ch, want[0]) and _bitwise(cl, want[1])
+    assert _bitwise(gh, acc[0]) and _bitwise(gl, acc[1])
+    assert not arrivals.any()
