@@ -50,8 +50,9 @@
 //          in shared memory, the levels with half < 32 by warp shuffles;
 //       3. the block writes its C partials; the last block of the row to
 //          arrive (a fence and an atomic counter a row) runs the halving
-//          tree over the row's G * C partials, the first levels in device
-//          memory while they outgrow the shared stage, and resets the
+//          tree over the row's G * C partials (where they outgrow the
+//          shared stage, their top levels folded in registers, up to 8
+//          float or 4 double pairs a thread, loads first) and resets the
 //          counter (so CUDA-graph replays start from zero).  With G = 1
 //          the block finishes the row itself.
 //     A block takes one row: blocks of two rows sharing their w loads
@@ -60,19 +61,18 @@
 //     block (0, 0).
 //   - df_axpy (plan: ops/df.py axpy_plan): each element keeps its rows j
 //     in order (df_mul(h_j, V[j, i]), then df_add(w, -t): JAX's scan), so
-//     the only parallelism is over the n elements; one V row is 2 n words
-//     and the chain is long, so bytes in flight, not threads, set the rate.
-//     A thread owns 2^L elements laid out as df_project's split [h | wt |
-//     b | c] (so the fused norm can run df_project's tree); h_j is split
-//     once a block into a shared record (h, l, hi, lo) read as a
-//     broadcast; V's rows stream through a ring of S shared stages of J
-//     rows by cp.async, S - 1 stages in flight whatever the occupancy (the
-//     alternative, U rows of registers loaded before their arithmetic, is
-//     kept for `--axpy-sweep`).  With NORM the result's squares
-//     (df_mul(out, out), pads (0, 0)) go through df_project's steps 1-3
-//     (finish_row, its scratch), so the norm of a Gram-Schmidt pass costs
-//     no second launch and no second read of w.  df_mul_by is a plain
-//     elementwise kernel.
+//     the only parallelism is over the n elements and bytes in flight set
+//     the rate.  A thread owns 2^L elements laid out as df_project's split
+//     [h | wt | b | c] (so the fused norm can run df_project's tree; the
+//     plain form takes runs of a whole block, C = T); h_j is split once a
+//     block into a shared record (h, l, hi, lo) read as a broadcast; a
+//     thread loads U rows of its elements (both words) into registers, all
+//     loads first, then sums them.  A ring of shared stages filled by
+//     cp.async measured slower in every case on an H100 (PERF.md §6).
+//     With NORM the result's squares (df_mul(out, out), pads (0, 0)) go
+//     through df_project's steps 1-3 (finish_row, its scratch), so the
+//     norm of a Gram-Schmidt pass costs no second launch and no second
+//     read of w.  df_mul_by is a plain elementwise kernel.
 //   - df_basis_change (plan: ops/df.py basis_plan): only the first `rows`
 //     outputs (a restart keeps rows 0..k; the expansion rewrites the
 //     rest).  A register tile: a thread sums R rows by C columns over j in
@@ -211,7 +211,7 @@ constexpr size_t kProjectStage = 48 * 1024;  // shared memory a block
 // is the left operand.  Every thread of the block calls it; the result is
 // at (sh, sl)[t], t < keep, after its closing barrier.
 template <typename T>
-__device__ void halve_shared(T* sh, T* sl, int len, int keep) {
+__device__ __forceinline__ void halve_shared(T* sh, T* sl, int len, int keep) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (; len > keep && len > 32; len /= 2) {
     const int half = len / 2;
@@ -250,6 +250,20 @@ __device__ __forceinline__ void halve_registers(T* h, T* l) {
   }
 }
 
+// The same over the first q of K pairs (q a power of two, at most K): the
+// levels with half < q, so every index stays a compile-time constant.
+template <int K, typename T>
+__device__ __forceinline__ void halve_registers_first(T* h, T* l, int q) {
+  if constexpr (K > 1) {
+    if (K / 2 < q) {
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i)
+        df_add(h[i], l[i], h[i + K / 2], l[i + K / 2], h[i], l[i]);
+    }
+    halve_registers_first<K / 2>(h, l, q);
+  }
+}
+
 // Row `row`'s result (h, l) into (ch, cl); with acc, acc <- acc + c.
 template <typename T>
 __device__ __forceinline__ void project_out(int64_t row, T h, T l, T* ch,
@@ -264,17 +278,29 @@ __device__ __forceinline__ void project_out(int64_t row, T h, T l, T* ch,
   }
 }
 
+// The most partials of a row the last block folds a thread in registers:
+// 8 float or 4 double pairs (16 registers).
+template <typename T>
+constexpr int kFoldPartials = 32 / sizeof(T);
+
 // Steps 2 and 3 of row `row`'s sum over a grid of G = gridDim.x blocks a
 // row: the T values (sh, sl)[tid], stored by every thread before a
 // barrier, are halved down to C; with G = 1 the block finishes the row,
-// else it writes its C partials to the row's G * C in (part_h, part_l)
-// and the last block of the row to arrive halves them and resets the
-// row's counter.  sh and sl hold max(T, stage) pairs each.  Returns true
-// in the one thread that holds the row's sum (h, l).
+// else it writes its C partials to the row's M = G * C in (part_h,
+// part_l) and the last block of the row to arrive sums them and resets
+// the row's counter: while M > kFoldPartials * stage, halving levels in
+// device memory; then, where M > stage, with M = Q * stage a thread loads
+// the Q partials k stage + r of each of its r < stage (all loads first)
+// and halves them in registers (the top bits, k, first); the block halves
+// the M or stage values in shared memory.  sh and sl hold max(T, stage)
+// pairs each.
+// Returns true in the one thread that holds the row's sum (h, l).
 template <typename T>
-__device__ bool finish_row(T* sh, T* sl, int C, int stage, int64_t row,
-                           T* __restrict__ part_h, T* __restrict__ part_l,
-                           unsigned* __restrict__ arrivals, T& h, T& l) {
+__device__ __forceinline__ bool finish_row(T* sh, T* sl, int C, int stage,
+                                           int64_t row, T* __restrict__ part_h,
+                                           T* __restrict__ part_l,
+                                           unsigned* __restrict__ arrivals,
+                                           T& h, T& l) {
   __shared__ bool last;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int64_t G = gridDim.x, b = blockIdx.x;
@@ -299,7 +325,8 @@ __device__ bool finish_row(T* sh, T* sl, int C, int stage, int64_t row,
   if (!last) return false;
   __threadfence();
   int64_t len = M;
-  for (; len > stage; len /= 2) {  // levels in device memory
+  constexpr int F = kFoldPartials<T>;
+  for (; len > int64_t(F) * stage; len /= 2) {  // device memory
     const int64_t half = len / 2;
     for (int64_t t = tid; t < half; t += nt) {
       T zh, zl;
@@ -310,9 +337,26 @@ __device__ bool finish_row(T* sh, T* sl, int C, int stage, int64_t row,
     }
     __syncthreads();
   }
-  for (int t = tid; t < len; t += nt) {
-    sh[t] = __ldcg(rh + t);
-    sl[t] = __ldcg(rl + t);
+  if (len <= stage) {
+    for (int t = tid; t < len; t += nt) {
+      sh[t] = __ldcg(rh + t);
+      sl[t] = __ldcg(rl + t);
+    }
+  } else {  // Q = len / stage partials a thread for each r < stage
+    int Q = 1;
+    while (int64_t(Q) * stage < len) Q *= 2;
+    for (int r = tid; r < stage; r += nt) {
+      T vh[F], vl[F];
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        vh[k] = k < Q ? __ldcg(rh + r + k * stage) : T(0);
+        vl[k] = k < Q ? __ldcg(rl + r + k * stage) : T(0);
+      }
+      halve_registers_first<F>(vh, vl, Q);
+      sh[r] = vh[0];
+      sl[r] = vl[0];
+    }
+    len = stage;
   }
   __syncthreads();
   halve_shared(sh, sl, int(len), 1);
@@ -422,7 +466,7 @@ int project(const void* Vh, const void* Vl, int64_t ld, const void* wh,
   return int(cudaErrorInvalidValue);
 }
 
-// -- copies ----------------------------------------------------------------
+// -- df_basis_change -------------------------------------------------------
 
 // cp.async: a copy from device memory to shared memory that the thread
 // does not wait on; src_bytes below the copy's size zero-fills the rest.
@@ -451,18 +495,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Wait until at most `pending` (0 to 2) of the thread's newest groups of
-// copies are still in flight.
-__device__ __forceinline__ void cp_async_wait_pending(int pending) {
-  if (pending <= 0) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  } else if (pending == 1) {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  } else {
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  }
-}
-
 // (th, tl) = df_mul(q, v) from both operands' splits: 20 operations.
 template <typename T>
 __device__ __forceinline__ void mul_split(const SplitWord<T>& q, T vh, T vl,
@@ -472,8 +504,6 @@ __device__ __forceinline__ void mul_split(const SplitWord<T>& q, T vh, T vl,
   e = add_(e, add_(mul_(q.h, vl), mul_(q.l, vh)));
   quick_two_sum(p, e, th, tl);
 }
-
-// -- df_basis_change -------------------------------------------------------
 
 // The tile a thread sums is R rows by C columns (template parameters; the
 // plan picks them).  A stage holds J = 32 / R rows j, so that a block of W
@@ -708,9 +738,7 @@ int basis_change(const void* Vh, const void* Vl, const void* Qh,
 
 constexpr int kAxpyThreads = 256;   // the most threads a block
 constexpr int kAxpyMaxRows = 256;   // rows of V a launch (h records staged)
-constexpr int kAxpyMaxFold = 3;     // the largest L: 2^L elements a thread
-constexpr int kAxpyMaxStages = 4;   // stages of the cp.async ring
-constexpr size_t kAxpyShared = 48 * 1024;  // shared memory a block
+constexpr int kAxpyShared = 48 * 1024;  // shared memory a block
 
 // w <- w - h_j V[j] for one row j and one element (df_mul(h_j, V[j, i]),
 // then df_add(w, -t)), from h_j's split record and V's hi word split here.
@@ -727,175 +755,119 @@ __device__ __forceinline__ void axpy_step(const SplitWord<T>& q, T vh, T vl,
 // blocks of T threads; thread tid = (wt, c) of block b owns the K = 2^L
 // elements i = base + h * step of df_project's split [h | wt | b | c],
 // N = K T G.  The h records of every row are split into shared memory
-// first.  STAGED: V's rows (both words) stream through a ring of S stages
-// of J rows by cp.async, S - 1 stages in flight while one is summed (16
-// bytes a copy where `vec`, else a word); else a thread loads U rows of
-// its elements into registers, all loads first, then sums them.  With
+// first; then, U rows at a time, a thread loads the rows' words of its K
+// elements into registers, all loads first, and sums them in order.  With
 // NORM the block then halves the squares of its results as df_project's
 // one row does (finish_row), the sum into sum[0], sum[1].
-template <typename T, int L, bool NORM, bool STAGED>
+template <typename T, int L, int U, bool NORM>
 __global__ void __launch_bounds__(kAxpyThreads)
 axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
             const T* __restrict__ hh, const T* __restrict__ hl,
             const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t n,
-            int rows, int C, int J, int S, bool vec, int stage,
-            T* __restrict__ part_h, T* __restrict__ part_l,
-            unsigned* __restrict__ arrivals, T* __restrict__ outh,
-            T* __restrict__ outl, T* __restrict__ sum) {
+            int rows, int C, int stage, T* __restrict__ part_h,
+            T* __restrict__ part_l, unsigned* __restrict__ arrivals,
+            T* __restrict__ outh, T* __restrict__ outl, T* __restrict__ sum) {
   constexpr int K = 1 << L;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x, nt = blockDim.x, KT = K * nt;
-  const int64_t G = gridDim.x, b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t G = gridDim.x;
+  const int64_t base = int64_t(tid / C) * G * C + int64_t(blockIdx.x) * C + tid % C;
   const int64_t step = int64_t(nt) * G;
-  // The element of the block's h-th run slot t: thread t's h-th element.
-  auto element = [&](int h, int t) {
-    return h * step + int64_t(t / C) * G * C + b * C + t % C;
-  };
   SplitWord<T>* rec = reinterpret_cast<SplitWord<T>*>(smem_raw);
-  T* sv = reinterpret_cast<T*>(rec + rows);
-
-  // Stage layout: [chunk % S][jj][word][h * T + t], zero past n and rows.
-  auto issue = [&](int chunk) {
-    T* dst = sv + (chunk % S) * J * 2 * KT;
-    const int j0 = chunk * J;
-    const int E = vec ? int(16 / sizeof(T)) : 1;  // words a copy
-    const int U = KT / E;                         // copies a row of a word
-    for (int u = tid; u < J * 2 * U; u += nt) {
-      const int g = u % U, word = (u / U) % 2, jj = u / (2 * U);
-      const int e = g * E;
-      const int64_t col = element(e / nt, e % nt);
-      const bool ok = j0 + jj < rows && col < n;
-      const T* src = (word ? Vl : Vh) + (ok ? int64_t(j0 + jj) * n + col : 0);
-      T* at = dst + (jj * 2 + word) * KT + e;
-      if (vec)
-        cp_async_16(at, src, ok ? 16 : 0);
-      else
-        cp_async_word<int(sizeof(T))>(at, src, ok ? int(sizeof(T)) : 0);
-    }
-    cp_async_commit();
-  };
-  const int chunks = STAGED ? (rows + J - 1) / J : 0;
-  if constexpr (STAGED) {
-    for (int c = 0; c < S - 1; ++c) {
-      if (c < chunks)
-        issue(c);
-      else
-        cp_async_commit();  // empty groups keep the count of groups uniform
-    }
-  }
 
   T ah[K], al[K];
 #pragma unroll
   for (int h = 0; h < K; ++h) {
-    const int64_t i = element(h, tid);
+    const int64_t i = base + h * step;
     ah[h] = i < n ? __ldg(wh + i) : T(0);
     al[h] = i < n ? __ldg(wl + i) : T(0);
   }
   for (int t = tid; t < rows; t += nt)
     rec[t] = split_word(__ldg(hh + t), __ldg(hl + t));
+  __syncthreads();
 
-  if constexpr (STAGED) {
-    for (int chunk = 0; chunk < chunks; ++chunk) {
-      cp_async_wait_pending(S - 2);
-      __syncthreads();  // the chunk is in; every thread is done with the last
-      if (chunk + S - 1 < chunks)
-        issue(chunk + S - 1);
-      else
-        cp_async_commit();
-      const T* v = sv + (chunk % S) * J * 2 * KT;
-      const int jn = min(J, rows - chunk * J);
-      for (int jj = 0; jj < jn; ++jj) {
-        const SplitWord<T> q = rec[chunk * J + jj];
+  for (int j0 = 0; j0 < rows; j0 += U) {
+    T vh[U][K], vl[U][K];
 #pragma unroll
-        for (int h = 0; h < K; ++h)
-          axpy_step(q, v[jj * 2 * KT + h * nt + tid],
-                    v[(jj * 2 + 1) * KT + h * nt + tid], ah[h], al[h]);
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int h = 0; h < K; ++h) {
+        const int64_t i = base + h * step;
+        const bool ok = j0 + u < rows && i < n;
+        const int64_t at = ok ? int64_t(j0 + u) * n + i : 0;
+        vh[u][h] = ok ? __ldg(Vh + at) : T(0);
+        vl[u][h] = ok ? __ldg(Vl + at) : T(0);
       }
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < rows) {
+        const SplitWord<T> q = rec[j0 + u];
+#pragma unroll
+        for (int h = 0; h < K; ++h) axpy_step(q, vh[u][h], vl[u][h], ah[h], al[h]);
+      }
+    }
+  }
+
+  auto store = [&] {
+#pragma unroll
+    for (int h = 0; h < K; ++h) {
+      const int64_t i = base + h * step;
+      if (i < n) {
+        outh[i] = ah[h];
+        outl[i] = al[h];
+      }
+    }
+  };
+  if constexpr (!NORM) {
+    store();
   } else {
-    constexpr int U = K >= 8 ? 1 : 8 / K;  // rows a group: 8 elements a word
-    __syncthreads();                       // the records are in
-    for (int j0 = 0; j0 < rows; j0 += U) {
-      T vh[U][K], vl[U][K];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int h = 0; h < K; ++h) {
-          const int64_t i = element(h, tid);
-          const bool ok = j0 + u < rows && i < n;
-          const int64_t at = ok ? int64_t(j0 + u) * n + i : 0;
-          vh[u][h] = ok ? __ldg(Vh + at) : T(0);
-          vl[u][h] = ok ? __ldg(Vl + at) : T(0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (j0 + u < rows) {
-          const SplitWord<T> q = rec[j0 + u];
-#pragma unroll
-          for (int h = 0; h < K; ++h) axpy_step(q, vh[u][h], vl[u][h], ah[h], al[h]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < K; ++h) {
-    const int64_t i = element(h, tid);
-    if (i < n) {
-      outh[i] = ah[h];
-      outl[i] = al[h];
-    }
-  }
-  if constexpr (NORM) {
     // df32.df_sum(df_mul(out, out)): pads (0, 0), the tree of df_project.
     T ph[K], pl[K];
 #pragma unroll
     for (int h = 0; h < K; ++h) {
       ph[h] = pl[h] = T(0);
-      if (element(h, tid) < n) df_mul(ah[h], al[h], ah[h], al[h], ph[h], pl[h]);
+      if (base + h * step < n) df_mul(ah[h], al[h], ah[h], al[h], ph[h], pl[h]);
     }
     halve_registers<K>(ph, pl);
-    __syncthreads();  // the stages and records are free: the sum takes them
+    __syncthreads();  // the records are read: the sum takes their memory
     T* sh = reinterpret_cast<T*>(smem_raw);
     T* sl = sh + (nt > stage ? nt : stage);
     sh[tid] = ph[0];
     sl[tid] = pl[0];
     __syncthreads();
+    // The result is stored after the block's partials are published: the
+    // fence before the arrival then waits for them alone.
     T h, l;
-    if (finish_row(sh, sl, C, stage, 0, part_h, part_l, arrivals, h, l)) {
+    const bool holds = finish_row(sh, sl, C, stage, 0, part_h, part_l,
+                                  arrivals, h, l);
+    store();
+    if (holds) {
       sum[0] = h;
       sum[1] = l;
     }
   }
 }
 
-// The shared memory of an axpy launch: the records and the ring, or the
-// sum's max(T, stage) pairs, whichever is larger.
-template <typename T>
-size_t axpy_shared(int64_t threads, int64_t L, int64_t rows, int64_t J,
-                   int64_t S, bool staged, bool norm, int64_t stage) {
-  const size_t ring = staged ? size_t(S * J * 2 * (threads << L)) * sizeof(T) : 0;
-  const size_t body = size_t(rows) * sizeof(SplitWord<T>) + ring;
-  const size_t tail =
-      norm ? size_t(2 * (threads > stage ? threads : stage)) * sizeof(T) : 0;
-  return body > tail ? body : tail;
-}
+// The (L, U) instantiated: 4 to 16 elements of each word a group, U K.
+#define DF_AXPY_SHAPES(X)                                                      \
+  X(0, 4) X(0, 8) X(0, 16) X(1, 2) X(1, 4) X(1, 8) X(2, 1) X(2, 2) X(2, 4)     \
+  X(3, 1) X(3, 2)
 
-template <typename T, bool NORM, bool STAGED>
-int axpy_launch(int64_t L, unsigned G, unsigned threads, size_t smem,
-                cudaStream_t s, const T* wh, const T* wl, const T* hh,
-                const T* hl, const T* Vh, const T* Vl, int64_t n, int rows,
-                int C, int J, int S, bool vec, int stage, T* ph, T* pl,
-                unsigned* arrivals, T* outh, T* outl, T* sum) {
-#define DF_AXPY_CASE(LL)                                                       \
-  if (L == LL) {                                                               \
-    axpy_kernel<T, LL, NORM, STAGED><<<G, threads, smem, s>>>(                 \
-        wh, wl, hh, hl, Vh, Vl, n, rows, C, J, S, vec, stage, ph, pl,          \
-        arrivals, outh, outl, sum);                                            \
+template <typename T, bool NORM>
+int axpy_launch(int64_t L, int64_t U, unsigned G, unsigned threads,
+                size_t smem, cudaStream_t s, const T* wh, const T* wl,
+                const T* hh, const T* hl, const T* Vh, const T* Vl, int64_t n,
+                int rows, int C, int stage, T* ph, T* pl, unsigned* arrivals,
+                T* outh, T* outl, T* sum) {
+#define DF_AXPY_CASE(LL, UU)                                                   \
+  if (L == LL && U == UU) {                                                    \
+    axpy_kernel<T, LL, UU, NORM><<<G, threads, smem, s>>>(                     \
+        wh, wl, hh, hl, Vh, Vl, n, rows, C, stage, ph, pl, arrivals, outh,     \
+        outl, sum);                                                            \
     return int(cudaGetLastError());                                            \
   }
-  DF_AXPY_CASE(0) DF_AXPY_CASE(1) DF_AXPY_CASE(2) DF_AXPY_CASE(3)
+  DF_AXPY_SHAPES(DF_AXPY_CASE)
 #undef DF_AXPY_CASE
   return int(cudaErrorInvalidValue);
 }
@@ -905,55 +877,62 @@ int axpy_launch(int64_t L, unsigned G, unsigned threads, size_t smem,
 template <typename T>
 int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
          const void* Vh, const void* Vl, int64_t n, int64_t rows,
-         int64_t threads, int64_t C, int64_t G, int64_t L, int64_t J,
-         int64_t S, int64_t staged, int64_t stage, void* part,
-         int64_t part_words, void* arrivals, int64_t arrival_slots,
-         void* outh, void* outl, void* sum, void* stream) {
+         int64_t threads, int64_t C, int64_t G, int64_t L, int64_t U,
+         int64_t stage, void* part, int64_t part_words, void* arrivals,
+         int64_t arrival_slots, void* outh, void* outl, void* sum,
+         void* stream) {
   auto pow2 = [](int64_t x) { return x >= 1 && (x & (x - 1)) == 0; };
   int64_t N = 1;
   while (N < n) N *= 2;
   const bool norm = sum != nullptr;
-  const size_t smem = axpy_shared<T>(threads, L, rows, J, S, staged != 0,
-                                     norm, stage);
+  const int64_t span = threads > stage ? threads : stage;
+  const int64_t records = rows * int64_t(sizeof(SplitWord<T>));
+  const int64_t tail = norm ? 2 * span * int64_t(sizeof(T)) : 0;
+  const int64_t smem = records > tail ? records : tail;
   if (n < 1 || rows < 0 || rows > kAxpyMaxRows || !pow2(threads)
-      || threads > kAxpyThreads || !pow2(C) || C > threads || L < 0
-      || L > kAxpyMaxFold || G < 1 || (threads << L) * G != N || J < 1
-      || S < 2 || S > kAxpyMaxStages || smem > kAxpyShared
+      || threads > kAxpyThreads || !pow2(C) || C > threads || L < 0 || G < 1
+      || (threads << L) * G != N || smem > kAxpyShared
       || (norm && (!pow2(stage) || stage > G * C || part_words < 2 * G * C
                    || arrival_slots < 1)))
     return int(cudaErrorInvalidValue);
   if (G > INT32_MAX) return int(cudaErrorInvalidConfiguration);
-  constexpr int E = 16 / sizeof(T);
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const bool vec = C % E == 0 && n % E == 0 && aligned(Vh) && aligned(Vl);
-  auto s = static_cast<cudaStream_t>(stream);
   T* ph = static_cast<T*>(part);
   T* pl = norm ? ph + G * C : nullptr;
-  auto go = [&](auto norm_tag, auto staged_tag) {
-    return axpy_launch<T, decltype(norm_tag)::value, decltype(staged_tag)::value>(
-        L, unsigned(G), unsigned(threads), smem, s, static_cast<const T*>(wh),
+  auto go = [&](auto norm_tag) {
+    return axpy_launch<T, decltype(norm_tag)::value>(
+        L, U, unsigned(G), unsigned(threads), size_t(smem),
+        static_cast<cudaStream_t>(stream), static_cast<const T*>(wh),
         static_cast<const T*>(wl), static_cast<const T*>(hh),
         static_cast<const T*>(hl), static_cast<const T*>(Vh),
-        static_cast<const T*>(Vl), n, int(rows), int(C), int(J), int(S), vec,
-        int(stage), ph, pl, static_cast<unsigned*>(arrivals),
-        static_cast<T*>(outh), static_cast<T*>(outl), static_cast<T*>(sum));
+        static_cast<const T*>(Vl), n, int(rows), int(C), int(stage), ph, pl,
+        static_cast<unsigned*>(arrivals), static_cast<T*>(outh),
+        static_cast<T*>(outl), static_cast<T*>(sum));
   };
-  using yes = std::true_type;
-  using no = std::false_type;
-  if (norm) return staged ? go(yes{}, yes{}) : go(yes{}, no{});
-  return staged ? go(no{}, yes{}) : go(no{}, no{});
+  return norm ? go(std::true_type{}) : go(std::false_type{});
 }
 
-// df_mul_by: out = w * (sh, sl), one element a thread, grid-stride.
+// df_mul_by: out = w * (sh, sl), grid-stride; 16 bytes of each word a
+// thread a step where every operand is 16-byte aligned, the rest (and
+// every element otherwise) one a step.
 template <typename T>
 __global__ void __launch_bounds__(256)
 mul_by_kernel(const T* __restrict__ wh, const T* __restrict__ wl, int64_t n,
-              T sh, T sl, T* __restrict__ outh, T* __restrict__ outl) {
+              T sh, T sl, T* __restrict__ outh, T* __restrict__ outl,
+              bool vec) {
+  constexpr int E = 16 / sizeof(T);
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+  const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t nv = vec ? n / E : 0;
+  for (int64_t v = first; v < nv; v += stride) {
+    const Cols<T, E> h = reinterpret_cast<const Cols<T, E>*>(wh)[v];
+    const Cols<T, E> l = reinterpret_cast<const Cols<T, E>*>(wl)[v];
+    Cols<T, E> zh, zl;
+#pragma unroll
+    for (int c = 0; c < E; ++c) df_mul(h.v[c], l.v[c], sh, sl, zh.v[c], zl.v[c]);
+    reinterpret_cast<Cols<T, E>*>(outh)[v] = zh;
+    reinterpret_cast<Cols<T, E>*>(outl)[v] = zl;
+  }
+  for (int64_t i = nv * E + first; i < n; i += stride) {
     T zh, zl;
     df_mul(wh[i], wl[i], sh, sl, zh, zl);
     outh[i] = zh;
@@ -965,11 +944,16 @@ template <typename T>
 int mul_by(const void* wh, const void* wl, double sh, double sl, int64_t n,
            void* outh, void* outl, void* stream) {
   if (n < 1) return int(cudaErrorInvalidValue);
-  const int64_t blocks = (n + 255) / 256;
+  constexpr int E = 16 / sizeof(T);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = aligned(wh) && aligned(wl) && aligned(outh) && aligned(outl);
+  const int64_t blocks = ((vec ? (n + E - 1) / E : n) + 255) / 256;
   const unsigned grid = unsigned(blocks < 132 * 16 ? blocks : 132 * 16);
   mul_by_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(wh), static_cast<const T*>(wl), n, T(sh), T(sl),
-      static_cast<T*>(outh), static_cast<T*>(outl));
+      static_cast<T*>(outh), static_cast<T*>(outl), vec);
   return int(cudaGetLastError());
 }
 
@@ -1125,13 +1109,13 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
   extern "C" int df_axpy##SUFFIX(                                              \
       const void* wh, const void* wl, const void* hh, const void* hl,          \
       const void* Vh, const void* Vl, int64_t n, int64_t rows,                 \
-      int64_t threads, int64_t C, int64_t G, int64_t L, int64_t J, int64_t S,  \
-      int64_t staged, int64_t stage, void* part, int64_t part_words,           \
-      void* arrivals, int64_t arrival_slots, void* outh, void* outl,           \
-      void* sum, void* stream) {                                               \
-    return axpy<T>(wh, wl, hh, hl, Vh, Vl, n, rows, threads, C, G, L, J, S,    \
-                   staged, stage, part, part_words, arrivals, arrival_slots,   \
-                   outh, outl, sum, stream);                                   \
+      int64_t threads, int64_t C, int64_t G, int64_t L, int64_t U,             \
+      int64_t stage, void* part, int64_t part_words, void* arrivals,           \
+      int64_t arrival_slots, void* outh, void* outl, void* sum,                \
+      void* stream) {                                                          \
+    return axpy<T>(wh, wl, hh, hl, Vh, Vl, n, rows, threads, C, G, L, U,       \
+                   stage, part, part_words, arrivals, arrival_slots, outh,     \
+                   outl, sum, stream);                                         \
   }                                                                            \
   extern "C" int df_mul_by##SUFFIX(const void* wh, const void* wl, double sh,  \
                                    double sl, int64_t n, void* outh,           \

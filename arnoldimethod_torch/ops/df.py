@@ -91,24 +91,28 @@ _RUN_BYTES = {"one_row": 32, "full": 128}
 _BASIS_TILES = {4: ((8, 2), (16, 2), (4, 4)), 8: ((4, 2), (8, 2))}
 _BASIS_SLAB_ROWS = 64
 _BASIS_STAGE_BYTES = 48 * 1024
-# df_axpy (csrc/df.cu kAxpyThreads, kAxpyMaxRows, kAxpyMaxFold, kAxpyShared):
-# the most threads a block, rows of V a launch (more are chained), the
-# largest fold L and the shared memory a block.  The plan folds 2^L
-# elements a thread as far as the grid keeps _AXPY_MIN_BLOCKS blocks and
-# one row of the block's elements fits a stage, a
-# warp reads runs of _AXPY_RUN_BYTES (the fused norm's last block sums G C
-# partials, so C stays small), V streams through _AXPY_STAGES stages of
-# about _AXPY_STAGE_BYTES each, and the norm's last block holds up to
-# _AXPY_SUM_PAIRS partials in shared memory.
+# df_axpy (csrc/df.cu kAxpyThreads, kAxpyMaxRows, kAxpyShared,
+# DF_AXPY_SHAPES): the most threads a block, rows of V a launch (more are
+# chained), the shared memory a block, and the (L, U) instantiated: 2^L
+# elements a thread, U rows of them loaded into registers before their
+# arithmetic.  The plan's choices, the fastest on an H100 (PERF.md §6,
+# `chip_smoke.py --axpy-sweep`): where one element a thread gives at most
+# _AXPY_FEW_BLOCKS blocks (config 3's n, whose basis stays in the 50 MB
+# L2), L = 0 and 64 bytes of each word a thread a group; else L = 1, U = 2
+# (plain) or L = 3, U = 2 (the fused norm: fewer blocks, fewer partials).
+# The plain form reads runs of a whole block (C = T), the fused norm runs
+# of _AXPY_RUN_BYTES (its last block sums G C partials, and holds up to
+# _AXPY_SUM_PAIRS of them in shared memory).
 _AXPY_THREADS = 256
 _AXPY_MAX_ROWS = 256
-_AXPY_MAX_FOLD = 3
 _AXPY_SHARED_BYTES = 48 * 1024
-_AXPY_MIN_BLOCKS = 128
-_AXPY_RUN_BYTES = 32
-_AXPY_STAGES = 3
-_AXPY_STAGE_BYTES = 8 * 1024
-_AXPY_SUM_PAIRS = 1024
+_AXPY_SHAPES = ((0, 4), (0, 8), (0, 16), (1, 2), (1, 4), (1, 8), (2, 1),
+                (2, 2), (2, 4), (3, 1), (3, 2))
+_AXPY_FEW_BLOCKS = 512
+_AXPY_FEW_BYTES = 64
+_AXPY_MANY = {False: (1, 2), True: (3, 2)}
+_AXPY_RUN_BYTES = 128
+_AXPY_SUM_PAIRS = 2048
 # stencil5_df (csrc/df.cu kStencilWarps): warps a block, and the blocks a
 # plan keeps where it can: two on each of an H100's 132 SMs.
 _STENCIL_WARPS = 4
@@ -153,17 +157,15 @@ def project_plan(n, rows=1, item=4):
 class AxpyPlan(NamedTuple):
     """df_axpy's launch over n elements (padded to N = 2^k): thread (wt, c)
     of block b owns the 2^L elements h of the split [h | wt | b | c] of
-    df_project's plan, N = 2^L * T * G; V's rows stream through S stages
-    of J rows (staged) or J rows of registers a thread (not staged)."""
+    df_project's plan, N = 2^L * T * G, and loads U rows of them at a
+    time."""
 
-    T: int        # threads a block (a power of two)
-    C: int        # elements of a warp's runs, the lowest bits
-    G: int        # blocks
-    L: int        # elements a thread: 2^L
-    J: int        # rows of V a stage
-    S: int        # stages of the cp.async ring
-    staged: bool  # the cp.async ring, else loads into registers
-    stage: int    # the most partials the norm's last block holds in shared memory
+    T: int      # threads a block (a power of two)
+    C: int      # elements of a warp's runs, the lowest bits
+    G: int      # blocks
+    L: int      # elements a thread: 2^L
+    U: int      # rows a thread loads before their arithmetic
+    stage: int  # the most partials the norm's last block holds in shared memory
 
     @property
     def M(self):
@@ -171,28 +173,23 @@ class AxpyPlan(NamedTuple):
         return self.G * self.C
 
     def smem(self, rows, item, norm):
-        """Shared memory a block, bytes (csrc/df.cu axpy_shared)."""
-        ring = self.S * self.J * 2 * (self.T << self.L) * item if self.staged else 0
-        body = rows * 4 * item + ring
-        return max(body, 2 * max(self.T, self.stage) * item if norm else 0)
+        """Shared memory a block, bytes: the h records, or the norm's
+        max(T, stage) pairs (csrc/df.cu axpy)."""
+        return max(rows * 4 * item, 2 * max(self.T, self.stage) * item if norm else 0)
 
 
 @functools.lru_cache(maxsize=256)
 def axpy_plan(n, rows=1, item=4, norm=False):
     """The launch of df_axpy over `rows` (at most _AXPY_MAX_ROWS) rows of
     length n in words of `item` bytes, with or without the fused norm (see
-    _AXPY_MIN_BLOCKS)."""
+    _AXPY_FEW_BLOCKS)."""
     N = 1 << max(0, n - 1).bit_length()
     T = min(_AXPY_THREADS, N)
-    C = min(_AXPY_RUN_BYTES // item, T)
-    L = max((L for L in range(_AXPY_MAX_FOLD + 1)
-             if T << L <= N and N // (T << L) >= _AXPY_MIN_BLOCKS
-             and 2 * (T << L) * item <= _AXPY_STAGE_BYTES),
-            default=0)
+    few = N // T <= _AXPY_FEW_BLOCKS
+    L, U = (0, _AXPY_FEW_BYTES // item) if few else _AXPY_MANY[norm]
+    C = min(_AXPY_RUN_BYTES // item, T) if norm else T
     G = N // (T << L)
-    J = max(1, min(_AXPY_STAGE_BYTES // (2 * (T << L) * item), max(rows, 1)))
-    return AxpyPlan(T, C, G, L, J, _AXPY_STAGES, True,
-                    min(_AXPY_SUM_PAIRS, G * C))
+    return AxpyPlan(T, C, G, L, U, min(_AXPY_SUM_PAIRS, G * C))
 
 
 class BasisPlan(NamedTuple):
@@ -390,8 +387,8 @@ class _DfKernel:
             sigs = {
                 "df_project": [p, p, i, p, p, i, i, i, i, i, i, i, i, p, i, p,
                                i, p, p, p, p, p],
-                "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                            p, i, p, i, p, p, p, p],
+                "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i,
+                            p, i, p, p, p, p],
                 "df_mul_by": [p, p, d, d, i, p, p, p],
                 "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
                 "stencil5_df": [p, p, p, p, i, i, i, p, p],
@@ -521,7 +518,7 @@ class _DfKernel:
         self._launch("df_axpy", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
                      hh.data_ptr(), hl.data_ptr(), Vh.data_ptr(),
                      Vl.data_ptr(), n, rows, plan.T, plan.C, plan.G, plan.L,
-                     plan.J, plan.S, int(plan.staged), plan.stage,
+                     plan.U, plan.stage,
                      *scratch[:4], outh.data_ptr(), outl.data_ptr(),
                      scratch[4])
         self.axpy_forms["norm" if norm else "plain"] += 1

@@ -98,7 +98,7 @@ Phases, each printed as one JSON line:
            both words), 20 calls in a CUDA graph replayed 10 times against
            one eager call; df_basis_change at rows 31, 46, 61 (new tensors
            and in place) and stencil5_df at 64^2; and ptxas' registers,
-           stack and spills of each of the 57 instantiations (no local
+           stack and spills of each of the 69 instantiations (no local
            memory).  The
            operations bound counts lane-instructions (each operand split
            once) over SMs x 128 (float32) or 64 (float64) a clock at the
@@ -1514,7 +1514,7 @@ def _df_windows(torch, dtype, gen):
 
 def _df_ptxas(log):
     """Registers, stack frame and spills of each instantiation of csrc/df.cu
-    (project_kernel<word, L>, axpy_kernel<word, L, norm, staged>,
+    (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
     mul_by_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
     from nvcc's -Xptxas -v output."""
     import re
@@ -1861,10 +1861,11 @@ def _axpy_rows(torch, dtype, gen):
 def axpy_sweep(torch):
     """`--axpy-sweep`: df_axpy, plain and fused, under launch plans other
     than axpy_plan's at 61 x 65,536 and 61 x 1,048,576 (60 rows), both
-    words: T = 128 or 256 threads, folds L = 0-3, the cp.async ring (2-4
-    stages of about 4, 8 or 16 KB) and the register form; every plan
-    bitwise against the plain version and timed (a graph of 20 calls), one
-    JSON line a case, fastest first, beside the default plan's ms."""
+    words: T = 128 or 256 threads, every instantiated (L, U) (2^L elements
+    a thread, U rows loaded a group), runs of 32 or 128 bytes or (plain
+    form) of the whole block; every plan bitwise against the plain version
+    and timed (a graph of 20 calls), one JSON line a case, fastest first,
+    beside the default plan's ms."""
     from arnoldimethod_torch.ops import df
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1886,20 +1887,12 @@ def axpy_sweep(torch):
                 default = df.axpy_plan(n, rows, item, norm)
                 plans = []
                 for T in (128, 256):
-                    C = 32 // item
-                    for L in range(4):
+                    for L, U in df._AXPY_SHAPES:
                         G = N // (T << L)
-                        if G < 1:
-                            continue
-                        stage = min(df._AXPY_SUM_PAIRS, G * C)
-                        plans.append(df.AxpyPlan(T, C, G, L, 1, 2, False, stage))
-                        for S in (2, 3, 4):
-                            for kb in (4, 8, 16):
-                                J = max(1, kb * 1024 // (2 * (T << L) * item))
-                                plans.append(df.AxpyPlan(T, C, G, L, J, S, True,
-                                                         stage))
-                plans = [p for p in dict.fromkeys(plans)
-                         if p.smem(rows, item, norm) <= df._AXPY_SHARED_BYTES]
+                        runs = {32 // item, 128 // item} | ({T} if not norm else set())
+                        for C in sorted(runs):
+                            plans.append(df.AxpyPlan(
+                                T, C, G, L, U, min(df._AXPY_SUM_PAIRS, G * C)))
                 timed, same = [], True
 
                 def call(p):
@@ -1938,7 +1931,7 @@ def phase_df_kernel(torch):
     in both forms at rows 31 and 46 (`_axpy_rows`) and its fused form under
     graph replays (`_axpy_replay`).  Then df_basis_change at rows 31, 46
     and 61, new and in place, and stencil5_df at 64^2 (`_df_windows`).
-    Last, ptxas' registers, stack and spills for each of the file's 57
+    Last, ptxas' registers, stack and spills for each of the file's 69
     instantiations (none may use local memory).  Each timed case of a
     redesigned kernel names the earlier kernel's time
     (`slower_than_earlier`) and, where set, its target (`meets_target`)."""
@@ -1991,12 +1984,12 @@ def phase_df_kernel(torch):
               case="df_windows", dtype=str(dtype).split(".")[-1],
               windows=windows)
         results[("windows", str(dtype).split(".")[-1])] = windows
-    # ptxas: 10 df_project, 32 df_axpy (L 0-3, plain or fused, ring or
-    # registers), 2 df_mul_by, 5 df_basis_change and 6 stencil5_df
-    # instantiations, none with local memory.
+    # ptxas: 10 df_project, 44 df_axpy (11 shapes (L, U), plain or fused),
+    # 2 df_mul_by, 5 df_basis_change and 6 stencil5_df instantiations, none
+    # with local memory.
     ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
-    want = {"project": 10, "axpy": 32, "mul_by": 2, "basis": 5, "stencil": 6}
+    want = {"project": 10, "axpy": 44, "mul_by": 2, "basis": 5, "stencil": 6}
     counts = {k: sum(p["kernel"] == k for p in ptxas) for k in want}
     check("df_kernel", not built or (
               counts == want
@@ -2009,10 +2002,6 @@ def phase_df_kernel(torch):
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
         one_row_bound_ms=norm["bound_ms"])
-    fused = shape["df_axpy_norm"]
-    shape["df_axpy"] = dict(
-        shape["df_axpy"], norm_ms=fused["ms"], norm_bound_ms=fused["bound_ms"],
-        norm_plain_ms=fused["plain_ms"])
     return shape
 
 
@@ -2397,14 +2386,16 @@ def main():
               full_launches=project_forms["full"],
               **{k: df_shapes["df_project"][k] for k in (
                   "one_row_ms", "one_row_bound_ms")}),
+        # The main path launches the fused form only: its numbers lead, the
+        # plain form's stand beside them.
         entry("df_axpy", df_src,
               "arnoldimethod_tpu/ops/df32.py:209 df_axpy_update_df" + xla,
-              df_launches["df_axpy"], df_shapes["df_axpy"],
-              plain_launches=axpy_forms["plain"],
-              norm_launches=axpy_forms["norm"],
+              df_launches["df_axpy"], df_shapes["df_axpy_norm"],
               also_replaces="arnoldimethod_tpu/ops/df32.py:238 df_norm's sum",
-              **{k: df_shapes["df_axpy"][k] for k in (
-                  "norm_ms", "norm_bound_ms", "norm_plain_ms")}),
+              form="fused norm", plain_launches=axpy_forms["plain"],
+              norm_launches=axpy_forms["norm"],
+              **{"plain_form_" + k: df_shapes["df_axpy"][k] for k in (
+                  "ms", "plain_ms", "bound_ms")}),
         entry("df_mul_by", df_src,
               "arnoldimethod_tpu/ops/df_expansion.py:71 _df_normalize "
               "(df_mul by 1 / ||w||)" + xla, df_launches["df_mul_by"],

@@ -177,28 +177,31 @@ def test_dgks_reads_the_fused_sum_with_r2(monkeypatch):
 @pytest.mark.parametrize("n", [1, 5, 100, 1000, 1 << 16, 1021 * 1000,
                                1 << 20, 1 << 24])
 def test_axpy_plan(n):
-    """N = 2^L T G; runs of 32 bytes; the longest fold (at most 3) that
-    keeps 128 blocks and a row of the block's elements in a stage; the
-    kernel's limits on threads, stages and shared memory; the norm's stage
-    a power of two within its partials."""
+    """N = 2^L T G with (L, U) an instantiated shape; the plain form reads
+    runs of a block, the fused norm runs of 128 bytes; where one element a
+    thread gives at most 512 blocks, L = 0 and 64 bytes of each word a
+    group, else L = 3, U = 2 (fused) or L = 1, U = 2 (plain); the kernel's
+    limits on threads and shared memory; the norm's stage a power of two
+    within its partials."""
     N = 1 << max(0, n - 1).bit_length()
     for item in (4, 8):
         for rows in (1, 31, 61, 256):
             for norm in (False, True):
                 p = df.axpy_plan(n, rows, item, norm)
                 assert (p.T << p.L) * p.G == N
+                assert (p.L, p.U) in df._AXPY_SHAPES
                 assert p.T & (p.T - 1) == 0 and 1 <= p.T <= 256
                 assert p.C & (p.C - 1) == 0 and p.C <= p.T
-                assert p.C * item == 32 or p.C == p.T
-                assert 0 <= p.L <= 3 and 2 <= p.S <= 4 and 1 <= p.J <= rows
                 assert p.stage & (p.stage - 1) == 0 and p.stage <= p.M
                 assert p.smem(rows, item, norm) <= 48 * 1024
-                assert 2 * (p.T << p.L) * item <= 8 * 1024 or p.L == 0
-                if N // p.T >= 128 and p.L < 3:
-                    assert p.G >= 128 and (
-                        p.G < 256 or 4 * (p.T << p.L) * item > 8 * 1024)
-                if n == 1 << 16:
-                    assert p.G >= 128  # a block on nearly every SM
+                few = N // p.T <= 512
+                if few:
+                    assert (p.L, p.U * item) == (0, 64)
+                else:
+                    assert (p.L, p.U) == ((3, 2) if norm else (1, 2))
+                assert p.C == (min(128 // item, p.T) if norm else p.T)
+                if n == 1 << 16:  # config 3: a block on every SM or more
+                    assert p.G >= 256
 
 
 class _Stub:

@@ -4,11 +4,11 @@ which emulates the few CUDA features they use (a thread per CUDA thread,
 blocks in turn, barriers, shared memory, cp.async, atomics, warp
 shuffles), and held bit for bit to their plain PyTorch versions: the basis
 change and the stencil under every tile and every number of points a
-thread, into new tensors and (the basis change) in place; df_axpy, plain
-and with its fused norm, under several launch plans (the cp.async ring and
-the register form, one block and many, the norm's last block with levels
-in device memory); df_project at its plan.  A copy of the source with one
-operand swapped must fail.
+thread, into new tensors and (the basis change) in place; df_mul_by;
+df_axpy, plain and with its fused norm, under several launch plans (every
+fold, short runs and runs of a block, one block and many, the norm's last
+block with levels in device memory); df_project at its plan.  A copy of
+the source with one operand swapped must fail.
 
 This checks the kernels' indexing, staging and order of operations where
 there is no card; only chip_smoke.py shows that nvcc builds them and that
@@ -90,12 +90,13 @@ def _host_build(directory, cu):
                     str(so), str(src)], check=True, capture_output=True,
                    timeout=300)
     out = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int64
+    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     sigs = {"df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
             "stencil5_df": [p, p, p, p, i, i, i, p, p],
-            "df_axpy": [p, p, p, p, p, p, *[i] * 10, p, i, p, i, p, p, p, p],
+            "df_axpy": [p, p, p, p, p, p, *[i] * 8, p, i, p, i, p, p, p, p],
             "df_project": [p, p, i, p, p, *[i] * 8, p, i, p, i, p, p, p, p,
-                           p]}
+                           p],
+            "df_mul_by": [p, p, d, d, i, p, p, p]}
     for name, args in sigs.items():
         for word in ("_f32", "_f64"):
             f = getattr(out, name + word)
@@ -210,22 +211,26 @@ def test_stencil_source_is_bitwise(lib, dtype, grid):
 
 def _axpy_plans(n, rows, item, norm):
     """axpy_plan's launch and hand plans: few threads and many blocks (the
-    norm's last block halving partials in device memory first), the
-    register form, one block, and a longer ring."""
+    norm's last block halving partials in device memory first, then
+    folding 2, 4 or 8 a thread in registers), runs of a whole block, every
+    fold, and one block."""
     N = 1 << max(0, n - 1).bit_length()
-    C = min(32 // item, 32)
+    run = min(32 // item, 32)
 
-    def plan(T, L, J, S, staged, stage):
+    def plan(T, C, L, U, stage):
         G = N // (T << L)
-        return df.AxpyPlan(T, C, G, L, J, S, staged, min(stage, G * C))
+        return df.AxpyPlan(T, min(C, T), G, L, U, min(stage, G * min(C, T)))
 
+    one = min(256, N // 2)
     return [df.axpy_plan(n, rows, item, norm),
-            plan(32, 1, 3, 2, True, 4),
-            plan(64, 2, 1, 4, True, 64),
-            plan(32, 0, 1, 3, False, 1024),
-            plan(64, 3, 1, 3, False, 64),
-            plan(min(256, N // 2), (N // min(256, N // 2)).bit_length() - 1,
-                 2, 3, True, 1024)]
+            plan(32, run, 1, 2, 4),
+            plan(64, 64, 2, 4, 64),
+            plan(32, run, 0, 16, 1024),
+            plan(32, 32, 0, 4, 1024),
+            plan(64, run, 3, 1, 64),
+            plan(one, run, (N // one).bit_length() - 1,
+                 min(U for L, U in df._AXPY_SHAPES
+                     if L == (N // one).bit_length() - 1), 1024)]
 
 
 def _axpy_host(fn, plan, w, h, V, rows, norm):
@@ -237,10 +242,9 @@ def _axpy_host(fn, plan, w, h, V, rows, norm):
     s = torch.full((2,), 7.0, dtype=wh.dtype)
     err = fn(wh.data_ptr(), wl.data_ptr(), hh.data_ptr(), hl.data_ptr(),
              Vh.data_ptr(), Vl.data_ptr(), wh.shape[0], rows, plan.T, plan.C,
-             plan.G, plan.L, plan.J, plan.S, int(plan.staged), plan.stage,
-             part.data_ptr(), part.numel(), arrivals.data_ptr(), 1,
-             outh.data_ptr(), outl.data_ptr(), s.data_ptr() if norm else None,
-             None)
+             plan.G, plan.L, plan.U, plan.stage, part.data_ptr(), part.numel(),
+             arrivals.data_ptr(), 1, outh.data_ptr(), outl.data_ptr(),
+             s.data_ptr() if norm else None, None)
     assert err == 0, plan
     assert int(arrivals[0]) == 0  # the last block leaves the counter zero
     return (outh, outl), ((s[0], s[1]) if norm else None)
@@ -251,9 +255,9 @@ def _axpy_host(fn, plan, w, h, V, rows, norm):
                                     (100, 7)])
 @pytest.mark.parametrize("norm", [False, True])
 def test_axpy_source_is_bitwise(lib, dtype, n, rows, norm):
-    """df_axpy's source under each plan: the ring with 16-byte copies and
-    (n % 4 != 0) word copies, the register form, one block (n = 100 at
-    T = 64) and many; with the fused norm, its sum too."""
+    """df_axpy's source under each plan: every fold, short runs and runs of
+    a block, one block and many, ragged n; with the fused norm, its sum
+    too."""
     rng = np.random.default_rng(n + rows)
     m1 = max(rows, 1)
     w, h, V = (_pair(rng, dtype, n), _pair(rng, dtype, m1),
@@ -264,7 +268,6 @@ def test_axpy_source_is_bitwise(lib, dtype, n, rows, norm):
     item = torch.finfo(dtype).bits // 8
     plans = _axpy_plans(n, rows, item, norm)
     assert any(p.G > 1 and p.M > p.stage for p in plans)
-    assert {p.staged for p in plans} == {True, False}
     for plan in plans:
         if plan.G < 1 or plan.smem(rows, item, norm) > 48 * 1024:
             continue
@@ -279,15 +282,15 @@ def test_axpy_source_refuses_bad_plans(lib):
     """A valid launch of 64 elements, then each field made invalid."""
     w = torch.zeros(64)
     fn = lib.df_axpy_f32
-    good = dict(T=64, C=8, G=1, L=0, J=1, S=3, rows=1)
+    good = dict(T=64, C=8, G=1, L=0, U=8, rows=1)
 
-    def launch(T, C, G, L, J, S, rows):
-        return fn(*[w.data_ptr()] * 6, 64, rows, T, C, G, L, J, S, 1, 8, None,
-                  0, None, 0, w.data_ptr(), w.data_ptr(), None, None)
+    def launch(T, C, G, L, U, rows):
+        return fn(*[w.data_ptr()] * 6, 64, rows, T, C, G, L, U, 8, None, 0,
+                  None, 0, w.data_ptr(), w.data_ptr(), None, None)
 
     assert launch(**good) == 0
-    for bad in ({"G": 2}, {"L": 1}, {"T": 512, "L": -3}, {"C": 3}, {"J": 0},
-                {"S": 1}, {"S": 5}, {"rows": 257}):
+    for bad in ({"G": 2}, {"L": 1}, {"T": 512, "L": -3}, {"C": 3},
+                {"U": 3}, {"L": 4, "T": 4}, {"rows": 257}):
         assert launch(**{**good, **bad}) != 0, bad
 
 
@@ -301,6 +304,23 @@ def test_axpy_source_mutation_fails(mutant):
     plan = df.axpy_plan(1000, 7, 4)
     out, _ = _axpy_host(mutant.df_axpy_f32, plan, w, h, V, 7, False)
     assert not (_bitwise(out[0], want[0]) and _bitwise(out[1], want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 7, 1000, 1003])
+def test_mul_by_source_is_bitwise(lib, dtype, n):
+    """16 bytes of each word a step where every operand is aligned (the
+    rest one by one), and one element a step where w starts one word off."""
+    rng = np.random.default_rng(n)
+    wh, wl = _pair(rng, dtype, n + 1)
+    fn = getattr(lib, "df_mul_by" + _word(dtype))
+    s = (0.7431, 0.7431 * 2.0 ** -26)
+    for a, b in ((wh[:n], wl[:n]), (wh[1:], wl[1:])):
+        oh, ol = torch.full_like(a, 7.0), torch.full_like(a, 7.0)
+        assert fn(a.data_ptr(), b.data_ptr(), *s, n, oh.data_ptr(),
+                  ol.data_ptr(), None) == 0
+        want = df.df_mul_by_plain(a, b, *s)
+        assert _bitwise(oh, want[0]) and _bitwise(ol, want[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
