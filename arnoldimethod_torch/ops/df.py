@@ -91,11 +91,10 @@ _RUN_BYTES = {"one_row": 32, "full": 128}
 _BASIS_TILES = {4: ((8, 2), (16, 2), (4, 4)), 8: ((4, 2), (8, 2))}
 _BASIS_SLAB_ROWS = 64
 _BASIS_STAGE_BYTES = 48 * 1024
-# df_axpy (csrc/df.cu kAxpyThreads, kAxpyMaxRows, kAxpyShared,
-# DF_AXPY_SHAPES): the most threads a block, rows of V a launch (more are
-# chained), the shared memory a block, and the (L, U) instantiated: 2^L
-# elements a thread, U rows of them loaded into registers before their
-# arithmetic.  The plan's choices, the fastest on an H100 (PERF.md §6,
+# df_axpy (csrc/df.cu kAxpyThreads, kAxpyMaxRows, DF_AXPY_SHAPES): the
+# most threads a block, rows of V a launch (more are chained), and the
+# (L, U) instantiated: 2^L elements a thread, U rows of them loaded into
+# registers before their arithmetic.  The plan's choices, the fastest on an H100 (PERF.md §6,
 # `chip_smoke.py --axpy-sweep`): where one element a thread gives at most
 # _AXPY_FEW_BLOCKS blocks (config 3's n, whose basis stays in the 50 MB
 # L2), L = 0 and 64 bytes of each word a thread a group; else L = 1, U = 2
@@ -105,7 +104,6 @@ _BASIS_STAGE_BYTES = 48 * 1024
 # _AXPY_SUM_PAIRS of them in shared memory).
 _AXPY_THREADS = 256
 _AXPY_MAX_ROWS = 256
-_AXPY_SHARED_BYTES = 48 * 1024
 _AXPY_SHAPES = ((0, 4), (0, 8), (0, 16), (1, 2), (1, 4), (1, 8), (2, 1),
                 (2, 2), (2, 4), (3, 1), (3, 2))
 _AXPY_FEW_BLOCKS = 512

@@ -89,8 +89,8 @@ Phases, each printed as one JSON line:
            x 1000; ms (CUDA graph of 20 calls), GB/s and the bound,
            df_project's beside the two-pass kernel's it replaced,
            df_basis_change's and stencil5_df's beside their run-F times,
-           df_axpy's, its fused form's and df_mul_by's beside PR 5's
-           kernel's (COLUMN_AXPY_MS), with their targets; df_axpy in both
+           df_axpy's, its fused form's and df_mul_by's beside the earlier
+           column kernel's (COLUMN_AXPY_MS), with their targets; df_axpy in both
            forms at rows 31 and 46, and its fused form under CUDA-graph
            replays on a warm and a fresh stream; then
            df_project alone: the full form at rows 1, 7 and 60, the one-row
@@ -1355,8 +1355,8 @@ TWO_PASS_PROJECT_MS = {
 }
 
 
-# df_axpy's and df_mul_by's device ms with PR 5's kernel (a thread a
-# column, one launch for both; PERF.md §6, run E of PR 8, NVIDIA H100 80GB
+# df_axpy's and df_mul_by's device ms with the earlier kernel (a thread a
+# column, one launch for both; PERF.md §6, its last run, NVIDIA H100 80GB
 # HBM3, 700.00 W), by (form, case, word); the fused form against that axpy
 # plus the one-row df_project of its result: no case may be slower now.
 COLUMN_AXPY_MS = {
@@ -1815,7 +1815,7 @@ def _axpy_replay(torch, gen, n, rows, dtype):
 def _axpy_rows(torch, dtype, gen):
     """df_axpy in both forms over rows 31 and 46 of a 61 x 65,536 basis
     (the range of config 3's passes), against the plain version, bitwise:
-    plan, ms (a graph of 20 calls), bound and plain ms.  PR 5's kernel was
+    plan, ms (a graph of 20 calls), bound and plain ms.  The earlier kernel was
     not timed at these rows."""
     from arnoldimethod_torch.ops import df
 
@@ -2217,7 +2217,7 @@ def phase_ext_conv(torch):
                and f"{resid:.3e}" == "3.872e-12")
     # Every Gram-Schmidt pass that reads a norm takes it from its df_axpy
     # launch: the one-row df_project is left to the r2 of each step and the
-    # start (PR 8's run E: 18,188 one-row launches).
+    # start (18,188 one-row launches before the fusion, PERF.md §5).
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
           and resid <= 1e-8 and all(v > 0 for v in launches.values())
           and plain == 0 and stencil.KERNEL.launches == 0 and repeats
@@ -2236,7 +2236,7 @@ def phase_ext_conv(torch):
           df_axpy_forms=axpy_forms,
           column_axpy_record={"df_axpy_with_df_mul_by": 18186,
                               "one_row_df_project": 18188,
-                              "source": "PERF.md §5, run E of PR 8"},
+                              "source": "PERF.md §5, before the fusion"},
           plain_df_calls_on_card=plain,
           stencil_launches=stencil.KERNEL.launches, peak_mem_bytes=peak,
           resident_before_bytes=resident,
