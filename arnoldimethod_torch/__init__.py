@@ -36,6 +36,8 @@ from .models.operators import (
     LinearOperator,
     SellOperator,
     ShiftInvertDenseOperator,
+    SplitComplexDenseOperator,
+    SplitComplexOperator,
     Stencil5Operator,
     TridiagonalShiftInvertOperator,
     as_operator,
@@ -65,6 +67,8 @@ __all__ = [
     "CsrOperator",
     "SellOperator",
     "Stencil5Operator",
+    "SplitComplexOperator",
+    "SplitComplexDenseOperator",
     "FunctionOperator",
     "ShiftInvertDenseOperator",
     "TridiagonalShiftInvertOperator",

@@ -19,6 +19,8 @@ from .models.operators import (
     EllOperator,
     SellOperator,
     ShiftInvertDenseOperator,
+    SplitComplexDenseOperator,
+    SplitComplexOperator,
     Stencil5Operator,
     TridiagonalShiftInvertOperator,
     _device,
@@ -45,6 +47,10 @@ def operator_from_arrays(kind, arrays, meta, device=None):
     kind "bsr":     arrays {"block_cols", "block_dataT"} as `pack_bsr`
                     packed them, meta {"logical_blocks", "shape"} and
                     optionally "use_pallas".
+    kind "split_complex":  arrays {"re", "im"}, each the arrays of a real
+                    part or None, meta {"re_kind", "re_meta", "im_kind",
+                    "im_meta"} (each part's kind and meta).
+    kind "split_complex_dense":  arrays {"Ar", "Ai"} (the real words).
     kind "chebyshev":  the inner operator's arrays, meta {"op_kind",
                     "op_meta" (the inner kind and its meta), "a", "b",
                     "degree", "scale_point"}.
@@ -91,6 +97,16 @@ def operator_from_arrays(kind, arrays, meta, device=None):
             tuple(meta["logical_blocks"]), tuple(meta["shape"]),
             use_pallas=meta.get("use_pallas"), device=device,
         )
+    if kind == "split_complex":
+        return SplitComplexOperator(*(
+            None if arrays.get(part) is None else operator_from_arrays(
+                meta[part + "_kind"], arrays[part],
+                meta.get(part + "_meta", {}), device=device)
+            for part in ("re", "im")))
+    if kind == "split_complex_dense":
+        Ar, Ai = np.asarray(arrays["Ar"]), np.asarray(arrays["Ai"])
+        return SplitComplexDenseOperator(Ar + 1j * Ai, word_dtype=Ar.dtype,
+                                         device=device)
     if kind == "chebyshev":
         inner = operator_from_arrays(meta["op_kind"], arrays,
                                      meta.get("op_meta", {}), device=device)
@@ -128,5 +144,6 @@ def operator_from_arrays(kind, arrays, meta, device=None):
 def workspace_from_npz(path, device=None):
     """Load an ArnoldiWorkspace checkpoint written by either package's
     `ArnoldiWorkspace.save` onto `device` (the card by default), with the
-    low words `Vlo` and `Hlo` of an extended-precision solve."""
+    low words `Vlo` and `Hlo` of an extended-precision solve; a
+    split-complex checkpoint's `Vim` becomes the imaginary part of V."""
     return ArnoldiWorkspace.load(path, device=device)

@@ -31,7 +31,11 @@ from .dense.swaps import (
     rotate_right,
     swap,
 )
-from .models.operators import as_operator
+from .models.operators import (
+    DenseOperator,
+    SplitComplexDenseOperator,
+    as_operator,
+)
 from .ops.dd import DD_EPS, dd_collapse, dd_hi, dd_lo, dd_pack
 from .ops.df_expansion import (
     df_apply_basis_change,
@@ -44,10 +48,12 @@ from .ops.df_expansion import (
 from .ops.expansion import (
     apply_basis_change,
     expand_range,
+    expand_range_lowsync,
     fp32_matmul,
     set_initial_vector,
     set_random_vector,
     truncate_and_expand,
+    truncate_and_expand_lowsync,
 )
 from .targets import LI, SI, as_target, get_order
 from .workspace import ArnoldiWorkspace
@@ -66,8 +72,11 @@ class History:
     steps up to and including each H readback, 'dense' the host restart
     kernels.  `dense_layer` names the host dense layer that ran ("native",
     the C++ core, or "numpy"), and `host_syncs` counts the device-to-host
-    reads the expansion made to branch on (one or two per Krylov step),
-    the H readbacks not included."""
+    reads the expansion made to branch on: on the DGKS path one or two per
+    Krylov step, the H readbacks not included; on the low-sync path
+    (lowsync=True) one per expansion range, which brings back H and the
+    range's breakdown flags together, and one more per rollback of a step
+    that broke down."""
 
     def __init__(self, mvproducts, nconverged, converged, nev, restarts=0,
                  purges=0, timings=None, dense_layer=None, host_syncs=0):
@@ -294,10 +303,23 @@ def partial_schur(
     On a CUDA card the double-word work runs in the kernels of
     `csrc/df.cu` (ops/df.py).
 
+    `lowsync=True` runs the low-synchronization CGS2 expansion
+    (ops/expansion.py::expand_range_lowsync): two contractions a Krylov
+    step, the second pass always, and the breakdown test kept on the
+    device, so a step makes no host read; H and the range's breakdown
+    flags come back in one transfer a restart.  Real and complex dtypes;
+    not with extended=True or method="device".
+
+    `split_complex=True` is accepted for the JAX package's callers: a
+    complex operator runs the native complex host path (the card has
+    complex arithmetic, so the basis is not split into real words), a
+    DenseOperator through `SplitComplexDenseOperator` as the JAX package
+    wraps it, and a real dtype ignores the flag.  Not with lowsync,
+    extended or method="device".  None and False run the native path.
+
     `method` None or "host" runs the host dense restart.  The options of
     the JAX package that this port does not have yet raise
-    NotImplementedError: method="device", lowsync=True, split_complex=True
-    and sharding=.
+    NotImplementedError: method="device" and sharding=.
     """
     if method not in (None, "host", "device"):
         raise ValueError(f"method must be 'host' or 'device', got {method!r}")
@@ -311,14 +333,8 @@ def partial_schur(
             "lowsync applies to the plain expansion; extended=True has its "
             "own (double-word) orthogonalization"
         )
-    if method == "device":
-        raise _not_ported("method='device' (fused.py, dense/device.py)", 13)
-    if lowsync:
-        raise _not_ported("lowsync=True (the low-sync CGS2 expansion)", 3)
-    if split_complex:
-        raise _not_ported("split_complex=True", 12)
-    if sharding is not None:
-        raise _not_ported("sharding= (parallel/)", 14)
+    if lowsync and method == "device":
+        raise ValueError("lowsync is a host-method option")
 
     op = as_operator(A, n=n, dtype=dtype, device=device,
                      sparse_format=sparse_format)
@@ -362,6 +378,29 @@ def partial_schur(
             f"extended=True supports real dtypes only (float32 or float64 "
             f"words), got {work_dtype}"
         )
+    if split_complex and work_dtype.is_complex:
+        if lowsync or extended:
+            raise ValueError(
+                "split-complex solves use the plain DGKS expansion "
+                "(lowsync/extended are real-dtype options)"
+            )
+        if method == "device":
+            raise ValueError(
+                "complex matrices run split-complex on the host method"
+            )
+        if isinstance(op, DenseOperator):
+            op = SplitComplexDenseOperator(op.A,
+                                           word_dtype=work_dtype.to_real())
+        if workspace is not None and not workspace.dtype.is_complex:
+            # The JAX package's split-complex solves take a real workspace
+            # (the real word; `Vim` holds the imaginary one): here the
+            # basis is native complex.
+            workspace.V = workspace.V.to(work_dtype)
+            workspace.H = workspace.H.astype(np.complex128)
+    if method == "device":
+        raise _not_ported("method='device' (fused.py, dense/device.py)", 13)
+    if sharding is not None:
+        raise _not_ported("sharding= (parallel/)", 14)
     order_key = get_order(target)
     if tol is None:
         # extended: the double-word noise floor is ~eps^2, so the default
@@ -410,7 +449,7 @@ def partial_schur(
 
         return _partial_schur(
             op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
-            active0, generator, extended,
+            active0, generator, extended, lowsync,
         )
 
 
@@ -436,7 +475,8 @@ def _df_words(Qbig, dd, V):
 
 
 def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
-                   order_key, active0, generator, extended=False):
+                   order_key, active0, generator, extended=False,
+                   lowsync=False):
     m = maxdim
     # Dense restart kernels: the native C++ core when it builds and the
     # workspace fits its scratch buffers; the numpy layer otherwise
@@ -498,12 +538,17 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     # columns (no low-precision round trip of converged data).
     t0 = time.perf_counter()
     with torch.profiler.record_function("arnoldi:expand"):
-        if extended:
-            syncs += df_expand_range(op, V, Vlo, Hdev, Hlo, active0, m,
-                                     generator)
+        if lowsync:
+            Hpull, _, reads = expand_range_lowsync(op, V, Hdev, active0, m,
+                                                   generator)
+            syncs += reads
         else:
-            syncs += expand_range(op, V, Hdev, active0, m, generator)
-        Hpull = _pull(Hdev, Hlo, dd)
+            if extended:
+                syncs += df_expand_range(op, V, Vlo, Hdev, Hlo, active0, m,
+                                         generator)
+            else:
+                syncs += expand_range(op, V, Hdev, active0, m, generator)
+            Hpull = _pull(Hdev, Hlo, dd)
     if dd:
         # The host Hessenberg becomes an object array of DD scalars for the
         # whole restart loop; a warm start rehydrates the locked block from
@@ -618,10 +663,17 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 Qh, Ql = _df_words(Qbig, dd, V)
                 syncs += df_truncate_and_expand(op, V, Vlo, Hdev, Hlo, Qh, Ql,
                                                 k, m, generator)
+                Hpull = _pull(Hdev, Hlo, dd)
             else:
                 Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
-                syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m, generator)
-            Hpull = _pull(Hdev, Hlo, dd)
+                if lowsync:
+                    Hpull, _, reads = truncate_and_expand_lowsync(
+                        op, V, Hdev, Qdev, k, m, generator)
+                    syncs += reads
+                else:
+                    syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m,
+                                                 generator)
+                    Hpull = _pull(Hdev, Hlo, dd)
         H[:, k:m] = Hpull[:, k:m]
         prods += m - k
         timings["device"] += time.perf_counter() - t0

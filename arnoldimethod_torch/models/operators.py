@@ -13,13 +13,20 @@ layout `pick_sparse_format` chooses (or the one `sparse_format=` names).
 The shift-invert operators (dense LU, tridiagonal) sit here as in the JAX
 package; the other spectral transforms are in `transforms.py`.
 
-Behavioral reference: arnoldimethod_tpu/models/operators.py.  The
-split-complex wrappers and the sharded CSR operator are not ported yet
-(ROADMAP.md queue 1); complex matrices are native complex operators here.
+The split-complex operators (`SplitComplexOperator`,
+`SplitComplexDenseOperator`) keep the JAX package's API: a complex matrix
+held as real parts, with `matvec_sc(xr, xi) -> (yr, yi)`.  The card has
+complex arithmetic, so the solver takes their complex `matvec`, which runs
+the parts' own real matvecs (the stencil and BSR kernels among them).
+Other complex matrices are native complex operators here.
+
+Behavioral reference: arnoldimethod_tpu/models/operators.py.  The sharded
+CSR operator is not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -42,6 +49,8 @@ __all__ = [
     "BsrOperator",
     "Stencil5Operator",
     "FunctionOperator",
+    "SplitComplexDenseOperator",
+    "SplitComplexOperator",
     "ShiftInvertDenseOperator",
     "TridiagonalShiftInvertOperator",
     "as_operator",
@@ -312,6 +321,101 @@ class FunctionOperator(LinearOperator):
         return self.f(x)
 
 
+def _split_matvec(re, im, xr, xi):
+    """(yr, yi) = (Re + i Im)(xr + i xi) from the real matvecs `re` and
+    `im` of the parts (either may be None, a zero part), in the JAX
+    package's order: yr = Re xr - Im xi, yi = Re xi + Im xr."""
+    yr = yi = None
+    if re is not None:
+        yr, yi = re(xr), re(xi)
+    if im is not None:
+        tr, ti = im(xi), im(xr)
+        yr = -tr if yr is None else yr - tr
+        yi = ti if yi is None else yi + ti
+    return yr, yi
+
+
+class _SplitComplexBase(LinearOperator):
+    """A complex operator made of real words: subclasses define
+    `matvec_sc(xr, xi) -> (yr, yi)`, `word_dtype` and the complex
+    `dtype`."""
+
+    def matvec(self, x):
+        """Complex y = A x through `matvec_sc` on x's real and imaginary
+        words."""
+        if not x.is_complex():
+            x = x.to(self.dtype)
+        yr, yi = self.matvec_sc(x.real.to(self.word_dtype).contiguous(),
+                                x.imag.to(self.word_dtype).contiguous())
+        return torch.complex(yr, yi)
+
+
+def _complex_of(word):
+    return torch.complex64 if word == torch.float32 else torch.complex128
+
+
+class SplitComplexDenseOperator(_SplitComplexBase):
+    """A complex dense matrix held as its real words (Ar, Ai) of
+    `word_dtype`.  `matvec_sc(xr, xi)` is four real GEMVs:
+    yr = Ar xr - Ai xi, yi = Ar xi + Ai xr."""
+
+    def __init__(self, A, word_dtype=torch.float32, device=None):
+        A = _tensor(A, _pick_device(device, A))
+        word = as_torch_dtype(word_dtype)
+        self.Ar = A.real.to(word).contiguous()
+        self.Ai = (A.imag.to(word).contiguous() if A.is_complex()
+                   else torch.zeros_like(self.Ar))
+        self.shape = tuple(A.shape)
+        self.word_dtype = word
+        self.dtype = _complex_of(word)
+        self.device = A.device
+
+    def matvec_sc(self, xr, xi):
+        return _split_matvec(lambda x: torch.mv(self.Ar, x),
+                             lambda x: torch.mv(self.Ai, x), xr, xi)
+
+
+class SplitComplexOperator(_SplitComplexBase):
+    """A complex sparse or matrix-free operator held as two real
+    operators, A = re + i im, of any format; either part may be None (a
+    zero part).  `matvec_sc(xr, xi)` is four real matvecs of the parts,
+    two when one part is None, so each part's own kernel runs."""
+
+    def __init__(self, re_op=None, im_op=None):
+        if re_op is None and im_op is None:
+            raise ValueError("need at least one of re_op / im_op")
+        if re_op is not None and im_op is not None:
+            if tuple(re_op.shape) != tuple(im_op.shape):
+                raise ValueError(
+                    "re/im parts disagree in shape: "
+                    f"{tuple(re_op.shape)} vs {tuple(im_op.shape)}"
+                )
+            if re_op.dtype != im_op.dtype:
+                raise ValueError(
+                    "re/im parts disagree in word dtype: "
+                    f"{re_op.dtype} vs {im_op.dtype}"
+                )
+        self.re = re_op
+        self.im = im_op
+        some = re_op if re_op is not None else im_op
+        if some.dtype.is_complex:
+            raise ValueError("the re/im parts must be REAL operators")
+        self.shape = tuple(some.shape)
+        self.word_dtype = some.dtype
+        self.dtype = _complex_of(some.dtype)
+        self.device = some.device
+
+    @property
+    def nnz(self):
+        return sum(int(o.nnz) for o in (self.re, self.im) if o is not None)
+
+    def matvec_sc(self, xr, xi):
+        """(yr, yi) = A (xr + i xi):
+        yr = Re(A) xr - Im(A) xi,  yi = Re(A) xi + Im(A) xr."""
+        return _split_matvec(*(None if p is None else p.matvec
+                               for p in (self.re, self.im)), xr, xi)
+
+
 class ShiftInvertDenseOperator(LinearOperator):
     """Shift-invert spectral transform x -> (A - sigma*I)^{-1} x for a
     dense A, via an LU factorization computed once (two triangular solves
@@ -411,10 +515,14 @@ class TridiagonalShiftInvertOperator(LinearOperator):
     @classmethod
     def from_operator(cls, op, sigma=0.0, dtype=None, refine=None):
         """Build from a DiaOperator whose offsets are within {-1, 0, 1},
-        on the operator's device.  A complex DiaOperator (what
-        `dia_from_diagonals` returns for complex values) gives complex
-        factors: complex64 from complex64 diagonals, else complex128 (the
-        JAX package takes a split-complex pair of real DIA parts here)."""
+        on the operator's device, or from a SplitComplexOperator over two
+        such parts (recombined into complex bands, as the JAX package
+        does).  A complex DiaOperator (what `dia_from_diagonals` returns
+        for complex values) gives complex factors: complex64 from
+        complex64 diagonals, else complex128; a split pair likewise from
+        its word."""
+        if isinstance(op, SplitComplexOperator):
+            return cls._from_split(op, sigma, dtype, refine)
         if not isinstance(op, DiaOperator):
             raise TypeError("from_operator expects a DiaOperator")
         if not set(op.offsets) <= {-1, 0, 1}:
@@ -433,6 +541,27 @@ class TridiagonalShiftInvertOperator(LinearOperator):
         du = diags.get(1, zero)[:-1]
         return cls.build(dl, d, du, sigma=sigma, dtype=dtype, refine=refine,
                          device=op.device)
+
+    @classmethod
+    def _from_split(cls, op, sigma, dtype, refine):
+        parts = [(p, unit) for p, unit in ((op.re, 1.0), (op.im, 1.0j))
+                 if p is not None]
+        if not all(isinstance(p, DiaOperator) for p, _ in parts):
+            raise TypeError(
+                "from_operator expects DiaOperator split-complex parts")
+        if not {o for p, _ in parts for o in p.offsets} <= {-1, 0, 1}:
+            raise ValueError("operator is not tridiagonal")
+        n = op.shape[0]
+        bands = {o: np.zeros(n, dtype=np.complex128) for o in (-1, 0, 1)}
+        for part, unit in parts:
+            host = _numpy(part.diags)
+            for i, o in enumerate(part.offsets):
+                bands[o] += unit * host[i]
+        if dtype is None:
+            dtype = (np.complex64 if op.word_dtype == torch.float32
+                     else np.complex128)
+        return cls.build(bands[-1][1:], bands[0], bands[1][:-1], sigma=sigma,
+                         dtype=dtype, refine=refine, device=op.device)
 
     def _shifted_matvec(self, x):
         dl, d, du = self.bands
@@ -724,13 +853,10 @@ class BsrOperator(LinearOperator):
 
     def _matvec_split(self, x):
         """Complex y from the real matvec on the words (matvec_sc's order)."""
-        re, im = self.words
-        xr, xi = x.real.contiguous(), x.imag.contiguous()
-        yr, yi = self._word_matvec(re, xr), self._word_matvec(re, xi)
-        if im is not None:
-            yr = yr - self._word_matvec(im, xi)
-            yi = yi + self._word_matvec(im, xr)
-        return torch.complex(yr, yi)
+        re, im = (None if w is None else functools.partial(
+            self._word_matvec, w) for w in self.words)
+        return torch.complex(*_split_matvec(
+            re, im, x.real.contiguous(), x.imag.contiguous()))
 
 
 def dense_to_bsr(A, block_size=128, use_pallas=None, device=None):

@@ -6,11 +6,21 @@ a (maxdim+1, n) tensor with the vectors as rows; the projection
 coefficients are one GEMV against the filled rows V[:j+1].  Everything
 updates V and the device Hessenberg H in place.
 
-The two data-dependent decisions of a step, whether to run the second
+The two data-dependent decisions of a DGKS step, whether to run the second
 Gram-Schmidt pass and whether the new vector broke down, are Python
 branches on values read back from the device: one host sync per step, two
 when the second pass runs.  Each function that expands returns the number
 of syncs it made, so a caller can count them.
+
+The low-sync expansion (`expand_range_lowsync`, the JAX package's
+`expand_range_lowsync_impl`) runs CGS2 unconditionally and takes ||w||^2
+from the same contraction as the coefficients, so its only data-dependent
+decision is the breakdown test.  That test stays on the device: each step
+writes the keep branch speculatively and records its flag in a device
+tensor, and the flags are read once a range, in the same transfer as the
+Hessenberg.  A step that broke down is finished on the breakdown path
+after that read and the steps after it are run again; `LOWSYNC` counts
+such rollbacks and the matvecs they threw away.
 
 Contractions run in full FP32 (or the working precision): call them inside
 `fp32_matmul()`, which turns TF32 off, as `partial_schur` does.  A basis
@@ -27,17 +37,22 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 __all__ = [
     "ETA",
+    "LOWSYNC",
     "apply_basis_change",
     "expand_range",
+    "expand_range_lowsync",
+    "expand_range_lowsync_stepwise",
     "fp32_matmul",
     "orthonormalize_rows",
     "set_initial_vector",
     "set_random_vector",
     "truncate_and_expand",
+    "truncate_and_expand_lowsync",
 ]
 
 ETA = 0.7071067811865476  # sqrt(2)/2, the ARPACK DGKS constant
@@ -123,6 +138,125 @@ def expand_range(op, V, H, j0, j1, generator):
     return syncs
 
 
+class LowSyncCounts:
+    """What the low-sync expansion's speculation cost: `rollbacks` counts
+    the breakdowns found after their range had run on, `discarded_matvecs`
+    the speculative steps (one matvec each) thrown away with them.  Reset
+    them to 0 to count one solve."""
+
+    def __init__(self):
+        self.rollbacks = 0
+        self.discarded_matvecs = 0
+
+
+LOWSYNC = LowSyncCounts()
+
+
+def _cgs2_step(op, V, H, j):
+    """The arithmetic of one low-sync Krylov step, JAX's step for step:
+    the unnormalized w goes into the spare row j+1 first, so one
+    contraction V[:j+2]^H w gives the coefficients and ||w||^2; a second
+    pass the same way; h = h1 + h2 into H[:j+1, j]; the final norm by the
+    Pythagorean identity.  Leaves the unnormalized w in V[j+1] and returns
+    (wnorm, breakdown), both on the device (no host read).  Each update
+    w - V[:j+1]^T h is one in-place GEMV.  JAX also takes the pre-pass
+    norm re(c1[j+1]) and drops it unused."""
+    w = op.matvec(V[j])
+    B = V[: j + 1]
+    C = V[: j + 2].conj()
+    row = V[j + 1]
+    row.copy_(w)
+    c1 = torch.mv(C, row)
+    row.addmv_(B.T, c1[: j + 1], alpha=-1)
+    c2 = torch.mv(C, row)
+    h2 = c2[: j + 1]
+    row.addmv_(B.T, h2, alpha=-1)
+    torch.add(c1[: j + 1], h2, out=H[: j + 1, j])
+    w1norm2 = torch.real(c2[j + 1])
+    wnorm = torch.sqrt(torch.clamp(
+        w1norm2 - torch.real(torch.vdot(h2, h2)), min=0.0))
+    # Breakdown is judged against the norm after the first pass.
+    breakdown = wnorm <= ETA * torch.sqrt(torch.clamp(w1norm2, min=0.0))
+    return wnorm, breakdown
+
+
+def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator):
+    """The low-sync expansion with each step's breakdown flag read as the
+    step makes it: the plain version that `expand_range_lowsync` must
+    equal bit for bit.  Returns (flags of steps j0..j1-1, host reads)."""
+    n = V.shape[1]
+    H[:, j0:j1] = 0
+    flags = []
+    for j in range(j0, j1):
+        wnorm, breakdown = _cgs2_step(op, V, H, j)
+        flags.append(bool(breakdown))
+        if not flags[-1]:
+            H[j + 1, j] = wnorm
+            V[j + 1].div_(wnorm)
+        elif j + 1 < n:
+            # H[j+1, j] stays zero: deflation.
+            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device,
+                                           V[: j + 1])
+        # else the basis spans the whole space and V[j+1] keeps w
+        # (expansion.jl:127).
+    return flags, len(flags)
+
+
+def _speculate(op, V, H, j0, j1, flags):
+    """Steps j0..j1-1, each written as if it kept its vector, its breakdown
+    flag recorded in `flags[j]`; no host read."""
+    for j in range(j0, j1):
+        wnorm, breakdown = _cgs2_step(op, V, H, j)
+        H[j + 1, j] = wnorm
+        # A step that broke down keeps w unscaled: the row stays finite for
+        # the steps that run on it until the flags are read, and it is
+        # already the row of the breakdown path when j+1 == n.
+        row = V[j + 1]
+        torch.where(breakdown, row, row / wnorm, out=row)
+        flags[j] = breakdown
+
+
+def expand_range_lowsync(op, V, H, j0, j1, generator):
+    """The low-sync expansion of basis rows j0+1 .. j1 and H columns
+    j0 .. j1-1, in place, with the breakdown decisions deferred: the steps
+    run on without a host read, and one transfer brings back H and every
+    step's flag.  If step j* broke down, it is finished on the breakdown
+    path (H[j*+1, j*] = 0 and a fresh random row, or w itself when
+    j*+1 == n) and the steps from j*+1 run again, one more read.  The
+    result equals `expand_range_lowsync_stepwise` bit for bit, and the
+    generator advances only where that version's does.
+
+    Returns (H on the host as a numpy array, the flags of steps j0..j1-1,
+    host reads made)."""
+    n = V.shape[1]
+    size = H.numel()
+    H[:, j0:j1] = 0
+    flags = torch.zeros(H.shape[1], dtype=H.dtype, device=H.device)
+    final = [False] * (j1 - j0)
+    reads = 0
+    start = j0
+    while True:
+        _speculate(op, V, H, start, j1, flags)
+        packed = torch.cat((H.reshape(-1), flags)).cpu().numpy()
+        reads += 1
+        Hh = packed[:size].reshape(H.shape)
+        broke = np.flatnonzero(packed[size + start: size + j1])
+        if broke.size == 0:
+            return Hh, final, reads
+        j = start + int(broke[0])
+        final[j - j0] = True
+        LOWSYNC.rollbacks += 1
+        LOWSYNC.discarded_matvecs += j1 - 1 - j
+        H[j + 1, j] = 0
+        Hh[j + 1, j] = 0
+        if j + 1 < n:
+            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device,
+                                           V[: j + 1])
+        start = j + 1
+        if start == j1:
+            return Hh, final, reads
+
+
 def apply_basis_change(V, Qbig):
     """V <- Qbig^T @ V in place: one (m+1, m+1) x (m+1, n) GEMM implements
     the Krylov-Schur truncation / final reordering of the basis
@@ -137,6 +271,13 @@ def truncate_and_expand(op, V, H, Qbig, j0, j1, generator):
     expansion from j0 back to j1.  Returns the number of host syncs."""
     apply_basis_change(V, Qbig)
     return expand_range(op, V, H, j0, j1, generator)
+
+
+def truncate_and_expand_lowsync(op, V, H, Qbig, j0, j1, generator):
+    """The low-sync twin of `truncate_and_expand`; returns what
+    `expand_range_lowsync` returns."""
+    apply_basis_change(V, Qbig)
+    return expand_range_lowsync(op, V, H, j0, j1, generator)
 
 
 def set_initial_vector(V, v):

@@ -118,18 +118,24 @@ class ArnoldiWorkspace:
     @classmethod
     def load(cls, path, device=None):
         """Restore a workspace saved with `save`, by this package or by the
-        JAX package, with its extended-precision words (`Vlo`, `Hlo`)."""
+        JAX package, with its extended-precision words (`Vlo`, `Hlo`).  A
+        JAX split-complex checkpoint (real words V and `Vim`) loads as the
+        complex basis V + i Vim, so its solve can be warm-started here."""
         with np.load(path, allow_pickle=False) as f:
+            V, dtype = f["V"], str(f["dtype"])
             if "Vim" in f.files:
-                raise NotImplementedError(
-                    "checkpoint carries 'Vim': split-complex state is not "
-                    "ported yet (ROADMAP.md queue 1, item 12)"
-                )
+                if "Vlo" in f.files:
+                    raise ValueError(
+                        "checkpoint carries both 'Vlo' and 'Vim': no solve "
+                        "writes double-word split-complex state"
+                    )
+                V = V + 1j * f["Vim"]
+                dtype = "complex64" if dtype == "float32" else "complex128"
             ws = cls(
                 int(f["n"]),
                 int(f["maxdim"]),
-                dtype=str(f["dtype"]),
-                V=f["V"],
+                dtype=dtype,
+                V=V,
                 H=f["H"],
                 device=device,
             )

@@ -32,6 +32,14 @@ Phases, each printed as one JSON line:
   eigen    partial_eigen on that result: every eigenpair residual
   profile  torch.profiler over the first restarts of the main solve:
            device time by kernel and the device's busy share
+  lowsync_main  the main configuration with lowsync=True (CGS2, breakdown
+           test on the card, no host read inside a Krylov step), from the
+           same start: 20/20 within main's limits, host syncs at most
+           restarts + 2 + rollbacks, matvecs, syncs a step, discarded
+           speculative steps, the median wall of 3 runs beside the DGKS
+           path's median of 3 in the same call, and a 3-restart profile
+           (lowsync_profile, chiprun_out/profile_lowsync.txt) beside
+           `profile`'s
   bsr_kernel   the CUDA BSR kernel against its plain PyTorch version (the
            gather + einsum, TF32 off) on the card, in ten cases: 512
            block-rows x 8 blocks of 128 (268 MB of f32 block data, and the
@@ -81,6 +89,19 @@ Phases, each printed as one JSON line:
            through partial_schur(S, device="cuda"): BSR picked, four BSR
            launches a matvec (two words), eigenvalues against the same
            solve in complex128 on the CPU
+  complexsc  bench.py's complex_sc in the port: n = 1500 complex64 dense,
+           split_complex=True (four real GEMVs a matvec), nev=8, :LI,
+           tol=1e-5, mindim=16, maxdim=32: converged, ||AQ - QR|| / ||A||
+           and ||Q^H Q - I|| at most 1e-5 and the :LI eigenvalues within
+           1e-4 of LAPACK's, all in complex128 on the host; the median
+           wall of 3 warm runs
+  complexscsparse  bench.py's complex_sc_sparse in the port: a 1,048,576-row
+           complex tridiagonal with 10 planted eigenvalues, as a
+           SplitComplexOperator over two float32 DiaOperators,
+           split_complex=True, the same keywords: converged, the 8 largest
+           imaginary parts within 0.021 of the planted ones, the float64
+           host residual and orthonormality; the native complex64
+           DiaOperator of the same matrix beside it (matvecs, walls)
   df_kernel  two_prod's exactness for both words, then the double-word
            kernels (df_project, its one-row norm form, df_axpy and its
            fused norm, df_mul_by, df_basis_change, stencil5_df) against
@@ -418,7 +439,7 @@ def phase_main(torch):
     check("main", h.converged and h.nconverged == 20
           and abs(lam_min - lam_exact) <= 1e-5 and resid <= 1e-5
           and launches >= h.mvproducts, **info)
-    return d, launches
+    return d, launches, wall
 
 
 def phase_eigen(torch, d):
@@ -502,6 +523,9 @@ def _profile(torch, phase, op, kernel, out_name, label=None, parts=None,
             "device_busy_share": busy_s / wall if measured else "not measured",
             "device_idle_share": 1 - busy_s / wall if measured else "not measured",
             "device_launches": len(spans),
+            # Each host read of a device value is one device-to-host copy.
+            "dtoh_copies": sum(c for k, (_, c) in by_name.items()
+                               if "DtoH" in k),
             f"{label or kernel}_device_ms": device_ms(kernel)}
     for name, fragment in (parts or {}).items():
         ms = device_ms(fragment)
@@ -523,8 +547,81 @@ def phase_profile(torch):
 
     op = Stencil5Operator(LAPLACE, (1024, 1024), dtype=torch.float32,
                           device="cuda")
-    _profile(torch, "profile", op, "stencil5", "profile_main.txt", nev=20,
-             which="SR", tol=1e-6, mindim=40, maxdim=80, restarts=3)
+    return _profile(torch, "profile", op, "stencil5", "profile_main.txt",
+                    parts=MAIN_PARTS, **MAIN_KW, restarts=3)
+
+
+# The main configuration's keywords, and the device-time parts its
+# profiles report.
+MAIN_KW = dict(nev=20, which="SR", tol=1e-6, mindim=40, maxdim=80)
+MAIN_PARTS = {"gemv": "gemv", "stencil": "stencil5"}
+
+
+def phase_lowsync_main(torch, dgks_wall, dgks_profile):
+    """The main configuration with lowsync=True from the same start (the
+    solver's seeded random start), driven once with the counts at 0;
+    then two more runs of each expansion in turns for median walls, and a
+    3-restart profile beside the DGKS one.  Returns the stencil kernel's
+    launches in the driven run."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.ops.expansion import LOWSYNC
+
+    grid = (1024, 1024)
+    op = Stencil5Operator(LAPLACE, grid, dtype=torch.float32, device="cuda")
+    kw = dict(MAIN_KW, restarts=400, method="host")
+
+    def solve(lowsync):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, h = partial_schur(op, lowsync=lowsync, **kw)
+        torch.cuda.synchronize()
+        return d, h, time.perf_counter() - t0
+
+    stencil.KERNEL.launches = 0
+    LOWSYNC.rollbacks = LOWSYNC.discarded_matvecs = 0
+    d, h, wall = solve(True)
+    launches = stencil.KERNEL.launches
+    rollbacks, discarded = LOWSYNC.rollbacks, LOWSYNC.discarded_matvecs
+    walls, dgks_walls, dgks = [wall], [dgks_wall], None
+    for _ in range(2):
+        _, dgks, w = solve(False)
+        dgks_walls.append(w)
+        walls.append(solve(True)[2])
+
+    lam_exact = 0.130 * (4 - 4 * math.cos(math.pi / 1025))
+    lam_min = float(np.min(d.eigenvalues.real))
+    resid = _stencil_resid(d.Q, d.R, LAPLACE, grid)
+    prof = _profile(torch, "lowsync_profile", op, "stencil5",
+                    "profile_lowsync.txt", parts=MAIN_PARTS, **MAIN_KW,
+                    restarts=3, lowsync=True)
+    keys = ("device_busy_share", "device_busy_s", "gemv_device_ms",
+            "stencil_device_ms", "device_launches", "dtoh_copies", "wall_s",
+            "mvproducts")
+    sync_limit = h.restarts + 2 + rollbacks
+    check("lowsync_main", h.converged and h.nconverged == 20
+          and abs(lam_min - lam_exact) <= 1e-5 and resid <= 1e-5
+          and h.host_syncs <= sync_limit and launches >= h.mvproducts,
+          n=grid[0] * grid[1], mvproducts=h.mvproducts, restarts=h.restarts,
+          nconverged=h.nconverged, host_syncs=h.host_syncs,
+          host_sync_limit=sync_limit,
+          syncs_per_step=h.host_syncs / h.mvproducts, rollbacks=rollbacks,
+          discarded_matvecs=discarded, wall_s_median=statistics.median(walls),
+          walls_s=walls, device_s=h.timings["device"],
+          dense_s=h.timings["dense"], lam_min=lam_min, lam_exact=lam_exact,
+          lam_min_err=abs(lam_min - lam_exact), schur_residual=resid,
+          kernel_launches=launches,
+          profile={k: prof[k] for k in keys},
+          dgks={"mvproducts": dgks.mvproducts, "restarts": dgks.restarts,
+                "host_syncs": dgks.host_syncs,
+                "syncs_per_step": dgks.host_syncs / dgks.mvproducts,
+                "wall_s_median": statistics.median(dgks_walls),
+                "walls_s": dgks_walls,
+                "profile": {k: dgks_profile[k] for k in keys}})
+    return launches
 
 
 def bsr_pattern(nbr, KB, B, dtype, seed=7, nbc=None):
@@ -2065,6 +2162,121 @@ def phase_complex_bsr(torch):
           eigenvalues=[[z.real, z.imag] for z in lam])
 
 
+def _warm_walls(torch, fn, runs=3):
+    """`runs` timed calls of fn after the first; returns (last result,
+    walls)."""
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def phase_complexsc(torch):
+    """bench.py's complex_sc in the port (split_complex=True on a complex64
+    dense matrix, :LI), checked in complex128 on the host."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+
+    rng = np.random.default_rng(0)
+    n = 1500
+    A = ((rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+         / np.sqrt(n)).astype(np.complex64)
+    Adev = torch.from_numpy(A).to("cuda")
+    kw = dict(nev=8, which="LI", tol=1e-5, mindim=16, maxdim=32,
+              restarts=500, split_complex=True)
+    (_, h0), cold = _warm_walls(torch, lambda: partial_schur(Adev, **kw), 1)
+    (d, h), walls = _warm_walls(torch, lambda: partial_schur(Adev, **kw))
+    A64 = A.astype(np.complex128)
+    Q = d.Q.cpu().numpy().astype(np.complex128)
+    k = Q.shape[1]
+    resid = float(np.linalg.norm(A64 @ Q - Q @ d.R) / np.linalg.norm(A64))
+    orth = float(np.linalg.norm(Q.conj().T @ Q - np.eye(k)))
+    lam_ref = np.linalg.eigvals(A64)
+    lam_ref = np.sort(lam_ref[np.argsort(-lam_ref.imag)][:8].imag)
+    lam_got = np.sort(d.eigenvalues.imag)
+    err = (float(np.abs(lam_got - lam_ref).max()) if len(lam_got) == 8
+           else math.inf)
+    check("complexsc", h0.converged and h.converged and k == 8
+          and d.Q.dtype == torch.complex64 and resid <= 1e-5
+          and orth <= 1e-5 and err <= 1e-4,
+          n=n, mvproducts=h.mvproducts, restarts=h.restarts,
+          wall_cold_s=cold[0], wall_warm_s_median=statistics.median(walls),
+          walls_warm_s=walls, host_syncs=h.host_syncs,
+          schur_resid_rel=resid, orth=orth, li_eig_err=err,
+          jax_tpu_record={"schur_resid": 7.3e-8, "wall_warm_s": 5.0,
+                          "source": "README.md:326, a TPU record"})
+
+
+def phase_complexscsparse(torch):
+    """bench.py's complex_sc_sparse in the port: the split DIA pair with
+    split_complex=True, and the native complex DiaOperator of the same
+    matrix beside it."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.models.operators import (
+        DiaOperator,
+        SplitComplexOperator,
+        dia_from_diagonals,
+    )
+
+    n = 1 << 20
+    rng = np.random.default_rng(42)
+    z = rng.uniform(-1.0, 1.0, n) + 1j * rng.uniform(0.0, 1.0, n)
+    planted = np.linspace(2.0, 2.9, 10)
+    idx = rng.choice(n, size=10, replace=False)
+    z[idx] = 0.3 * rng.standard_normal(10) + 1j * planted
+    beta = 0.01
+    native = dia_from_diagonals(
+        {0: z.astype(np.complex64), 1: beta, -1: 1j * beta}, (n, n),
+        dtype=np.complex64, device="cuda")
+    split = SplitComplexOperator(
+        DiaOperator(native.diags.real.contiguous(), native.offsets, (n, n)),
+        DiaOperator(native.diags.imag.contiguous(), native.offsets, (n, n)))
+    kw = dict(nev=8, which="LI", tol=1e-5, mindim=16, maxdim=32,
+              restarts=500)
+
+    def check_host(d):
+        Q = d.Q.cpu().numpy().astype(np.complex128)
+        AQ = z[:, None] * Q
+        AQ[:-1] += beta * Q[1:]
+        AQ[1:] += 1j * beta * Q[:-1]
+        resid = float(np.linalg.norm(AQ - Q @ d.R))
+        orth = float(np.linalg.norm(Q.conj().T @ Q - np.eye(Q.shape[1])))
+        imag = np.sort(d.eigenvalues.imag)[-8:]
+        err = (float(np.abs(imag - planted[-8:]).max()) if len(imag) == 8
+               else math.inf)
+        return resid, orth, err
+
+    out = {}
+    for name, op, extra in (("split", split, {"split_complex": True}),
+                            ("native", native, {})):
+        (_, h0), cold = _warm_walls(
+            torch, lambda: partial_schur(op, **kw, **extra), 1)
+        (d, h), walls = _warm_walls(
+            torch, lambda: partial_schur(op, **kw, **extra))
+        resid, orth, err = check_host(d)
+        out[name] = dict(
+            converged=h0.converged and h.converged, mvproducts=h.mvproducts,
+            restarts=h.restarts, wall_cold_s=cold[0],
+            wall_warm_s_median=statistics.median(walls), walls_warm_s=walls,
+            schur_resid_f64=resid, orth_f64=orth, li_eig_err=err,
+            li_eig_ok=err < 0.021,
+            finite=bool(math.isfinite(resid) and math.isfinite(orth)),
+            basis_dtype=str(d.Q.dtype))
+    check("complexscsparse", all(
+        r["converged"] and r["li_eig_ok"] and r["finite"]
+        and r["basis_dtype"] == "torch.complex64" for r in out.values()),
+        n=n, **out,
+        jax_tpu_record={"mvproducts": 57, "wall_warm_s": 3.3,
+                        "source": "README.md:327, a TPU record"})
+
+
 def _lap1d_dense(n):
     import numpy as np
 
@@ -2322,9 +2534,12 @@ def main():
     kernels = phase_kernel(torch)
     phase_small(torch)
     phase_readme(torch)
-    d, launches = phase_main(torch)
+    d, main_launches, main_wall = phase_main(torch)
     phase_eigen(torch, d)
-    phase_profile(torch)
+    del d
+    dgks_profile = phase_profile(torch)
+    lowsync_launches = phase_lowsync_main(torch, main_wall, dgks_profile)
+    launches = main_launches + lowsync_launches
 
     import numpy as np
 
@@ -2352,6 +2567,8 @@ def main():
     phase_conv1m(torch)
     phase_default_device(torch)
     phase_complex_bsr(torch)
+    phase_complexsc(torch)
+    phase_complexscsparse(torch)
     df_shapes = phase_df_kernel(torch)
     phase_ext_readme(torch)
     phase_ext_dd(torch)
@@ -2371,7 +2588,9 @@ def main():
         entry("stencil5", "arnoldimethod_torch/csrc/stencil5.cu",
               "arnoldimethod_tpu/ops/stencil_pallas.py:240", launches,
               kernels[0],
-              also_replaces="arnoldimethod_tpu/ops/stencil_pallas.py:157"),
+              also_replaces="arnoldimethod_tpu/ops/stencil_pallas.py:157",
+              launches_by_phase={"main": main_launches,
+                                 "lowsync_main": lowsync_launches}),
         entry("bsr", "arnoldimethod_torch/csrc/bsr.cu",
               "arnoldimethod_tpu/ops/bsr_pallas.py:138", bsr_launches,
               bsr_shape),

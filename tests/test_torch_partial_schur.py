@@ -237,11 +237,9 @@ def test_q_rows_is_not_the_workspace():
         dict(method="device"),
         # extended=True is ported; its sharded path is not.
         dict(extended=True, sharding=object()),
-        dict(lowsync=True),
-        dict(split_complex=True),
         dict(sharding=object()),
     ],
-    ids=["device", "extended", "lowsync", "split_complex", "sharding"],
+    ids=["device", "extended", "sharding"],
 )
 def test_options_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -71,14 +71,16 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_extended_checkpoint_is_refused(tmp_path):
-    """An extended checkpoint loads (tests/test_torch_extended.py); one that
-    also carries split-complex state is refused: that path is not ported."""
+    """An extended checkpoint loads (tests/test_torch_extended.py), and so
+    does a split-complex one (tests/test_torch_split_complex.py); one that
+    carries both is refused: no solve writes double-word split-complex
+    state."""
     jws = jam.ArnoldiWorkspace(8, 3, dtype=jnp.float32)
     jws.Vlo = jnp.zeros_like(jws.V)
     jws.Vim = jnp.zeros_like(jws.V)
     path = tmp_path / "ext.npz"
     jws.save(path)
-    with pytest.raises(NotImplementedError, match="Vim"):
+    with pytest.raises(ValueError, match="Vim"):
         ArnoldiWorkspace.load(path)
 
 
