@@ -2,12 +2,16 @@
 
 Every native piece of the port is a plain shared library with a C
 interface, loaded through ctypes: the C++ dense restart core
-(`native/arnoldi_dense.cpp`, built with g++) and the CUDA kernels
-(`csrc/stencil5.cu`, `csrc/bsr.cu`, `csrc/df.cu`, built with nvcc; each is
-built at its first use, or all at once by `build_all`).  They are compiled into
-`build/arnoldimethod_torch/` beside the package (listed in `.gitignore`),
-never into the package directory, under a name that carries a hash of the
-sources and the command, so an edit to either rebuilds.  The compiler
+(`dense/arnoldi_dense.cpp`, built with g++) and the CUDA kernels
+(`csrc/stencil5.cu`, `csrc/bsr.cu`, `csrc/df.cu`, `csrc/dense_restart.cu`,
+built with nvcc; each is built at its first use, or all at once by
+`build_all`).  The sources ship inside the package.  In a source checkout
+the libraries are compiled into `build/arnoldimethod_torch/` beside the
+package (listed in `.gitignore`); an installed copy (no `pyproject.toml`
+beside the package, or a parent that is not writable) builds into
+`$XDG_CACHE_HOME/arnoldimethod_torch/build` (`~/.cache` when the variable
+is unset), never into site-packages.  A library's name carries a hash of
+the sources and the command, so an edit to either rebuilds.  The compiler
 writes to a temporary name that is renamed into place, so concurrent
 processes (test workers) never load a half-written library.
 """
@@ -23,7 +27,18 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 REPO_DIR = PACKAGE_DIR.parent
-BUILD_DIR = REPO_DIR / "build" / "arnoldimethod_torch"
+
+
+def _build_dir():
+    """The checkout's build directory, or the user's cache for an
+    installed copy."""
+    if (REPO_DIR / "pyproject.toml").is_file() and os.access(REPO_DIR, os.W_OK):
+        return REPO_DIR / "build" / "arnoldimethod_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "arnoldimethod_torch" / "build"
+
+
+BUILD_DIR = _build_dir()
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,14 +61,14 @@ def nvcc_command(what):
 
 def build_all():
     """Build (or load) every native library of the port at once, one thread
-    each: the CUDA kernels `csrc/stencil5.cu`, `csrc/bsr.cu` and
-    `csrc/df.cu` with nvcc, and the C++ dense core with g++.  Returns the
+    each: the CUDA kernels `csrc/stencil5.cu`, `csrc/bsr.cu`, `csrc/df.cu`
+    and `csrc/dense_restart.cu` with nvcc, and the C++ dense core with g++.  Returns the
     seconds each took, by name.  A failed CUDA build raises; the dense core
     reports its failure through `dense.native.build_error` (the numpy layer
     then runs)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from .dense import native
+    from .dense import device, native
     from .ops import bsr, df, stencil
 
     def timed(fn):
@@ -62,7 +77,8 @@ def build_all():
         return time.perf_counter() - t0
 
     jobs = {"stencil5": stencil.KERNEL.load, "bsr": bsr.KERNEL.load,
-            "df": df.KERNEL.load, "dense": native.available}
+            "df": df.KERNEL.load, "dense_restart": device.KERNEL.load,
+            "dense": native.available}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -1,8 +1,8 @@
 """ctypes bindings for the native (C++) dense restart kernels.
 
-The shared library is built from the repository's `native/arnoldi_dense.cpp`
-(the same source and g++ command as the JAX package's binding) into
-`build/arnoldimethod_torch/` at first use.  It implements the same
+The shared library is built from the package's own copy of the C++ core,
+`dense/arnoldi_dense.cpp` (the same source and g++ command as the JAX
+package's binding), into the build directory of `_build.py` at first use.  It implements the same
 LAPACK-free kernels as the numpy modules in this package; the numpy layer is
 the tested behavioral reference, the native layer the fast path for the
 host-side restart work.  `available()` builds and loads the library on its
@@ -22,9 +22,9 @@ import subprocess
 
 import numpy as np
 
-from .._build import REPO_DIR, build_shared
+from .._build import PACKAGE_DIR, build_shared
 
-_SRC_PATH = REPO_DIR / "native" / "arnoldi_dense.cpp"
+_SRC_PATH = PACKAGE_DIR / "dense" / "arnoldi_dense.cpp"
 _COMMAND = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None

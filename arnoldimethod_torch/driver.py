@@ -16,12 +16,14 @@ convergence criterion :188-208, three-way partition :394-457, final sort
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
 from .dense import native as _native
+from .dense.device import STATE
 from .dense.eig import collect_eigen, copy_eigenvalues, eigenvalue
 from .dense.restore import restore_arnoldi
 from .dense.schur import local_schur
@@ -36,6 +38,7 @@ from .models.operators import (
     SplitComplexDenseOperator,
     as_operator,
 )
+from .fused import fused_solve
 from .ops.dd import DD_EPS, dd_collapse, dd_hi, dd_lo, dd_pack
 from .ops.df_expansion import (
     df_apply_basis_change,
@@ -60,6 +63,32 @@ from .workspace import ArnoldiWorkspace
 
 __all__ = ["History", "PartialSchur", "partial_schur"]
 
+# Debug checks, the numerical analogue of sanitizers: with
+# ARNOLDI_TPU_DEBUG set (and not "0"), every restart of the host method
+# checks that H is finite and the basis orthonormal (the latter reads V
+# back: debug only).  The same variable switches the JAX package's checks.
+_DEBUG = os.environ.get("ARNOLDI_TPU_DEBUG", "0") != "0"
+
+
+def _debug_checks(H, V, k, it):
+    """Raise FloatingPointError when H has a non-finite entry or the rows
+    [0, k) of V are not orthonormal to 1e-3 (float32) or 1e-8."""
+    if not np.isfinite(H).all():
+        raise FloatingPointError(
+            f"non-finite Hessenberg entries after restart {it}"
+        )
+    # Rows [0, k) are the basis proper; row k (the next-vector slot) is
+    # legitimately ~0 when the Krylov space is exhausted.
+    Vn = V[:k].cpu().numpy()
+    G = Vn.conj() @ Vn.T
+    err = float(np.linalg.norm(G - np.eye(k)))
+    limit = 1e-3 if Vn.real.dtype == np.float32 else 1e-8
+    if err > limit:
+        raise FloatingPointError(
+            f"basis orthonormality lost after restart {it}: "
+            f"||V V^H - I|| = {err:.2e}"
+        )
+
 
 class History:
     """Convergence summary: matrix-vector product count, number of
@@ -76,7 +105,8 @@ class History:
     Krylov step, the H readbacks not included; on the low-sync path
     (lowsync=True) one per expansion range, which brings back H and the
     range's breakdown flags together, and one more per rollback of a step
-    that broke down."""
+    that broke down; with method="device" every read of the solve: one
+    state read a restart, one more a rollback, and the final readback."""
 
     def __init__(self, mvproducts, nconverged, converged, nev, restarts=0,
                  purges=0, timings=None, dense_layer=None, host_syncs=0):
@@ -317,9 +347,14 @@ def partial_schur(
     wraps it, and a real dtype ignores the flag.  Not with lowsync,
     extended or method="device".  None and False run the native path.
 
-    `method` None or "host" runs the host dense restart.  The options of
-    the JAX package that this port does not have yet raise
-    NotImplementedError: method="device" and sharding=.
+    `method` None or "host" runs the host dense restart.  method="device"
+    runs the whole restart on the device in the working dtype (fused.py):
+    the DGKS expansion with its decisions kept on the device, and the dense
+    phase as one launch of the restart kernel (`csrc/dense_restart.cu`) on
+    the card, or its plain version on the CPU; one state read a restart.
+    Real dtypes only; not with lowsync, extended or split_complex.  The
+    option of the JAX package that this port does not have yet raises
+    NotImplementedError: sharding=.
     """
     if method not in (None, "host", "device"):
         raise ValueError(f"method must be 'host' or 'device', got {method!r}")
@@ -397,8 +432,11 @@ def partial_schur(
             # basis is native complex.
             workspace.V = workspace.V.to(work_dtype)
             workspace.H = workspace.H.astype(np.complex128)
-    if method == "device":
-        raise _not_ported("method='device' (fused.py, dense/device.py)", 13)
+    if method == "device" and work_dtype.is_complex:
+        raise ValueError(
+            "method='device' supports real dtypes only (split-complex pair "
+            "bookkeeping, as in the JAX package)"
+        )
     if sharding is not None:
         raise _not_ported("sharding= (parallel/)", 14)
     order_key = get_order(target)
@@ -447,9 +485,13 @@ def partial_schur(
             elif initialize:
                 set_random_vector(ws.V, active0, generator)
 
+        if method == "device":
+            return _partial_schur_device(op, ws, mindim, maxdim, nev, tol,
+                                         restarts, target, generator, active0)
         return _partial_schur(
             op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
             active0, generator, extended, lowsync,
+            sc=bool(split_complex) and work_dtype.is_complex,
         )
 
 
@@ -474,9 +516,51 @@ def _df_words(Qbig, dd, V):
     return split_f64(Qbig, V.dtype, V.device)
 
 
+def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
+                          target, generator, active0=0):
+    """The solve with its restarts on the device (fused.py), repackaged in
+    the same PartialSchur/History types, leaving the workspace coherent for
+    a later warm start by either method.  For a warm start the locked H
+    block goes through the working dtype, as in the JAX package."""
+    t0 = time.perf_counter()
+    V = ws.V
+    Hdev = torch.as_tensor(ws.H).to(dtype=V.dtype, device=V.device)
+    lam, state, reads = fused_solve(
+        op, V, Hdev, nev, mindim, tol, restarts, generator,
+        type(target).__name__, active0)
+    # One batched readback of everything the host needs.
+    packed = torch.cat((Hdev.reshape(-1), lam.reshape(-1),
+                        state.to(Hdev.dtype))).cpu().numpy()
+    reads += 1
+    m = maxdim
+    Hh = packed[:Hdev.numel()].reshape(Hdev.shape).astype(ws.H.dtype)
+    lre = packed[Hdev.numel():Hdev.numel() + m].astype(np.float64)
+    lim = packed[Hdev.numel() + m:Hdev.numel() + 2 * m].astype(np.float64)
+    st = packed[Hdev.numel() + 2 * m:].astype(np.int64)
+    device_s = time.perf_counter() - t0
+    if not st[STATE["qr_ok"]]:
+        raise RuntimeError("QR algorithm did not converge")
+    ncv = int(st[STATE["active"]])
+    ws.H[:] = Hh
+    # The real single-word path: double-word or split-complex words of an
+    # earlier run on this workspace are stale now.
+    ws.Vlo = None
+    ws.Vim = None
+    ws.Hlo = None
+    history = History(
+        int(st[STATE["prods"]]), ncv, ncv >= nev, nev,
+        restarts=int(st[STATE["it"]]), purges=int(st[STATE["purges"]]),
+        timings={"device": device_s, "dense": 0.0}, host_syncs=reads,
+    )
+    lam_c = lre + 1j * lim
+    schur = PartialSchur(None, Hh[:ncv, :ncv].copy(), lam_c[:ncv].copy(),
+                         Q_rows=V[:ncv].clone())
+    return schur, history
+
+
 def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                    order_key, active0, generator, extended=False,
-                   lowsync=False):
+                   lowsync=False, sc=False):
     m = maxdim
     # Dense restart kernels: the native C++ core when it builds and the
     # workspace fits its scratch buffers; the numpy layer otherwise
@@ -677,6 +761,12 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
         H[:, k:m] = Hpull[:, k:m]
         prods += m - k
         timings["device"] += time.perf_counter() - t0
+
+        if _DEBUG and not sc and not dd:
+            # The JAX package's exemptions: split-complex (there V is only
+            # the real word) and dd (H is an object array the finiteness
+            # check cannot see through).
+            _debug_checks(H, V, m, it)
 
         # Keep the workspace coherent after every restart, so an exception
         # leaves a resumable state (dd: H is a fresh object array).

@@ -22,6 +22,12 @@ Hessenberg.  A step that broke down is finished on the breakdown path
 after that read and the steps after it are run again; `LOWSYNC` counts
 such rollbacks and the matvecs they threw away.
 
+`method="device"` runs the DGKS step with the same deferral
+(`expand_range_device`): both Gram-Schmidt passes run and `torch.where`
+keeps what the host step's branch would; the restart kernel reads the
+flags, and the fused loop finishes a step that broke down with the same
+`finish_breakdown`.
+
 Contractions run in full FP32 (or the working precision): call them inside
 `fp32_matmul()`, which turns TF32 off, as `partial_schur` does.  A basis
 that loses orthogonality to TF32 rounding stalls the restart.
@@ -45,8 +51,10 @@ __all__ = [
     "LOWSYNC",
     "apply_basis_change",
     "expand_range",
+    "expand_range_device",
     "expand_range_lowsync",
     "expand_range_lowsync_stepwise",
+    "finish_breakdown",
     "fp32_matmul",
     "orthonormalize_rows",
     "set_initial_vector",
@@ -202,11 +210,11 @@ def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator):
     return flags, len(flags)
 
 
-def _speculate(op, V, H, j0, j1, flags):
-    """Steps j0..j1-1, each written as if it kept its vector, its breakdown
-    flag recorded in `flags[j]`; no host read."""
+def _speculate(op, V, H, j0, j1, flags, step=_cgs2_step):
+    """Steps j0..j1-1 of `step`, each written as if it kept its vector,
+    its breakdown flag recorded in `flags[j]`; no host read."""
     for j in range(j0, j1):
-        wnorm, breakdown = _cgs2_step(op, V, H, j)
+        wnorm, breakdown = step(op, V, H, j)
         H[j + 1, j] = wnorm
         # A step that broke down keeps w unscaled: the row stays finite for
         # the steps that run on it until the flags are read, and it is
@@ -214,6 +222,53 @@ def _speculate(op, V, H, j0, j1, flags):
         row = V[j + 1]
         torch.where(breakdown, row, row / wnorm, out=row)
         flags[j] = breakdown
+
+
+def finish_breakdown(V, H, j, j1, generator):
+    """Finish step j, found broken down after its range ran on to j1, on
+    the breakdown path: H[j+1, j] = 0 and a fresh random row (w itself
+    stays when j+1 == n).  Counts the rollback in `LOWSYNC`."""
+    LOWSYNC.rollbacks += 1
+    LOWSYNC.discarded_matvecs += j1 - 1 - j
+    H[j + 1, j] = 0
+    if j + 1 < V.shape[1]:
+        V[j + 1] = _random_unit_vector(generator, V.shape[1], V.dtype,
+                                       V.device, V[: j + 1])
+
+
+def _dgks_step(op, V, H, j):
+    """One DGKS step with its decisions kept on the device: both passes
+    run, and torch.where takes what the host step's branch would, compared
+    in float64 as the host compares its read values.  Leaves w in V[j+1]
+    and h in H[:j+1, j] and returns (wnorm, breakdown) on the device; the
+    arithmetic is `_dgks_orthogonalize`'s, bit for bit."""
+    w = op.matvec(V[j])
+    B = V[: j + 1]
+    rnorm = _norm(w)
+    h1, w1 = _project(B, w)
+    wnorm1 = _norm(w1)
+    c, w2 = _project(B, w1)
+    h2 = h1 + c
+    wnorm2 = _norm(w2)
+    second = wnorm1.double() < ETA * rnorm.double()
+    V[j + 1] = torch.where(second, w2, w1)
+    H[:, j] = 0
+    H[: j + 1, j] = torch.where(second, h2, h1)
+    wnorm = torch.where(second, wnorm2, wnorm1)
+    ref = torch.where(second, wnorm1, rnorm)
+    return wnorm, wnorm.double() <= ETA * ref.double()
+
+
+def expand_range_device(op, V, H, j0, j1, flags):
+    """The DGKS expansion of basis rows j0+1 .. j1 and H columns
+    j0 .. j1-1 with no host read (`method="device"`): each step's two
+    decisions stay on the device and its breakdown flag goes to
+    `flags[j]` (cleared first over [j0, j1)), the steps written as if
+    they kept their vectors.  Whoever reads the flags finishes the first
+    step that broke down with `finish_breakdown` and runs the steps after
+    it again; the result then equals `expand_range` bit for bit."""
+    flags[j0:j1] = 0
+    _speculate(op, V, H, j0, j1, flags, step=_dgks_step)
 
 
 def expand_range_lowsync(op, V, H, j0, j1, generator):
@@ -228,7 +283,6 @@ def expand_range_lowsync(op, V, H, j0, j1, generator):
 
     Returns (H on the host as a numpy array, the flags of steps j0..j1-1,
     host reads made)."""
-    n = V.shape[1]
     size = H.numel()
     H[:, j0:j1] = 0
     flags = torch.zeros(H.shape[1], dtype=H.dtype, device=H.device)
@@ -245,13 +299,8 @@ def expand_range_lowsync(op, V, H, j0, j1, generator):
             return Hh, final, reads
         j = start + int(broke[0])
         final[j - j0] = True
-        LOWSYNC.rollbacks += 1
-        LOWSYNC.discarded_matvecs += j1 - 1 - j
-        H[j + 1, j] = 0
+        finish_breakdown(V, H, j, j1, generator)
         Hh[j + 1, j] = 0
-        if j + 1 < n:
-            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device,
-                                           V[: j + 1])
         start = j + 1
         if start == j1:
             return Hh, final, reads

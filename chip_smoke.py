@@ -8,13 +8,14 @@
     python3 chip_smoke.py --df-sweep      # df_basis_change's tiles and
                                           # stencil5_df's points a thread
     python3 chip_smoke.py --axpy-sweep    # df_axpy under other plans
+    python3 chip_smoke.py --device        # the method="device" phases only
 
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc builds of the stencil, BSR and double-word kernels and the
-           g++ build of the dense core, all started at once, from the
-           sources (`_build.build_all`)
+  build    nvcc builds of the stencil, BSR, double-word and dense-restart
+           kernels and the g++ build of the dense core, all started at
+           once, from the sources (`_build.build_all`)
   kernel   the CUDA stencil kernel against its plain PyTorch version on the
            card, at five grids: max |difference| against
            8 * eps * sum|coeff| * max|x|; both device times per call (a
@@ -143,6 +144,28 @@ Phases, each printed as one JSON line:
            df_project, df_axpy, df_mul_by, df_basis_change and stencil5_df
            (chiprun_out/profile_conv.txt), and shows one device launch a
            df_project call (ext_conv_one_launch)
+  roofline bench.py's memcpy in the port: a 1 GiB device-to-device copy,
+           its rate beside the published 3.35 TB/s; the kernel summary
+           restates each bytes bound at it
+  dense_restart_kernel  method="device"'s restart and finish kernels
+           (csrc/dense_restart.cu) against their plain versions, run on the
+           host CPU: Arnoldi H at m = 20, 80 and 200 in float32 and float64,
+           a purge restart and the H of device_main's third restart; the
+           integer outputs equal, H, Q, Qbig and the finish outputs within
+           1e-4 (float32) or 1e-10 (float64) of max|H|, and whether they
+           are bitwise; ms a call (a graph of 20 calls, the input restored
+           before each) beside the plain version's and the host C++ core's
+           on the same H, and the operations bound (lane operations of the
+           plain version's rotations and reflectors, dense.device.PLAIN_OPS)
+           over the card's rate and over one SM's
+  device_readme  the README configuration with method="device" on the card
+           and on the CPU from one v1: the same matvec and restart counts
+  device_main  config 2 with method="device" (bench.py's e2e_1m_device) and
+           with method="host" from one v1 in the same call: 20/20 within
+           main's limits, reads at most restarts + rollbacks + 1, stencil
+           launches = matvecs + discarded steps, restart-kernel launches,
+           median walls of 3 each, and 3-restart profiles of both
+           (chiprun_out/profile_device.txt, profile_device_host.txt)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
 launches on its main path, error against its plain version, ms, plain ms,
@@ -265,10 +288,10 @@ def _ptxas(log):
 
 
 def phase_build():
-    """The three nvcc builds and the g++ build run at once, one thread
+    """The four nvcc builds and the g++ build run at once, one thread
     each (`_build.build_all`)."""
     from arnoldimethod_torch._build import BUILD_DIR, build_all
-    from arnoldimethod_torch.dense import native
+    from arnoldimethod_torch.dense import device, native
     from arnoldimethod_torch.ops import bsr, df, stencil
 
     # Libraries already built by an earlier run are loaded, not rebuilt;
@@ -279,7 +302,8 @@ def phase_build():
           native=native.available(), native_error=native.build_error,
           ptxas=_ptxas(stencil.KERNEL.build_log),
           bsr_ptxas=_ptxas(bsr.KERNEL.build_log),
-          df_ptxas=_ptxas(df.KERNEL.build_log))
+          df_ptxas=_ptxas(df.KERNEL.build_log),
+          dense_restart_ptxas=_ptxas(device.KERNEL.build_log))
 
 
 def _conv2d_stencil(torch, x, coeffs, grid):
@@ -481,7 +505,7 @@ def _profile(torch, phase, op, kernel, out_name, label=None, parts=None,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, h = partial_schur(op, method="host", **kw)
+        _, h = partial_schur(op, **{"method": "host", **kw})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Kernels, copies and memsets on the card.  The device-side spans of
@@ -2506,6 +2530,420 @@ def conv_starts(torch):
               "ms_per_step": 1e3 * wall / h.mvproducts, "timings": h.timings})
 
 
+# --- method="device": the restart on the card ----------------------------------
+
+# The card's device-to-device copy rate (phase_roofline sets it).
+COPY = {}
+
+
+def phase_roofline(torch):
+    """bench.py's roofline memcpy in the port: a 1 GiB float32 tensor
+    copied device to device (read + write counted), CUDA events around
+    each copy, median of 20 after 3 warm copies, beside the published
+    3.35 TB/s."""
+    n = 256 * 1024 * 1024
+    src = torch.ones(n, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = median_ms(lambda: dst.copy_(src), reps=20, warm=3)
+    rate = 2 * n * 4 / (ms / 1e3)
+    COPY["bytes_s"] = rate
+    del src, dst
+    torch.cuda.empty_cache()
+    check("roofline", rate > 0, copy_bytes=2 * n * 4, copy_ms=ms,
+          copy_gbs=rate / 1e9, published_gbs=PEAK_BYTES_S / 1e9,
+          share_of_published=rate / PEAK_BYTES_S)
+
+
+def _arnoldi_h(m, seed, dtype):
+    """H of an m-step Arnoldi factorization of a 3m x 3m Gaussian matrix
+    (numpy, float64, then cast): Hessenberg with complex Ritz pairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = 3 * m
+    A = rng.standard_normal((n, n))
+    V = np.zeros((m + 1, n))
+    H = np.zeros((m + 1, m))
+    v = rng.standard_normal(n)
+    V[0] = v / np.linalg.norm(v)
+    for j in range(m):
+        w = A @ V[j]
+        for _ in range(2):
+            h = V[:j + 1] @ w
+            w -= h @ V[:j + 1]
+            H[:j + 1, j] += h
+        H[j + 1, j] = np.linalg.norm(w)
+        V[j + 1] = w / H[j + 1, j]
+    import torch
+
+    return torch.tensor(H, dtype=dtype)
+
+
+def _host_core_ms(H0, active, nev, mindim, tol, which, eps, reps=5):
+    """One restart's dense phase by the host method's C++ core on the same
+    H (float64), with the working dtype's `eps` in the criterion: the steps
+    of driver._partial_schur's restart, median of `reps` runs, in ms."""
+    import numpy as np
+
+    from arnoldimethod_torch.dense import native
+    from arnoldimethod_torch.driver import _is_pair_at, _schur_coupling_floor
+    from arnoldimethod_torch.targets import as_target, get_order
+
+    key = get_order(as_target(which))
+    m = H0.shape[1]
+    H0 = np.ascontiguousarray(H0, dtype=np.float64)
+
+    def once():
+        H, Q = H0.copy(), np.eye(m)
+        lams, rs = np.zeros(m, complex), np.zeros(m)
+        native.local_schur(H[:m, :], active, m, Q)
+        native.copy_eigenvalues(lams, H[:m, :], 0, m)
+        native.copy_residuals(rs, H[:m, :], Q, H[m, m - 1], active, m)
+        _schur_coupling_floor(rs, H, Q, H[m, m - 1], active, m)
+        ord_ = sorted(range(m), key=lambda i: (key(lams[i]), i))
+        hf = np.linalg.norm(H)
+        conv = [rs[i] <= max(eps * hf, tol * abs(lams[i])) for i in ord_]
+        eff = nev + int(_is_pair_at(lams, ord_, nev - 1, True))
+        groups = np.zeros(m, dtype=int)
+        nlock = 0
+        for p in range(eff):
+            groups[ord_[p]] = 1 if conv[p] else 2
+            nlock += conv[p]
+        k, p = eff, eff
+        ideal = min(nlock + mindim, (mindim + m) // 2)
+        while p < m:
+            pair = _is_pair_at(lams, ord_, p, True)
+            g = 2 if k < ideal and not conv[p] else 3
+            k += (2 if pair else 1) if g == 2 else 0
+            groups[ord_[p]] = g
+            if pair:
+                groups[ord_[p + 1]] = g
+            p += 2 if pair else 1
+        native.partition_three_way(H[:m, :], Q, groups)
+        native.restore_arnoldi(H, nlock, k, Q)
+
+    once()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        once()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _restart_case(torch, name, H0, S0, flags, kw):
+    """The restart kernel against its plain version (on the host, CPU
+    tensors) on one input, then the finish kernel on the restart's output;
+    returns the line's numbers."""
+    from arnoldimethod_torch.dense import device as dd
+
+    m = H0.shape[1]
+    dtype = H0.dtype
+    word = str(dtype).split(".")[-1]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        H = H0.to(dev).clone()
+        S = S0.to(dev).clone()
+        F = flags.to(dev)
+        Qbig = torch.empty((m + 1, m + 1), dtype=dtype, device=dev)
+        info = torch.zeros(4 + 2 * m, dtype=torch.int32, device=dev)
+        dd.PLAIN_OPS.n = 0
+        t0 = time.perf_counter()
+        Q = dd.restart(H, Qbig, S, F, info=info, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        restart_ops = dd.PLAIN_OPS.n
+        Hr = H.clone()
+        lam = torch.empty((2, m), dtype=dtype, device=dev)
+        dd.PLAIN_OPS.n = 0
+        t1 = time.perf_counter()
+        Qf = dd.finish(H, Qbig.clone(), lam, S, kw["which"])
+        fin_seconds = time.perf_counter() - t1
+        out[dev] = dict(H=Hr, Q=Q, Qbig=Qbig, S=S, info=info, Hf=H, Qf=Qf,
+                        lam=lam, s=seconds, fs=fin_seconds, ops=restart_ops,
+                        fops=dd.PLAIN_OPS.n)
+    c, g = out["cpu"], {k: (v.cpu() if hasattr(v, "cpu") else v)
+                        for k, v in out["cuda"].items()}
+    ints_equal = torch.equal(c["S"], g["S"]) and torch.equal(c["info"], g["info"])
+    floats = ("H", "Q", "Qbig", "Hf", "Qf", "lam")
+    scale = max(1.0, float(c["H"].abs().max()))
+    err = max(float((c[k].double() - g[k].double()).abs().max()) for k in floats)
+    bitwise = all(torch.equal(c[k], g[k]) for k in floats)
+
+    # Device time: 20 calls in a CUDA graph, each restoring the input
+    # first (two small copies) so every call does the same work.
+    Hg0, Sg0, Fg = H0.cuda(), S0.cuda(), flags.cuda()
+    Hw, Sw = Hg0.clone(), Sg0.clone()
+    Qbw = torch.empty((m + 1, m + 1), dtype=dtype, device="cuda")
+    iw = torch.zeros(4 + 2 * m, dtype=torch.int32, device="cuda")
+    lamw = torch.empty((2, m), dtype=dtype, device="cuda")
+    Hf0 = out["cuda"]["H"].clone()
+    Sf0 = out["cuda"]["S"].clone()
+
+    def restart_call():
+        Hw.copy_(Hg0)
+        Sw.copy_(Sg0)
+        dd.restart(Hw, Qbw, Sw, Fg, info=iw, **kw)
+
+    def finish_call():
+        Hw.copy_(Hf0)
+        dd.finish(Hw, Qbw, lamw, Sf0, kw["which"])
+
+    def copies():
+        Hw.copy_(Hg0)
+        Sw.copy_(Sg0)
+
+    saved = dd.KERNEL.launches, dd.KERNEL.finish_launches
+    copy_ms = graph_ms(copies)
+    ms = graph_ms(restart_call) - copy_ms
+    fms = graph_ms(finish_call) - graph_ms(lambda: Hw.copy_(Hf0))
+    dd.KERNEL.launches, dd.KERNEL.finish_launches = saved
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound_ms, bound_by = roofline(2 * H0.numel() * H0.element_size(),
+                                  c["ops"], word)
+    fbound_ms, fbound_by = roofline(2 * H0.numel() * H0.element_size(),
+                                    c["fops"], word)
+    Hn = H0.double().numpy()
+    active = int(S0[0])
+    host_ms = _host_core_ms(Hn, active, kw["nev"], kw["mindim"], kw["tol"],
+                            kw["which"], torch.finfo(dtype).eps)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    res = dict(case=name, m=m, dtype=word, active=active,
+               state=g["S"].tolist(), nlock_k_purge=g["info"][:3].tolist(),
+               ints_equal=ints_equal, bitwise=bitwise, max_abs_err=err,
+               tolerance=tol * scale, ms=ms, plain_ms=1e3 * c["s"],
+               plain_on="host CPU", bound_ms=bound_ms, bound_by=bound_by,
+               one_sm_bound_ms=bound_ms * sms, lane_ops=c["ops"],
+               library_ms=None, host_core_ms=host_ms,
+               finish_ms=fms, finish_plain_ms=1e3 * c["fs"],
+               finish_bound_ms=fbound_ms, finish_bound_by=fbound_by,
+               finish_one_sm_bound_ms=fbound_ms * sms)
+    check("dense_restart_kernel", ints_equal and err <= tol * scale, **res)
+    return res
+
+
+def _captured(torch, run, call=3):
+    """Run `run` with the fused loop's restart wrapped; return the input of
+    its `call`-th restart launch (H, state, flags, keywords)."""
+    from arnoldimethod_torch import fused
+
+    seen, real = [], fused.restart
+
+    def spy(H, Qbig, state, flags, **kw):
+        if len(seen) < call:
+            seen.append((H.clone(), state.clone(), flags.clone(), kw))
+        return real(H, Qbig, state, flags, **kw)
+
+    fused.restart = spy
+    try:
+        run()
+    finally:
+        fused.restart = real
+    return seen[-1]
+
+
+def _main_op_v1(torch):
+    from arnoldimethod_torch.models.operators import Stencil5Operator
+
+    grid = (1024, 1024)
+    op = Stencil5Operator(LAPLACE, grid, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    v1 = torch.randn(grid[0] * grid[1], dtype=torch.float32, device="cuda",
+                     generator=gen)
+    return op, v1, grid
+
+
+def phase_dense_restart_kernel(torch):
+    """The restart and finish kernels against their plain versions: numpy-
+    seeded Arnoldi H at m = 20, 80 and 200 in float32 and float64 (complex
+    Ritz pairs), a purge case (a restart of a CPU solve whose locked
+    vectors are purged), and the H of device_main's third restart.
+    Integer outputs (state, nlock, k, purge, effective nev, the order, the
+    groups) must be equal, H, Q, Qbig and the finish outputs within the
+    stated tolerance (1e-4 in float32, 1e-10 in float64, relative to
+    max|H|); `bitwise` says whether they are equal outright."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.dense import device as dd
+
+    lines = {}
+    for m in (20, 80, 200):
+        for dtype in (torch.float32, torch.float64):
+            H0 = _arnoldi_h(m, m, dtype)
+            kw = dict(nev=max(2, m // 4), mindim=m // 2, tol=1e-6,
+                      restarts=400, which="LM")
+            lines[(m, dtype)] = _restart_case(
+                torch, f"arnoldi_m{m}", H0, dd.new_state(0, m, 400),
+                torch.zeros(m, dtype=dtype), kw)
+
+    # A purge: diag(11, 10.999, 10, ...) from a start almost orthogonal to
+    # the two largest (the JAX package's purge test), on the CPU.
+    n = 100
+    A = np.diag(np.concatenate([[11.0, 10.999, 10.0, 9.5, 9.0],
+                                np.linspace(1.0, 8.0, n - 5)]))
+    v1 = np.ones(n)
+    v1[0] = v1[1] = 1e-12
+    seen = []
+    from arnoldimethod_torch import fused
+
+    real = fused.restart
+
+    def spy(H, Qbig, state, flags, **kw):
+        before = int(state[dd.STATE["purges"]])
+        snap = (H.clone(), state.clone(), flags.clone(), kw)
+        q = real(H, Qbig, state, flags, **kw)
+        if int(state[dd.STATE["purges"]]) > before and not seen:
+            seen.append(snap)
+        return q
+
+    fused.restart = spy
+    try:
+        partial_schur(A, v1=v1, nev=3, which="LM", tol=1e-8, method="device",
+                      device="cpu")
+    finally:
+        fused.restart = real
+    H0, S0, F0, kw = seen[0]
+    kw = {k: v for k, v in kw.items() if k != "maxiter"}
+    purge = _restart_case(torch, "purge", H0, S0, F0, kw)
+
+    op, v1, _ = _main_op_v1(torch)
+    H0, S0, F0, kw = _captured(torch, lambda: partial_schur(
+        op, v1=v1, restarts=3, method="device", **MAIN_KW))
+    kw = {k: v for k, v in kw.items() if k != "maxiter"}
+    captured = _restart_case(torch, "device_main_restart3", H0.cpu(),
+                             S0.cpu(), F0.cpu(), kw)
+    return lines, purge, captured
+
+
+def phase_device_readme(torch):
+    """The README configuration with method="device" on the card (the
+    restart kernel) and on the CPU (its plain version) from one v1: the
+    same matvec and restart counts."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.dense import device as dd
+    from arnoldimethod_torch.models.problems import laplacian_1d
+
+    v1 = np.random.default_rng(0).standard_normal(100)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dd.KERNEL.launches = 0
+        op = laplacian_1d(100, dtype=torch.float32, device=dev)
+        d, h = partial_schur(op, v1=v1, nev=10, which="SR", tol=1e-6,
+                             method="device")
+        out[dev] = (d, h, dd.KERNEL.launches)
+    (dg, hg, lg), (dc, hc, lc) = out["cuda"], out["cpu"]
+    lam_err = float(np.abs(np.sort(dg.eigenvalues.real)
+                           - np.sort(dc.eigenvalues.real)).max())
+    check("device_readme", hg.converged and lg >= hg.restarts > 0 and lc == 0
+          and (hg.mvproducts, hg.restarts) == (hc.mvproducts, hc.restarts),
+          mvproducts_cuda=hg.mvproducts, mvproducts_cpu=hc.mvproducts,
+          restarts_cuda=hg.restarts, restarts_cpu=hc.restarts,
+          jax_cpu_device_mvproducts=167, jax_cpu_device_restarts=19,
+          dense_restart_launches=lg, host_syncs=hg.host_syncs,
+          lam_err_card_vs_cpu=lam_err)
+
+
+def phase_device_main(torch):
+    """Config 2 with method="device" (bench.py's e2e_1m_device) and with
+    method="host" from one v1, in the same call.  The device run is driven
+    once with every count at 0; two more runs of each method in turns give
+    median walls of 3; then 3-restart profiles of both.  Returns the
+    launches of the stencil, restart and finish kernels in the driven
+    run."""
+    import numpy as np
+
+    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch.dense import device as dd
+    from arnoldimethod_torch.ops import stencil
+    from arnoldimethod_torch.ops.expansion import LOWSYNC
+
+    op, v1, grid = _main_op_v1(torch)
+    kw = dict(MAIN_KW, restarts=400)
+
+    def solve(method):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, h = partial_schur(op, v1=v1, method=method, **kw)
+        torch.cuda.synchronize()
+        return d, h, time.perf_counter() - t0
+
+    stencil.KERNEL.launches = 0
+    dd.KERNEL.launches = dd.KERNEL.finish_launches = 0
+    LOWSYNC.rollbacks = LOWSYNC.discarded_matvecs = 0
+    d, h, wall = solve("device")
+    launches = dict(stencil5=stencil.KERNEL.launches,
+                    dense_restart=dd.KERNEL.launches,
+                    dense_finish=dd.KERNEL.finish_launches)
+    rollbacks, discarded = LOWSYNC.rollbacks, LOWSYNC.discarded_matvecs
+    walls, host_walls = [wall], []
+    for _ in range(2):
+        dh, host, w = solve("host")
+        host_walls.append(w)
+        walls.append(solve("device")[2])
+    dh, host, w = solve("host")
+    host_walls.append(w)
+
+    lam_exact = 0.130 * (4 - 4 * math.cos(math.pi / 1025))
+    lam_min = float(np.min(d.eigenvalues.real))
+    resid = _stencil_resid(d.Q, d.R, LAPLACE, grid)
+    host_lam = float(np.min(dh.eigenvalues.real))
+    del d, dh
+    parts = dict(MAIN_PARTS, restart="restart_kernel")
+    prof = _profile(torch, "device_profile", op, "restart_kernel",
+                    "profile_device.txt", parts=parts, **MAIN_KW,
+                    restarts=3, v1=v1, method="device")
+    hprof = _profile(torch, "device_host_profile", op, "stencil5",
+                     "profile_device_host.txt", parts=MAIN_PARTS, **MAIN_KW,
+                     restarts=3, v1=v1, method="host")
+    keys = ("device_busy_share", "device_busy_s", "device_launches",
+            "dtoh_copies", "wall_s", "restarts", "mvproducts")
+    sync_limit = h.restarts + rollbacks + 1
+    check("device_main", h.converged and h.nconverged == 20
+          and abs(lam_min - lam_exact) <= 1e-5 and resid <= 1e-5
+          and h.host_syncs <= sync_limit
+          and launches["stencil5"] == h.mvproducts + discarded
+          and launches["dense_restart"] >= h.restarts
+          and launches["dense_finish"] == 1,
+          n=grid[0] * grid[1], mvproducts=h.mvproducts, restarts=h.restarts,
+          nconverged=h.nconverged, purges=h.purges, host_syncs=h.host_syncs,
+          host_sync_limit=sync_limit,
+          reads_per_restart=h.host_syncs / max(h.restarts, 1),
+          rollbacks=rollbacks, discarded_matvecs=discarded,
+          launches=launches, wall_s_median=statistics.median(walls),
+          walls_s=walls, lam_min=lam_min, lam_exact=lam_exact,
+          lam_min_err=abs(lam_min - lam_exact), schur_residual=resid,
+          profile={k: prof[k] for k in keys} | {
+              "restart_device_ms": prof["restart_device_ms"],
+              "restart_share_of_device": prof["restart_share_of_device"],
+              "stencil_device_ms": prof["stencil_device_ms"],
+              "gemv_device_ms": prof["gemv_device_ms"]},
+          host={"mvproducts": host.mvproducts, "restarts": host.restarts,
+                "converged": host.converged, "host_syncs": host.host_syncs,
+                "reads_per_restart": host.host_syncs / host.restarts,
+                "dense_s": host.timings["dense"],
+                "dense_ms_per_restart": 1e3 * host.timings["dense"] / host.restarts,
+                "lam_min_err": abs(host_lam - lam_exact),
+                "wall_s_median": statistics.median(host_walls),
+                "walls_s": host_walls,
+                "profile": {k: hprof[k] for k in keys}},
+          jax_tpu_record={"source": "BENCH_r05.json (JAX on a TPU)",
+                          "mvproducts": 10332, "restarts": 357,
+                          "wall_s_warm": 70.9})
+    return launches
+
+
+def device_only(torch, card):
+    """--device: the roofline, the dense restart kernels and the device
+    method's two solves alone."""
+    phase_roofline(torch)
+    phase_dense_restart_kernel(torch)
+    phase_device_readme(torch)
+    phase_device_main(torch)
+
+
 def main():
     import torch
 
@@ -2516,6 +2954,9 @@ def main():
 
     card = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--device"]:
+        device_only(torch, card)
+        return
     if sys.argv[1:] == ["--conv-starts"]:
         conv_starts(torch)
         return
@@ -2539,7 +2980,6 @@ def main():
     del d
     dgks_profile = phase_profile(torch)
     lowsync_launches = phase_lowsync_main(torch, main_wall, dgks_profile)
-    launches = main_launches + lowsync_launches
 
     import numpy as np
 
@@ -2573,13 +3013,28 @@ def main():
     phase_ext_readme(torch)
     phase_ext_dd(torch)
     df_launches, project_forms, axpy_forms = phase_ext_conv(torch)
+    # method="device" last: the earlier phases run as they did before it.
+    phase_roofline(torch)
+    restart_lines, _, restart_captured = phase_dense_restart_kernel(torch)
+    phase_device_readme(torch)
+    device_launches = phase_device_main(torch)
+    launches = main_launches + lowsync_launches + device_launches["stencil5"]
 
     def entry(name, source, replaces, launches, shape, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
+        # A bytes bound restated at the copy rate measured by `roofline`.
+        at_copy = (shape["bound_ms"] * PEAK_BYTES_S / COPY["bytes_s"]
+                   if shape["bound_by"] == "bytes" else shape["bound_ms"])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, **extra, "launches": launches,
-                **{k: shape[k] for k in keys}}
+                **{k: shape[k] for k in keys},
+                "bound_ms_at_copy_rate": at_copy}
+
+    dr80, dr200 = restart_lines[(80, torch.float32)], restart_lines[(200, torch.float32)]
+    finish80 = {k: dr80[f"finish_{k}"] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
+    finish80.update(max_abs_err=dr80["max_abs_err"], library_ms=None)
 
     xla = "; an XLA loop, not a Pallas kernel"
     df_src = "arnoldimethod_torch/csrc/df.cu"
@@ -2590,7 +3045,8 @@ def main():
               kernels[0],
               also_replaces="arnoldimethod_tpu/ops/stencil_pallas.py:157",
               launches_by_phase={"main": main_launches,
-                                 "lowsync_main": lowsync_launches}),
+                                 "lowsync_main": lowsync_launches,
+                                 "device_main": device_launches["stencil5"]}),
         entry("bsr", "arnoldimethod_torch/csrc/bsr.cu",
               "arnoldimethod_tpu/ops/bsr_pallas.py:138", bsr_launches,
               bsr_shape),
@@ -2627,6 +3083,22 @@ def main():
               "arnoldimethod_tpu/models/operators.py:395 "
               "Stencil5Operator.matvec_df" + xla, df_launches["stencil5_df"],
               df_shapes["stencil5_df"]),
+        # The numbers of the m = 80 float32 case (device_main's m).
+        entry("dense_restart", "arnoldimethod_torch/csrc/dense_restart.cu",
+              "arnoldimethod_tpu/fused.py:109-202 (the lax.while_loop body "
+              "over arnoldimethod_tpu/dense/device.py)" + xla,
+              device_launches["dense_restart"], dr80, case="arnoldi_m80 float32",
+              one_sm_bound_ms=dr80["one_sm_bound_ms"],
+              host_core_ms=dr80["host_core_ms"],
+              m200={k: dr200[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "one_sm_bound_ms", "host_core_ms")},
+              captured_restart3={k: restart_captured[k] for k in (
+                  "ms", "plain_ms", "bound_ms", "host_core_ms", "bitwise")}),
+        entry("dense_finish", "arnoldimethod_torch/csrc/dense_restart.cu",
+              "arnoldimethod_tpu/fused.py:221 _fused_finish" + xla,
+              device_launches["dense_finish"], finish80,
+              case="arnoldi_m80 float32",
+              one_sm_bound_ms=dr80["finish_one_sm_bound_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

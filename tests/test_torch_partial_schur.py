@@ -234,7 +234,9 @@ def test_q_rows_is_not_the_workspace():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(method="device"),
+        # method="device" is ported (tests/test_torch_fused.py); its
+        # sharded path is not.
+        dict(method="device", sharding=object()),
         # extended=True is ported; its sharded path is not.
         dict(extended=True, sharding=object()),
         dict(sharding=object()),
