@@ -109,6 +109,11 @@ __device__ T seq_tree(T* s, int n) {
 
 // --- Givens rotations ---------------------------------------------------------
 
+// The Francis sweeps and rotation steps of a launch (one step: one left
+// application of a two- or three-row rotation, with its right ones).
+__shared__ int chain_counts[2];
+enum { C_SWEEPS = 0, C_STEPS };
+
 template <class T>
 __device__ T hyp(T x, T y) {
   const T a = vabs(x), b = vabs(y);
@@ -134,6 +139,7 @@ __device__ void givens(T f, T g, T& c, T& s, T& r) {
 // A[i:i+2, j0:j1] = [c s; -s c] @ A[i:i+2, j0:j1] (row stride ld).
 template <class T>
 __device__ void lmul2(T* A, int ld, T c, T s, int i, int j0, int j1) {
+  if (TID == 0) ++chain_counts[C_STEPS];
   T* r1 = A + i * ld;
   T* r2 = r1 + ld;
   for (int j = j0 + TID; j < j1; j += NT) {
@@ -156,6 +162,7 @@ __device__ void rmul2(T* A, int ld, T c, T s, int i, int r0, int r1) {
 
 template <class T>
 __device__ void lmul3(T* A, int ld, T c1, T s1, T c2, T s2, int i, int j0, int j1) {
+  if (TID == 0) ++chain_counts[C_STEPS];
   T* q1 = A + i * ld;
   T* q2 = q1 + ld;
   T* q3 = q2 + ld;
@@ -340,6 +347,7 @@ __device__ bool local_schur(T* H, T* Q, int m, int lo, int hi, T eps, int maxite
       const T c11 = H[(to - 1) * m + to - 1], c12 = H[(to - 1) * m + to];
       const T c21 = H[to * m + to - 1], c22 = H[to * m + to];
       T mu;
+      if (TID == 0) ++chain_counts[C_SWEEPS];
       if (use_single_shift(c11, c12, c21, c22, mu))
         single_shift_sweep(H, Q, m, frm, to, mu);
       else
@@ -948,6 +956,17 @@ template <class T> __device__ T eps_of();
 template <> __device__ float eps_of<float>() { return 1.1920928955078125e-07f; }
 template <> __device__ double eps_of<double>() { return 2.220446049250313e-16; }
 
+// The clock64() stamps of a restart launch, thread 0's after a barrier:
+// entry, then the end of each phase.
+enum {
+  P_ENTRY = 0, P_FLAGS, P_SCHUR, P_RESIDUALS, P_GROUPS, P_PARTITION, P_RESTORE,
+  P_QBIG, N_STAMPS
+};
+
+__device__ __forceinline__ void stamp(long long* stamps, int p) {
+  if (stamps != nullptr && TID == 0) stamps[p] = clock64();
+}
+
 template <class T>
 __device__ void set_eye(T* A, int rows, int cols) {
   for (int e = TID; e < rows * cols; e += NT) A[e] = (e / cols == e % cols) ? T(1) : T(0);
@@ -956,8 +975,10 @@ __device__ void set_eye(T* A, int rows, int cols) {
 template <class T>
 __global__ void __launch_bounds__(1024)
 restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
-               T* work, int* iwork, int m, int nev, int mindim, double tol_d,
-               int restarts, int which, int maxiter) {
+               T* work, int* iwork, long long* stamps, int m, int nev, int mindim,
+               double tol_d, int restarts, int which, int maxiter) {
+  stamp(stamps, P_ENTRY);
+  if (TID == 0) chain_counts[C_SWEEPS] = chain_counts[C_STEPS] = 0;
   // The last expansion range's breakdown flags: roll back at the first.
   int jb = m;
   for (int j = TID; j < m; j += NT)
@@ -965,6 +986,7 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
   jb = block_ext<false>(jb);
   if (jb < m) {
     if (TID == 0) state[S_ROLLBACK] = jb;
+    for (int p = P_FLAGS; p < N_STAMPS; ++p) stamp(stamps, p);
     return;
   }
   const int active = state[S_ACTIVE];
@@ -977,8 +999,10 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
 
   set_eye(Q, m, m);
   SYNC();
+  stamp(stamps, P_FLAGS);
   const bool ok = local_schur(H, Q, m, active, m, eps, maxiter);
   SYNC();
+  stamp(stamps, P_SCHUR);
   eigenvalues(H, m, eps, w.coupled, w.starts, w.lre, w.lim);
 
   // Residuals, thread per Ritz position, then the Schur-coupling floor and
@@ -1009,6 +1033,7 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
   for (int e = TID; e < (m + 1) * m; e += NT) w.rw.ts[e] = H[e] * H[e];
   SYNC();
   const T hfrob = vsqrt(block_tree(w.rw.ts, (m + 1) * m));
+  stamp(stamps, P_RESIDUALS);
 
   // The stable sort by the target's key: rank = smaller keys + equal keys
   // at lower indices.
@@ -1056,11 +1081,14 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
   int purge = active;
   for (int i = 0; i < active; ++i)
     if (w.groups[i] != 1) { purge = i; break; }
+  stamp(stamps, P_GROUPS);
 
   partition_three_way(H, Q, m, w.groups);
   SYNC();
+  stamp(stamps, P_PARTITION);
   restore_arnoldi(H, Q, m, nlock, k, w.rw);
   SYNC();
+  stamp(stamps, P_RESTORE);
 
   // Qbig: columns [purge, k) from Q's rows [purge, m); column k takes the
   // old row m; identity elsewhere.
@@ -1090,7 +1118,11 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info,
     info[1] = k;
     info[2] = purge;
     info[3] = eff;
+    info[4 + 2 * m] = chain_counts[C_SWEEPS];
+    info[5 + 2 * m] = chain_counts[C_STEPS];
   }
+  SYNC();
+  stamp(stamps, P_QBIG);
 }
 
 template <class T>
@@ -1113,7 +1145,8 @@ finish_kernel(T* H, T* Q, T* Qbig, T* lam, const int* state, T* work, int* iwork
 
 template <class T>
 int launch_restart(void* H, void* Q, void* Qbig, void* state, const void* flags,
-                   void* info, void* work, void* iwork, int m, int nev, int mindim,
+                   void* info, void* work, void* iwork, void* stamps, int m, int nev,
+                   int mindim,
                    double tol, int restarts, int which, int maxiter, int threads,
                    void* stream) {
   if (m < 2 || threads < 32 || threads > 1024 || threads % 32 != 0)
@@ -1121,8 +1154,8 @@ int launch_restart(void* H, void* Q, void* Qbig, void* state, const void* flags,
   restart_kernel<T><<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(H), static_cast<T*>(Q), static_cast<T*>(Qbig),
       static_cast<int*>(state), static_cast<const T*>(flags), static_cast<int*>(info),
-      static_cast<T*>(work), static_cast<int*>(iwork), m, nev, mindim, tol, restarts,
-      which, maxiter);
+      static_cast<T*>(work), static_cast<int*>(iwork), static_cast<long long*>(stamps),
+      m, nev, mindim, tol, restarts, which, maxiter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1144,14 +1177,15 @@ extern "C" {
 
 long long dense_restart_work_len(int m) { return work_len(m); }
 long long dense_restart_iwork_len(int m) { return iwork_len(m); }
+int dense_restart_stamps() { return N_STAMPS; }
 
 #define RESTART_ARGS                                                              \
   void *H, void *Q, void *Qbig, void *state, const void *flags, void *info,       \
-      void *work, void *iwork, int m, int nev, int mindim, double tol,            \
-      int restarts, int which, int maxiter, int threads, void *stream
+      void *work, void *iwork, void *stamps, int m, int nev, int mindim,          \
+      double tol, int restarts, int which, int maxiter, int threads, void *stream
 #define RESTART_PASS                                                              \
-  H, Q, Qbig, state, flags, info, work, iwork, m, nev, mindim, tol, restarts,     \
-      which, maxiter, threads, stream
+  H, Q, Qbig, state, flags, info, work, iwork, stamps, m, nev, mindim, tol,       \
+      restarts, which, maxiter, threads, stream
 #define FINISH_ARGS                                                               \
   void *H, void *Q, void *Qbig, void *lam, const void *state, void *work,         \
       void *iwork, int m, int which, int threads, void *stream

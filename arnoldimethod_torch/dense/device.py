@@ -47,6 +47,7 @@ from .._build import PACKAGE_DIR, build_shared, nvcc_command
 __all__ = [
     "KERNEL",
     "ORDER_CODES",
+    "PHASES",
     "PLAIN_OPS",
     "STATE",
     "block_starts",
@@ -54,6 +55,7 @@ __all__ = [
     "finish",
     "finish_plain",
     "givens",
+    "info_len",
     "local_schur",
     "new_state",
     "order_key",
@@ -78,6 +80,18 @@ STATE = dict(active=0, prods=1, it=2, purges=3, done=4, qr_ok=5, k=6,
              rollback=7)
 STATE_LEN = 8
 
+# The restart kernel's clock64() stamps (entry, then the end of each
+# phase), in the order of `KERNEL.stamps`.
+PHASES = ("flags", "local_schur", "residuals", "groups", "partition",
+          "restore", "qbig")
+
+
+def info_len(m):
+    """Length of a restart's int32 `info`: nlock, k, purge, effective nev,
+    the sorted order (m), the groups (m), then the Francis sweeps and the
+    rotation steps of the restart."""
+    return 6 + 2 * m
+
 
 class _OpCount:
     """Lane operations of the plain version's row and column updates: 6 an
@@ -86,10 +100,14 @@ class _OpCount:
     and the residuals' substitutions are not counted, so the count is a
     lower bound of the restart's arithmetic; `chip_smoke.py` divides it by
     the card's issue rate for the kernels' operations bound.  Set `n` to 0
-    to count one call."""
+    to count one call.  `sweeps` counts Francis sweeps and `steps` rotation
+    steps (one left application of a two- or three-row rotation, with its
+    right ones), as the kernel counts them into `info`."""
 
     def __init__(self):
         self.n = 0
+        self.sweeps = 0
+        self.steps = 0
 
 
 PLAIN_OPS = _OpCount()
@@ -167,6 +185,7 @@ def givens(f, g):
 
 def _lmul2(c, s, A, i, j0, j1):
     """A[i:i+2, j0:j1] = G @ A[i:i+2, j0:j1], G = [c s; -s c]."""
+    PLAIN_OPS.steps += 1
     if j1 <= j0:
         return
     PLAIN_OPS.n += 6 * (j1 - j0)
@@ -193,6 +212,7 @@ def _rmul2(A, c, s, i, r0, r1):
 
 def _lmul3(c1, s1, c2, s2, A, i, j0, j1):
     """Rows i..i+2 times G2 @ G1 (G1 on rows i+1, i+2; G2 on i, i+1)."""
+    PLAIN_OPS.steps += 1
     if j1 <= j0:
         return
     PLAIN_OPS.n += 12 * (j1 - j0)
@@ -353,6 +373,7 @@ def local_schur(H, Q, lo, hi, eps=None, maxiter=None):
             c11, c12 = Hn[to - 1, to - 1], Hn[to - 1, to]
             c21, c22 = Hn[to, to - 1], Hn[to, to]
             is_single, mu = _use_single_shift(c11, c12, c21, c22)
+            PLAIN_OPS.sweeps += 1
             if is_single:
                 _single_shift_sweep(H, Hn, Q, frm, to, mu)
             else:
@@ -856,8 +877,9 @@ def restart_plain(H, Qbig, state, flags, nev, mindim, tol, restarts, which,
     walk, the purge index, the three-way partition, the Hessenberg
     restore, and Qbig, the basis change V <- Qbig^T V.  The state's
     counters advance as the JAX loop's do.  Returns the Q of the restart;
-    `info` (int32, 4 + 2m), when given, receives nlock, k, purge,
-    effective_nev, the sorted order and the groups."""
+    `info` (int32, `info_len(m)`), when given, receives nlock, k, purge,
+    effective_nev, the sorted order, the groups, and the Francis sweeps
+    and rotation steps of the restart."""
     m = H.shape[1]
     S = state.numpy()
     broke = np.flatnonzero(flags.numpy()[:m])
@@ -871,6 +893,7 @@ def restart_plain(H, Qbig, state, flags, nev, mindim, tol, restarts, which,
     if maxiter is None:
         maxiter = 100 * m
     idxv = torch.arange(m)
+    sweeps0, steps0 = PLAIN_OPS.sweeps, PLAIN_OPS.steps
 
     Q = torch.eye(m, dtype=H.dtype)
     _, _, ok = local_schur(H, Q, active, m, eps, maxiter)
@@ -941,6 +964,8 @@ def restart_plain(H, Qbig, state, flags, nev, mindim, tol, restarts, which,
         info[:4] = torch.tensor([nlock, k, purge, effective_nev])
         info[4:4 + m] = torch.tensor(order)
         info[4 + m:4 + 2 * m] = torch.tensor(groups)
+        info[4 + 2 * m:] = torch.tensor([PLAIN_OPS.sweeps - sweeps0,
+                                         PLAIN_OPS.steps - steps0])
     return Q
 
 
@@ -971,11 +996,13 @@ THREADS = 256
 class _DenseRestartKernel:
     """The built library of `csrc/dense_restart.cu` and the counts of its
     launches: `launches` for the restart kernel, `finish_launches` for the
-    final sort."""
+    final sort.  `stamps` holds the last restart launch's clock64() stamps
+    (int64 on the card: entry, then the end of each of `PHASES`)."""
 
     def __init__(self):
         self.launches = 0
         self.finish_launches = 0
+        self.stamps = None
         self.build_log = ""
         self._lib = None
 
@@ -1006,13 +1033,18 @@ class _DenseRestartKernel:
         work, iwork = self._scratch(lib, H)
         Q = torch.empty((m, m), dtype=H.dtype, device=H.device)
         if info is None:
-            info = torch.empty(4 + 2 * m, dtype=torch.int32, device=H.device)
+            info = torch.empty(info_len(m), dtype=torch.int32, device=H.device)
+        if info.numel() < info_len(m):
+            raise ValueError(f"info must hold info_len(m) = {info_len(m)} int32")
+        self.stamps = torch.empty(len(PHASES) + 1, dtype=torch.int64,
+                                  device=H.device)
         fn = lib.dense_restart_f32 if H.dtype == torch.float32 else lib.dense_restart_f64
         with torch.cuda.device(H.device):
             stream = torch.cuda.current_stream(H.device).cuda_stream
             err = fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(),
                      state.data_ptr(), flags.data_ptr(), info.data_ptr(),
-                     work.data_ptr(), iwork.data_ptr(), m, nev, mindim,
+                     work.data_ptr(), iwork.data_ptr(), self.stamps.data_ptr(),
+                     m, nev, mindim,
                      float(tol), restarts, ORDER_CODES[which],
                      100 * m if maxiter is None else maxiter, THREADS, stream)
         if err != 0:
@@ -1048,7 +1080,7 @@ def bind(lib):
         getattr(lib, name).restype = ctypes.c_longlong
     for word in ("_f32", "_f64"):
         f = getattr(lib, "dense_restart" + word)
-        f.argtypes = [p] * 8 + [i, i, i, d, i, i, i, i, p]
+        f.argtypes = [p] * 9 + [i, i, i, d, i, i, i, i, p]
         f.restype = i
         f = getattr(lib, "dense_finish" + word)
         f.argtypes = [p] * 7 + [i, i, i, p]

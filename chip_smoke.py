@@ -9,6 +9,7 @@
                                           # stencil5_df's points a thread
     python3 chip_smoke.py --axpy-sweep    # df_axpy under other plans
     python3 chip_smoke.py --device        # the method="device" phases only
+    python3 chip_smoke.py --dense-restart # the dense_restart_kernel phase only
 
 Phases, each printed as one JSON line:
 
@@ -268,6 +269,7 @@ def phase_device(torch):
     )
     clock_mhz = float(clock.stdout.split()[0]) if clock.returncode == 0 else 0.0
     sms = set_peak_ops(torch, clock_mhz)
+    CLOCK_MHZ["sm"] = clock_mhz
     check("device", smi.returncode == 0 and card and clock_mhz > 0,
           nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
           name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
@@ -1285,6 +1287,8 @@ PEAK_BYTES_S = 3.35e12
 # reports as clocks.max.sm (phase_device sets PEAK_OPS_S).
 LANES = {"float32": 128, "float64": 64}
 PEAK_OPS_S = {}
+# nvidia-smi's clocks.max.sm in MHz (phase_device sets it).
+CLOCK_MHZ = {}
 # Operations of the double-word steps of ops/df32.py with every operand
 # split beforehand, each split (4) counted once an operand: two_prod 9,
 # df_mul 16, df_scale 14, df_add 11 (17, 24, 22 with both splits).
@@ -2631,6 +2635,13 @@ def _host_core_ms(H0, active, nev, mindim, tol, which, eps, reps=5):
     return 1e3 * statistics.median(times)
 
 
+# The restart kernel's times before its redesign (run D of PR 11, NVIDIA
+# H100 80GB HBM3 at 700 W), by case and word.
+EARLIER_RESTART_MS = {("arnoldi_m80", "float32"): 12.3664408,
+                      ("arnoldi_m200", "float32"): 95.4865763}
+EARLIER_FINISH_MS = 0.0083320
+
+
 def _restart_case(torch, name, H0, S0, flags, kw):
     """The restart kernel against its plain version (on the host, CPU
     tensors) on one input, then the finish kernel on the restart's output;
@@ -2646,13 +2657,15 @@ def _restart_case(torch, name, H0, S0, flags, kw):
         S = S0.to(dev).clone()
         F = flags.to(dev)
         Qbig = torch.empty((m + 1, m + 1), dtype=dtype, device=dev)
-        info = torch.zeros(4 + 2 * m, dtype=torch.int32, device=dev)
+        info = torch.zeros(dd.info_len(m), dtype=torch.int32, device=dev)
         dd.PLAIN_OPS.n = 0
         t0 = time.perf_counter()
         Q = dd.restart(H, Qbig, S, F, info=info, **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         restart_ops = dd.PLAIN_OPS.n
+        if dev == "cuda":
+            stamps = dd.KERNEL.stamps.tolist()
         Hr = H.clone()
         lam = torch.empty((2, m), dtype=dtype, device=dev)
         dd.PLAIN_OPS.n = 0
@@ -2668,14 +2681,16 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     floats = ("H", "Q", "Qbig", "Hf", "Qf", "lam")
     scale = max(1.0, float(c["H"].abs().max()))
     err = max(float((c[k].double() - g[k].double()).abs().max()) for k in floats)
-    bitwise = all(torch.equal(c[k], g[k]) for k in floats)
+    # Equal values (torch.equal), and equal bits with signed zeros too.
+    same = all(torch.equal(c[k], g[k]) for k in floats)
+    bits_equal = bitwise([(c[k], g[k]) for k in floats])
 
     # Device time: 20 calls in a CUDA graph, each restoring the input
     # first (two small copies) so every call does the same work.
     Hg0, Sg0, Fg = H0.cuda(), S0.cuda(), flags.cuda()
     Hw, Sw = Hg0.clone(), Sg0.clone()
     Qbw = torch.empty((m + 1, m + 1), dtype=dtype, device="cuda")
-    iw = torch.zeros(4 + 2 * m, dtype=torch.int32, device="cuda")
+    iw = torch.zeros(dd.info_len(m), dtype=torch.int32, device="cuda")
     lamw = torch.empty((2, m), dtype=dtype, device="cuda")
     Hf0 = out["cuda"]["H"].clone()
     Sf0 = out["cuda"]["S"].clone()
@@ -2708,17 +2723,31 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     host_ms = _host_core_ms(Hn, active, kw["nev"], kw["mindim"], kw["tol"],
                             kw["which"], torch.finfo(dtype).eps)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
+    # The kernel's phases from its clock64() stamps: each phase's share of
+    # the stamped clocks times the graph's ms, and its clocks at
+    # clocks.max.sm.
+    clocks = [b - a for a, b in zip(stamps, stamps[1:])]
+    total = max(sum(clocks), 1)
+    sweeps, steps = g["info"][4 + 2 * m:].tolist()
     res = dict(case=name, m=m, dtype=word, active=active,
                state=g["S"].tolist(), nlock_k_purge=g["info"][:3].tolist(),
-               ints_equal=ints_equal, bitwise=bitwise, max_abs_err=err,
-               tolerance=tol * scale, ms=ms, plain_ms=1e3 * c["s"],
+               ints_equal=ints_equal, bitwise=same, bits_equal=bits_equal,
+               max_abs_err=err, tolerance=tol * scale,
+               storage="global", sweeps=sweeps, steps=steps,
+               phases_ms={p: ms * n / total for p, n in zip(dd.PHASES, clocks)},
+               phases_ms_at_max_clock={
+                   p: n / (CLOCK_MHZ["sm"] * 1e3) for p, n in zip(dd.PHASES, clocks)},
+               us_per_step=1e3 * ms / max(steps, 1),
+               ms=ms, earlier_ms=EARLIER_RESTART_MS.get((name, word)),
+               plain_ms=1e3 * c["s"],
                plain_on="host CPU", bound_ms=bound_ms, bound_by=bound_by,
                one_sm_bound_ms=bound_ms * sms, lane_ops=c["ops"],
                library_ms=None, host_core_ms=host_ms,
                finish_ms=fms, finish_plain_ms=1e3 * c["fs"],
                finish_bound_ms=fbound_ms, finish_bound_by=fbound_by,
                finish_one_sm_bound_ms=fbound_ms * sms)
-    check("dense_restart_kernel", ints_equal and err <= tol * scale, **res)
+    check("dense_restart_kernel", ints_equal and same and err <= tol * scale,
+          **res)
     return res
 
 
@@ -2956,6 +2985,9 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--device"]:
         device_only(torch, card)
+        return
+    if sys.argv[1:] == ["--dense-restart"]:
+        phase_dense_restart_kernel(torch)
         return
     if sys.argv[1:] == ["--conv-starts"]:
         conv_starts(torch)

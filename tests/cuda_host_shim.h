@@ -9,6 +9,7 @@
 // operation (the test builds with -ffp-contract=off).
 #pragma once
 #include <barrier>
+#include <chrono>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
@@ -62,6 +63,9 @@ template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline void __threadfence() {}
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   std::lock_guard<std::mutex> hold(emu_atomic_mutex);
   const unsigned old = *p;

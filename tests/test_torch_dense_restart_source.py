@@ -101,7 +101,7 @@ def k_restart(lib, H, Qbig, state, flags, nev, mindim, tol, restarts, which,
     fn = lib.dense_restart_f32 if H.dtype == torch.float32 else lib.dense_restart_f64
     assert fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(), state.data_ptr(),
               flags.data_ptr(), info.data_ptr(), work.data_ptr(),
-              iwork.data_ptr(), m, nev, mindim, tol, restarts,
+              iwork.data_ptr(), None, m, nev, mindim, tol, restarts,
               dd.ORDER_CODES[which], 100 * m, threads, None) == 0
     return Q
 
@@ -144,7 +144,7 @@ def _both(lib, H0, state0, flags, kw, threads=64):
         m = H0.shape[1]
         H, state = H0.clone(), state0.clone()
         Qbig = torch.full((m + 1, m + 1), -7.0, dtype=H0.dtype)
-        info = torch.zeros(4 + 2 * m, dtype=torch.int32)
+        info = torch.zeros(dd.info_len(m), dtype=torch.int32)
         if use_kernel:
             Q = k_restart(lib, H, Qbig, state, flags, info=info,
                           threads=threads, **kw)
@@ -174,7 +174,8 @@ def test_restart_kernel_is_the_plain_version(lib, dtype, m, which, threads):
     assert state[dd.STATE["rollback"]] == -1 and state[dd.STATE["it"]] == 1
     info = kern[4].tolist()
     assert sorted(info[4:4 + m]) == list(range(m))
-    assert set(info[4 + m:]) <= {1, 2, 3}
+    assert set(info[4 + m:4 + 2 * m]) <= {1, 2, 3}
+    assert info[4 + 2 * m] > 0 and info[5 + 2 * m] > info[4 + 2 * m]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -207,7 +208,7 @@ def _captured_solve(monkeypatch, lib, run, use_kernel):
         maxiter = kw.pop("maxiter") or 100 * m
         assert maxiter == 100 * m
         return k_restart(lib, H, Qbig, state, flags,
-                         info=torch.zeros(4 + 2 * m, dtype=torch.int32),
+                         info=torch.zeros(dd.info_len(m), dtype=torch.int32),
                          **{k: v for k, v in kw.items() if k != "info"})
 
     def finish(H, Qbig, lam, state, which):
