@@ -989,20 +989,32 @@ def finish_plain(H, Qbig, lam, count, which):
 # --- the CUDA kernels --------------------------------------------------------
 
 _SOURCE = PACKAGE_DIR / "csrc" / "dense_restart.cu"
-# Threads of the one CTA a call runs on.
+# Threads of the one CTA a call runs on: warp 0 runs the rotation chain,
+# warp 1 applies the rotations the chain does not read again, and all
+# eight warps run the block-wide phases.
 THREADS = 256
+
+
+def storage(lib, m, dtype):
+    """Where a launch keeps H and Q: "shared" where both fit in a block's
+    shared memory at the kernel's padded stride, else "global"."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fits = lib.dense_restart_smem_bytes(m, item, 1) <= lib.dense_restart_shared_limit()
+    return "shared" if fits else "global"
 
 
 class _DenseRestartKernel:
     """The built library of `csrc/dense_restart.cu` and the counts of its
     launches: `launches` for the restart kernel, `finish_launches` for the
     final sort.  `stamps` holds the last restart launch's clock64() stamps
-    (int64 on the card: entry, then the end of each of `PHASES`)."""
+    (int64 on the card: entry, then the end of each of `PHASES`), and
+    `storage` where the last launch kept H and Q (`storage`)."""
 
     def __init__(self):
         self.launches = 0
         self.finish_launches = 0
         self.stamps = None
+        self.storage = None
         self.build_log = ""
         self._lib = None
 
@@ -1015,13 +1027,17 @@ class _DenseRestartKernel:
             self._lib = bind(ctypes.CDLL(str(path)))
         return self._lib
 
-    def _scratch(self, lib, H):
+    def _prepare(self, H):
+        """The library, Q's buffer and the storage flag of a launch."""
         m = H.shape[1]
-        work = torch.empty(lib.dense_restart_work_len(m), dtype=H.dtype,
-                           device=H.device)
-        iwork = torch.empty(lib.dense_restart_iwork_len(m), dtype=torch.int32,
-                            device=H.device)
-        return work, iwork
+        lib = self.load()
+        self.storage = storage(lib, m, H.dtype)
+        Q = torch.empty((m, m), dtype=H.dtype, device=H.device)
+        return lib, Q, int(self.storage == "shared")
+
+    def _iwork(self, lib, H):
+        return torch.empty(lib.dense_restart_iwork_len(H.shape[1]),
+                           dtype=torch.int32, device=H.device)
 
     def restart(self, H, Qbig, state, flags, nev, mindim, tol, restarts,
                 which, maxiter=None, info=None):
@@ -1029,9 +1045,10 @@ class _DenseRestartKernel:
         stream; returns Q.  Raises on a launch error."""
         _check(H, Qbig, state, flags)
         m = H.shape[1]
-        lib = self.load()
-        work, iwork = self._scratch(lib, H)
-        Q = torch.empty((m, m), dtype=H.dtype, device=H.device)
+        lib, Q, shared = self._prepare(H)
+        work = torch.empty(lib.dense_restart_work_len(m), dtype=H.dtype,
+                           device=H.device)
+        iwork = self._iwork(lib, H)
         if info is None:
             info = torch.empty(info_len(m), dtype=torch.int32, device=H.device)
         if info.numel() < info_len(m):
@@ -1044,9 +1061,9 @@ class _DenseRestartKernel:
             err = fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(),
                      state.data_ptr(), flags.data_ptr(), info.data_ptr(),
                      work.data_ptr(), iwork.data_ptr(), self.stamps.data_ptr(),
-                     m, nev, mindim,
-                     float(tol), restarts, ORDER_CODES[which],
-                     100 * m if maxiter is None else maxiter, THREADS, stream)
+                     m, nev, mindim, float(tol), restarts, ORDER_CODES[which],
+                     100 * m if maxiter is None else maxiter, shared, THREADS,
+                     stream)
         if err != 0:
             raise RuntimeError(f"dense_restart kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -1056,15 +1073,14 @@ class _DenseRestartKernel:
         """One launch of the finish kernel; returns Q."""
         _check(H, Qbig, state, lam)
         m = H.shape[1]
-        lib = self.load()
-        work, iwork = self._scratch(lib, H)
-        Q = torch.empty((m, m), dtype=H.dtype, device=H.device)
+        lib, Q, shared = self._prepare(H)
+        iwork = self._iwork(lib, H)
         fn = lib.dense_finish_f32 if H.dtype == torch.float32 else lib.dense_finish_f64
         with torch.cuda.device(H.device):
             stream = torch.cuda.current_stream(H.device).cuda_stream
             err = fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(), lam.data_ptr(),
-                     state.data_ptr(), work.data_ptr(), iwork.data_ptr(), m,
-                     ORDER_CODES[which], THREADS, stream)
+                     state.data_ptr(), iwork.data_ptr(), m, ORDER_CODES[which],
+                     shared, THREADS, stream)
         if err != 0:
             raise RuntimeError(f"dense_finish kernel launch failed: CUDA error {err}")
         self.finish_launches += 1
@@ -1078,12 +1094,16 @@ def bind(lib):
     for name in ("dense_restart_work_len", "dense_restart_iwork_len"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_longlong
+    lib.dense_restart_smem_bytes.argtypes = [i, i, i]
+    lib.dense_restart_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_restart_shared_limit.argtypes = []
+    lib.dense_restart_shared_limit.restype = ctypes.c_longlong
     for word in ("_f32", "_f64"):
         f = getattr(lib, "dense_restart" + word)
-        f.argtypes = [p] * 9 + [i, i, i, d, i, i, i, i, p]
+        f.argtypes = [p] * 9 + [i, i, i, d, i, i, i, i, i, p]
         f.restype = i
         f = getattr(lib, "dense_finish" + word)
-        f.argtypes = [p] * 7 + [i, i, i, p]
+        f.argtypes = [p] * 6 + [i, i, i, i, p]
         f.restype = i
     return lib
 

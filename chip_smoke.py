@@ -153,19 +153,25 @@ Phases, each printed as one JSON line:
            host CPU: Arnoldi H at m = 20, 80 and 200 in float32 and float64,
            a purge restart and the H of device_main's third restart; the
            integer outputs equal, H, Q, Qbig and the finish outputs within
-           1e-4 (float32) or 1e-10 (float64) of max|H|, and whether they
-           are bitwise; ms a call (a graph of 20 calls, the input restored
-           before each) beside the plain version's and the host C++ core's
-           on the same H, and the operations bound (lane operations of the
-           plain version's rotations and reflectors, dense.device.PLAIN_OPS)
-           over the card's rate and over one SM's
+           1e-4 (float32) or 1e-10 (float64) of max|H| and bitwise (signed
+           zeros too); ms a call (a graph of 20 calls, the input restored
+           before each) beside PR 11's kernel's (earlier_ms), the plain
+           version's and the host C++ core's on the same H, the operations
+           bound (lane operations of the plain version's rotations and
+           reflectors, dense.device.PLAIN_OPS) over the card's rate and over
+           one SM's; where the launch kept H and Q (storage), its Francis
+           sweeps and rotation steps, and the ms of each phase from the
+           kernel's clock64() stamps (phases_ms: each phase's share of the
+           stamped clocks times ms; phases_ms_at_max_clock: its clocks at
+           clocks.max.sm)
   device_readme  the README configuration with method="device" on the card
            and on the CPU from one v1: the same matvec and restart counts
   device_main  config 2 with method="device" (bench.py's e2e_1m_device) and
            with method="host" from one v1 in the same call: 20/20 within
            main's limits, reads at most restarts + rollbacks + 1, stencil
            launches = matvecs + discarded steps, restart-kernel launches,
-           median walls of 3 each, and 3-restart profiles of both
+           median walls of 3 each and their ratio, and 3-restart profiles
+           of both
            (chiprun_out/profile_device.txt, profile_device_host.txt)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
@@ -305,7 +311,7 @@ def phase_build():
           ptxas=_ptxas(stencil.KERNEL.build_log),
           bsr_ptxas=_ptxas(bsr.KERNEL.build_log),
           df_ptxas=_ptxas(df.KERNEL.build_log),
-          dense_restart_ptxas=_ptxas(device.KERNEL.build_log))
+          dense_restart_ptxas=_dense_ptxas(device.KERNEL.build_log))
 
 
 def _conv2d_stencil(torch, x, coeffs, grid):
@@ -1637,11 +1643,9 @@ def _df_windows(torch, dtype, gen):
     return out
 
 
-def _df_ptxas(log):
-    """Registers, stack frame and spills of each instantiation of csrc/df.cu
-    (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
-    mul_by_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
-    from nvcc's -Xptxas -v output."""
+def _ptxas_functions(log):
+    """Registers, stack frame and spills of each function in nvcc's
+    -Xptxas -v output, by mangled name."""
     import re
 
     out, entry, current = {}, None, None
@@ -1661,8 +1665,34 @@ def _df_ptxas(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def _dense_ptxas(log):
+    """Registers, stack frame and spills of csrc/dense_restart.cu's restart
+    and finish kernels in both words and both storages."""
+    import re
+
     rows = []
-    for name, info in out.items():
+    for name, info in _ptxas_functions(log).items():
+        m = re.search(r"(restart|finish)_kernelI([fd])Lb([01])E", name)
+        if m:
+            rows.append({"kernel": m.group(1),
+                         "word": {"f": "float32", "d": "float64"}[m.group(2)],
+                         "storage": "shared" if m.group(3) == "1" else "global",
+                         **info})
+    return sorted(rows, key=lambda r: (r["kernel"], r["word"], r["storage"]))
+
+
+def _df_ptxas(log):
+    """Registers, stack frame and spills of each instantiation of csrc/df.cu
+    (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
+    mul_by_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
+    from nvcc's -Xptxas -v output."""
+    import re
+
+    rows = []
+    for name, info in _ptxas_functions(log).items():
         m = re.search(r"(project|axpy|mul_by|basis|stencil)_kernelI([fd])"
                       r"((?:L[ib]\d+E)*)E", name)
         if m:
@@ -2666,6 +2696,7 @@ def _restart_case(torch, name, H0, S0, flags, kw):
         restart_ops = dd.PLAIN_OPS.n
         if dev == "cuda":
             stamps = dd.KERNEL.stamps.tolist()
+            storage = dd.KERNEL.storage
         Hr = H.clone()
         lam = torch.empty((2, m), dtype=dtype, device=dev)
         dd.PLAIN_OPS.n = 0
@@ -2681,9 +2712,8 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     floats = ("H", "Q", "Qbig", "Hf", "Qf", "lam")
     scale = max(1.0, float(c["H"].abs().max()))
     err = max(float((c[k].double() - g[k].double()).abs().max()) for k in floats)
-    # Equal values (torch.equal), and equal bits with signed zeros too.
-    same = all(torch.equal(c[k], g[k]) for k in floats)
-    bits_equal = bitwise([(c[k], g[k]) for k in floats])
+    # Equal bits, signed zeros included.
+    same = bitwise([(c[k], g[k]) for k in floats])
 
     # Device time: 20 calls in a CUDA graph, each restoring the input
     # first (two small copies) so every call does the same work.
@@ -2731,9 +2761,9 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     sweeps, steps = g["info"][4 + 2 * m:].tolist()
     res = dict(case=name, m=m, dtype=word, active=active,
                state=g["S"].tolist(), nlock_k_purge=g["info"][:3].tolist(),
-               ints_equal=ints_equal, bitwise=same, bits_equal=bits_equal,
+               ints_equal=ints_equal, bitwise=same,
                max_abs_err=err, tolerance=tol * scale,
-               storage="global", sweeps=sweeps, steps=steps,
+               storage=storage, sweeps=sweeps, steps=steps,
                phases_ms={p: ms * n / total for p, n in zip(dd.PHASES, clocks)},
                phases_ms_at_max_clock={
                    p: n / (CLOCK_MHZ["sm"] * 1e3) for p, n in zip(dd.PHASES, clocks)},
@@ -2942,7 +2972,9 @@ def phase_device_main(torch):
           reads_per_restart=h.host_syncs / max(h.restarts, 1),
           rollbacks=rollbacks, discarded_matvecs=discarded,
           launches=launches, wall_s_median=statistics.median(walls),
-          walls_s=walls, lam_min=lam_min, lam_exact=lam_exact,
+          walls_s=walls,
+          device_over_host_wall=statistics.median(walls) / statistics.median(host_walls),
+          lam_min=lam_min, lam_exact=lam_exact,
           lam_min_err=abs(lam_min - lam_exact), schur_residual=resid,
           profile={k: prof[k] for k in keys} | {
               "restart_device_ms": prof["restart_device_ms"],
@@ -3122,14 +3154,17 @@ def main():
               device_launches["dense_restart"], dr80, case="arnoldi_m80 float32",
               one_sm_bound_ms=dr80["one_sm_bound_ms"],
               host_core_ms=dr80["host_core_ms"],
-              m200={k: dr200[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "one_sm_bound_ms", "host_core_ms")},
+              earlier_ms=EARLIER_RESTART_MS[("arnoldi_m80", "float32")],
+              storage=dr80["storage"], steps=dr80["steps"],
+              m200={k: dr200[k] for k in ("ms", "earlier_ms", "plain_ms", "bound_ms",
+                                          "one_sm_bound_ms", "host_core_ms",
+                                          "storage")},
               captured_restart3={k: restart_captured[k] for k in (
                   "ms", "plain_ms", "bound_ms", "host_core_ms", "bitwise")}),
         entry("dense_finish", "arnoldimethod_torch/csrc/dense_restart.cu",
               "arnoldimethod_tpu/fused.py:221 _fused_finish" + xla,
               device_launches["dense_finish"], finish80,
-              case="arnoldi_m80 float32",
+              case="arnoldi_m80 float32", earlier_ms=EARLIER_FINISH_MS,
               one_sm_bound_ms=dr80["finish_one_sm_bound_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

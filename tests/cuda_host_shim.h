@@ -1,12 +1,15 @@
-// The CUDA features arnoldimethod_torch/csrc/df.cu's kernels use, emulated
-// on the host so that their source runs on a CPU
-// (tests/test_torch_df_source.py): one std::thread per CUDA thread, the
-// blocks of a launch one after another, __syncthreads as a std::barrier,
-// shared memory as statics, cp.async as a copy that has landed when it
-// returns, atomicAdd under a mutex, and __shfl_down_sync through a slot a
-// lane and a barrier a warp (every lane of the warp's threads takes part,
-// as every shuffle in df.cu does).  Each rounded intrinsic is one IEEE
-// operation (the test builds with -ffp-contract=off).
+// The CUDA features arnoldimethod_torch/csrc/df.cu's and dense_restart.cu's
+// kernels use, emulated on the host so that their source runs on a CPU
+// (tests/test_torch_df_source.py, tests/test_torch_dense_restart_source.py):
+// one std::thread per CUDA thread, the blocks of a launch one after
+// another, __syncthreads as a std::barrier, shared memory as statics (the
+// dynamic buffer as one host array), cp.async as a copy that has landed
+// when it returns, atomicAdd under a mutex, a spin-wait's pause as a
+// yield, clock64 as a host clock, and
+// __syncwarp and the shuffles through a slot a lane and a barrier a warp
+// (every lane of the warp's threads takes part, as every shuffle and
+// __syncwarp in those files does).  Each rounded intrinsic is one IEEE
+// operation (the tests build with -ffp-contract=off).
 #pragma once
 #include <barrier>
 #include <chrono>
@@ -51,6 +54,11 @@ enum cudaError_t {
 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+// The host buffer holds any size a block may ask for.
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -63,6 +71,9 @@ template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline void __threadfence() {}
+// A spin-wait yields the core.
+#define SPIN_PAUSE() std::this_thread::yield()
+#define IDLE_PAUSE() std::this_thread::yield()
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
 }
@@ -86,6 +97,37 @@ template <class T> T __shfl_down_sync(unsigned, T v, int delta) {
     std::memcpy(&out, emu_lane_slots[w][lane + delta], sizeof(T));
   bar.arrive_and_wait();  // every lane has read before the slots are reused
   return out;
+}
+// Lane l gets lane `src`'s value (`src` below the warp's threads).
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= 8, "a shuffled value fits a slot");
+  const unsigned t = threadIdx.x, w = t / 32, lane = t % 32;
+  std::barrier<>& bar = *emu_warp_barriers[w];
+  std::memcpy(emu_lane_slots[w][lane], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T out;
+  std::memcpy(&out, emu_lane_slots[w][src], sizeof(T));
+  bar.arrive_and_wait();
+  return out;
+}
+// Lane l gets lane l ^ mask's value, its own where that lane is past the
+// warp's threads.
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
+  static_assert(sizeof(T) <= 8, "a shuffled value fits a slot");
+  const unsigned t = threadIdx.x, w = t / 32, lane = t % 32;
+  const unsigned width = blockDim.x - w * 32 < 32 ? blockDim.x - w * 32 : 32;
+  std::barrier<>& bar = *emu_warp_barriers[w];
+  std::memcpy(emu_lane_slots[w][lane], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T out = v;
+  if ((lane ^ unsigned(mask)) < width)
+    std::memcpy(&out, emu_lane_slots[w][lane ^ unsigned(mask)], sizeof(T));
+  bar.arrive_and_wait();
+  return out;
+}
+// Every lane of the warp's threads takes part.
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
 }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }

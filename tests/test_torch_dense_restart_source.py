@@ -42,9 +42,11 @@ def _on_the_cpu():
 
 
 def host_source(cu):
-    """The .cu text for the host shim: shared memory as statics, launches
-    as emu_launch."""
-    s = cu.replace("__shared__", "static")
+    """The .cu text for the host shim: shared memory as statics (the
+    dynamic buffer as the shim's), launches as emu_launch."""
+    s = cu.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
+                   "unsigned char* const smem_raw = ::emu_dynamic_shared;")
+    s = s.replace("__shared__", "static")
     s = re.sub(r"(\b\w+_kernel<[^<>;]*>)\s*<<<(.*?)>>>\s*\((.*?)\);",
                lambda m: "emu_launch(" + ", ".join(m.group(2).split(",")[:2])
                + ", [&] { " + m.group(1) + "(" + m.group(3) + "); });",
@@ -87,33 +89,36 @@ def mutant(tmp_path_factory):
                        cu.replace(STEP, MUTANT))
 
 
-def _scratch(lib, H):
-    m = H.shape[1]
-    return (torch.empty(lib.dense_restart_work_len(m), dtype=H.dtype),
-            torch.empty(lib.dense_restart_iwork_len(m), dtype=torch.int32))
+def _shared(lib, H, storage):
+    """The C entries' storage flag: the wrapper's choice unless `storage`
+    names one."""
+    storage = storage or dd.storage(lib, H.shape[1], H.dtype)
+    return int(storage == "shared")
 
 
 def k_restart(lib, H, Qbig, state, flags, nev, mindim, tol, restarts, which,
-              info, threads=64):
+              info, threads=96, storage=None):
     m = H.shape[1]
     Q = torch.empty((m, m), dtype=H.dtype)
-    work, iwork = _scratch(lib, H)
+    work = torch.empty(lib.dense_restart_work_len(m), dtype=H.dtype)
+    iwork = torch.empty(lib.dense_restart_iwork_len(m), dtype=torch.int32)
     fn = lib.dense_restart_f32 if H.dtype == torch.float32 else lib.dense_restart_f64
     assert fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(), state.data_ptr(),
               flags.data_ptr(), info.data_ptr(), work.data_ptr(),
               iwork.data_ptr(), None, m, nev, mindim, tol, restarts,
-              dd.ORDER_CODES[which], 100 * m, threads, None) == 0
+              dd.ORDER_CODES[which], 100 * m, _shared(lib, H, storage),
+              threads, None) == 0
     return Q
 
 
-def k_finish(lib, H, Qbig, lam, state, which, threads=64):
+def k_finish(lib, H, Qbig, lam, state, which, threads=96, storage=None):
     m = H.shape[1]
     Q = torch.empty((m, m), dtype=H.dtype)
-    work, iwork = _scratch(lib, H)
+    iwork = torch.empty(lib.dense_restart_iwork_len(m), dtype=torch.int32)
     fn = lib.dense_finish_f32 if H.dtype == torch.float32 else lib.dense_finish_f64
     assert fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(), lam.data_ptr(),
-              state.data_ptr(), work.data_ptr(), iwork.data_ptr(), m,
-              dd.ORDER_CODES[which], threads, None) == 0
+              state.data_ptr(), iwork.data_ptr(), m, dd.ORDER_CODES[which],
+              _shared(lib, H, storage), threads, None) == 0
     return Q
 
 
@@ -138,7 +143,7 @@ def _arnoldi(m, seed, dtype):
     return torch.tensor(H, dtype=dtype)
 
 
-def _both(lib, H0, state0, flags, kw, threads=64):
+def _both(lib, H0, state0, flags, kw, threads=96, storage=None):
     out = []
     for use_kernel in (False, True):
         m = H0.shape[1]
@@ -147,7 +152,7 @@ def _both(lib, H0, state0, flags, kw, threads=64):
         info = torch.zeros(dd.info_len(m), dtype=torch.int32)
         if use_kernel:
             Q = k_restart(lib, H, Qbig, state, flags, info=info,
-                          threads=threads, **kw)
+                          threads=threads, storage=storage, **kw)
         else:
             Q = dd.restart_plain(H, Qbig, state, flags, info=info, **kw)
         out.append((H, Q, Qbig, state, info))
@@ -163,7 +168,7 @@ def _equal(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,which,threads", [(12, "LM", 32), (20, "SR", 64),
-                                             (33, "LR", 64)])
+                                             (33, "LR", 96), (40, "LM", 256)])
 def test_restart_kernel_is_the_plain_version(lib, dtype, m, which, threads):
     H0 = _arnoldi(m, m, dtype)
     kw = dict(nev=4, mindim=m // 2, tol=1e-3, restarts=50, which=which)
@@ -176,6 +181,46 @@ def test_restart_kernel_is_the_plain_version(lib, dtype, m, which, threads):
     assert sorted(info[4:4 + m]) == list(range(m))
     assert set(info[4 + m:4 + 2 * m]) <= {1, 2, 3}
     assert info[4 + 2 * m] > 0 and info[5 + 2 * m] > info[4 + 2 * m]
+
+
+def test_storage_follows_the_shared_memory_limit(lib):
+    """Shared storage at the m of the device method's cells, global where
+    H and Q do not fit a block's shared memory."""
+    for m, dtype, want in ((20, torch.float32, "shared"),
+                           (80, torch.float64, "shared"),
+                           (168, torch.float32, "shared"),
+                           (169, torch.float32, "global"),
+                           (118, torch.float64, "shared"),
+                           (119, torch.float64, "global"),
+                           (200, torch.float32, "global")):
+        assert dd.storage(lib, m, dtype) == want, (m, dtype)
+        item = torch.empty((), dtype=dtype).element_size()
+        fits = (lib.dense_restart_smem_bytes(m, item, 1)
+                <= lib.dense_restart_shared_limit())
+        assert fits == (want == "shared")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,which", [(20, "LM"), (26, "SR")])
+def test_global_storage_is_the_plain_version(lib, dtype, m, which):
+    """H and Q in global memory, as at m = 200: the same code on the
+    caller's arrays, bitwise to the plain version (restart and finish)."""
+    H0 = _arnoldi(m, m + 1, dtype)
+    kw = dict(nev=5, mindim=m // 2, tol=1e-3, restarts=50, which=which)
+    plain, kern = _both(lib, H0, dd.new_state(0, m, 50),
+                        torch.zeros(m, dtype=dtype), kw, storage="global")
+    _equal(plain, kern)
+    out = []
+    for use_kernel in (False, True):
+        H = plain[0].clone()
+        Qbig = torch.empty((m + 1, m + 1), dtype=dtype)
+        lam = torch.empty((2, m), dtype=dtype)
+        if use_kernel:
+            Qf = k_finish(lib, H, Qbig, lam, plain[3], which, storage="global")
+        else:
+            Qf = dd.finish_plain(H, Qbig, lam, int(plain[3][0]), which)
+        out.append((H, Qf, Qbig, lam))
+    _equal(*out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
