@@ -1008,7 +1008,8 @@ class _DenseRestartKernel:
     launches: `launches` for the restart kernel, `finish_launches` for the
     final sort.  `stamps` holds the last restart launch's clock64() stamps
     (int64 on the card: entry, then the end of each of `PHASES`), and
-    `storage` where the last launch kept H and Q (`storage`)."""
+    `storage` where the last launch kept H and Q ("shared" or "global",
+    chosen by `storage()`)."""
 
     def __init__(self):
         self.launches = 0

@@ -168,7 +168,8 @@ def _equal(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,which,threads", [(12, "LM", 32), (20, "SR", 64),
-                                             (33, "LR", 96), (40, "LM", 256)])
+                                             (33, "LR", 64), (33, "LR", 96),
+                                             (40, "LM", 256)])
 def test_restart_kernel_is_the_plain_version(lib, dtype, m, which, threads):
     H0 = _arnoldi(m, m, dtype)
     kw = dict(nev=4, mindim=m // 2, tol=1e-3, restarts=50, which=which)
