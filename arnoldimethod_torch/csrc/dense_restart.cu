@@ -28,9 +28,10 @@
 //   case switches, the <= 4 x 4 complete-pivot Sylvester solves, unrolled
 //   into registers) from the same data, so nothing is broadcast, and
 //   dependent applications are separated by __syncwarp().
-// - The updates the chain does not read again (Q's, and a sweep's rows of
-//   H above the bulge) go through a ring in shared memory to the helper
-//   warp (warp 1), which applies them in the chain's order.  The other
+// - Where the caller asks for the helper (`helper`), the updates the chain
+//   does not read again (Q's, and a sweep's rows of H above the bulge) go
+//   through a ring in shared memory to warp 1, which applies them in the
+//   chain's order; otherwise the chain applies them itself.  The other
 //   warps wait at the next block barrier.
 // - The block-wide phases (eigenvalues, residuals, the sort, the
 //   Householder sweeps of the restore, Qbig) use every warp; their sums
@@ -43,8 +44,9 @@
 // two, x[i] += x[i + h] for h = P/2 .. 1), and hypot is JAX's formula.
 //
 // Measurement: thread 0 writes clock64() stamps at the phase boundaries
-// (when the wrapper passes a buffer), and the chain warp counts its
-// Francis sweeps and rotation steps into `info`.
+// when the wrapper passes a buffer (null: no stamps), and the chain warp
+// counts its Francis sweeps and rotation steps in registers, written into
+// `info` at the end.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,17 +174,6 @@ __device__ __forceinline__ T warp_tree(int n, const F& f) {
 }
 
 // --- Givens rotations, by the chain warp -------------------------------------------
-
-// The Francis sweeps and rotation steps of a launch (one step: one left
-// application of a two- or three-row rotation, with its right ones),
-// counted by lane 0 with a shared atomic that nothing waits on, once a
-// sweep, swap or Givens pass.
-__shared__ unsigned chain_counts[2];
-enum { C_SWEEPS = 0, C_STEPS };
-
-__device__ __forceinline__ void count(int what, int n = 1) {
-  if (LANE == 0) atomicAdd(&chain_counts[what], static_cast<unsigned>(n));
-}
 
 template <class T>
 __device__ __forceinline__ T hyp(T x, T y) {
@@ -420,13 +411,18 @@ __device__ __forceinline__ int wait_tail(const int& tail, int upto) {
 
 // The chain's side of the ring: whether a helper takes the published
 // rotations (`off`), the entries published, and (lane 0) the count it may
-// reach before it reads the helper's tail again.
+// reach before it reads the helper's tail again.  It also carries the
+// launch's Francis sweeps and rotation steps (one step: one left
+// application of a two- or three-row rotation, with its right ones), in
+// every chain lane's registers; thread 0 writes them out at the end.
 template <class T>
 struct Link {
   Ring<T>& ring;
   bool off;
   int head;
   int limit;
+  int sweeps;
+  int steps;
 };
 
 template <class T>
@@ -601,7 +597,7 @@ __device__ __forceinline__ bool local_schur(T* H, T* Q, int m, int ld, int lo, i
       upper_triangular_2x2(c11, c12, c21, c22, is_real, c, s);
       WSYNC();
       if (is_real) {
-        count(C_STEPS);
+        ++l.steps;
         lmul2<U>(H, ld, c, s, frm, frm, m);
         rmul2<U>(Q, ld, c, s, frm, 0, m);
         WSYNC();
@@ -615,8 +611,8 @@ __device__ __forceinline__ bool local_schur(T* H, T* Q, int m, int ld, int lo, i
       const T c11 = H[(to - 1) * ld + to - 1], c12 = H[(to - 1) * ld + to];
       const T c21 = H[to * ld + to - 1], c22 = H[to * ld + to];
       T mu;
-      count(C_SWEEPS);
-      count(C_STEPS, to - frm);
+      ++l.sweeps;
+      l.steps += to - frm;
       if (use_single_shift(c11, c12, c21, c22, mu))
         single_shift_sweep<U>(H, Q, m, ld, l, frm, to, mu);
       else
@@ -950,7 +946,7 @@ __device__ __forceinline__ void swap11(T* H, T* Q, int m, int ld, Link<T>& l, in
   T c, s, r;
   givens(r12, r22 - r11, c, s, r);
   WSYNC();
-  count(C_STEPS);
+  ++l.steps;
   lmul2<U>(H, ld, c, s, i, i + 2, m);
   rmul2<U>(H, ld, c, s, i, 0, i);
   qmul2<U>(Q, m, ld, l, c, s, i);
@@ -971,7 +967,7 @@ __device__ __forceinline__ void swap12(T* H, T* Q, int m, int ld, Link<T>& l, in
   givens(-X[0], T(1), c1, s1, r);  // X[0, 0]
   const T x22 = -s1 * -X[1];       // X[0, 1]
   givens(x22, T(1), c2, s2, r);
-  count(C_STEPS, 2);
+  l.steps += 2;
   lmul2<U>(H, ld, c1, s1, i, i, m);
   qmul2<U>(Q, m, ld, l, c1, s1, i);
   WSYNC();
@@ -998,7 +994,7 @@ __device__ __forceinline__ void swap21(T* H, T* Q, int m, int ld, Link<T>& l, in
   T c1, s1, n1, c2, s2, r;
   givens(-X[1], T(1), c1, s1, n1);  // X[1, 0]
   givens(-X[0], n1, c2, s2, r);     // X[0, 0]
-  count(C_STEPS);
+  ++l.steps;
   lmul3<U>(H, ld, c1, s1, c2, s2, i, i, m);
   qmul3<U>(Q, m, ld, l, c1, s1, c2, s2, i);
   WSYNC();
@@ -1026,7 +1022,7 @@ __device__ __forceinline__ void swap22(T* H, T* Q, int m, int ld, Link<T>& l, in
   x22 = -s2 * -X[2] + c2 * x22;     // X[0, 1]
   givens(x32, T(1), c3, s3, n3);
   givens(x22, n3, c4, s4, r);
-  count(C_STEPS, 2);
+  l.steps += 2;
   lmul3<U>(H, ld, c1, s1, c2, s2, i, i, m);
   qmul3<U>(Q, m, ld, l, c1, s1, c2, s2, i);
   WSYNC();
@@ -1162,11 +1158,11 @@ struct RestoreScratch {
 // block-wide.  Called by the whole block; ends synchronized.
 template <int U, class T>
 __device__ __forceinline__ void restore_arnoldi(T* H, T* Q, int m, int ld, int lo, int hi,
-                                                RestoreScratch<T> w) {
+                                                RestoreScratch<T> w, Link<T>& l) {
   if (lo >= hi - 1) return;
   const int last = m - 1;
   if (TID < 32) {
-    count(C_STEPS, hi - 1 - lo);
+    l.steps += hi - 1 - lo;
     T nrm = Q[last * ld + lo];
     for (int i = lo; i < hi - 1; ++i) {
       T c, s, nrm2;
@@ -1379,15 +1375,12 @@ template <class T, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info, T* work,
                int* iwork, long long* stamps, int m, int nev, int mindim, double tol_d,
-               int restarts, int which, int maxiter) {
+               int restarts, int which, int maxiter, int helper) {
   constexpr int U = SHARED ? 1 : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Ring<T> ring;
   stamp(stamps, P_ENTRY);
-  if (TID == 0) {
-    chain_counts[C_SWEEPS] = chain_counts[C_STEPS] = 0u;
-    ring.head = ring.tail = 0;
-  }
+  if (TID == 0) ring.head = ring.tail = 0;
   // The last expansion range's breakdown flags: roll back at the first.
   int jb = m;
   for (int j = TID; j < m; j += NT)
@@ -1415,10 +1408,10 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info, T* wo
   SYNC();
   stamp(stamps, P_FLAGS);
   bool ok = true;
-  Link<T> link{ring, NT > 32, 0, RING};
+  Link<T> link{ring, helper && NT > 32, 0, RING, 0, 0};
   if (TID < 32)
     ok = local_schur<U>(Hs, Qs, m, ld, active, m, eps, maxiter, link);
-  else if (TID < 64)
+  else if (TID < 64 && link.off)
     help<U>(Hs, Qs, m, ld, ring);
   SYNC();
   stamp(stamps, P_SCHUR);
@@ -1516,11 +1509,11 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info, T* wo
 
   if (TID < 32)
     partition_three_way<U>(Hs, Qs, m, ld, w.groups, link);
-  else if (TID < 64)
+  else if (TID < 64 && link.off)
     help<U>(Hs, Qs, m, ld, ring);
   SYNC();
   stamp(stamps, P_PARTITION);
-  restore_arnoldi<U>(Hs, Qs, m, ld, nlock, k, st.rw);
+  restore_arnoldi<U>(Hs, Qs, m, ld, nlock, k, st.rw, link);
   SYNC();
   stamp(stamps, P_RESTORE);
 
@@ -1555,8 +1548,8 @@ restart_kernel(T* H, T* Q, T* Qbig, int* state, const T* flags, int* info, T* wo
     info[1] = k;
     info[2] = purge;
     info[3] = eff;
-    info[4 + 2 * m] = static_cast<int>(chain_counts[C_SWEEPS]);
-    info[5 + 2 * m] = static_cast<int>(chain_counts[C_STEPS]);
+    info[4 + 2 * m] = link.sweeps;
+    info[5 + 2 * m] = link.steps;
   }
   SYNC();
   stamp(stamps, P_QBIG);
@@ -1578,7 +1571,7 @@ finish_kernel(T* H, T* Q, T* Qbig, T* lam, const int* state, int* iwork, int m,
   SYNC();
   // The final sort's chain applies Q's rotations itself.
   __shared__ Ring<T> ring;
-  Link<T> link{ring, false, 0, RING};
+  Link<T> link{ring, false, 0, RING, 0, 0};
   if (TID < 32) sort_schur<U>(Hs, Qs, m, ld, link, count, which);
   SYNC();
   const int m1 = m + 1;
@@ -1608,7 +1601,7 @@ template <class T, bool SHARED>
 int launch_restart_as(void* H, void* Q, void* Qbig, void* state, const void* flags,
                       void* info, void* work, void* iwork, void* stamps, int m, int nev,
                       int mindim, double tol, int restarts, int which, int maxiter,
-                      int threads, void* stream) {
+                      int helper, int threads, void* stream) {
   if (bad_launch(m, threads)) return cudaErrorInvalidValue;
   const long long bytes = smem_bytes(m, sizeof(T), SHARED);
   const cudaError_t err = allow_smem(restart_kernel<T, SHARED>, bytes);
@@ -1617,7 +1610,7 @@ int launch_restart_as(void* H, void* Q, void* Qbig, void* state, const void* fla
       static_cast<T*>(H), static_cast<T*>(Q), static_cast<T*>(Qbig),
       static_cast<int*>(state), static_cast<const T*>(flags), static_cast<int*>(info),
       static_cast<T*>(work), static_cast<int*>(iwork), static_cast<long long*>(stamps),
-      m, nev, mindim, tol, restarts, which, maxiter);
+      m, nev, mindim, tol, restarts, which, maxiter, helper);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1639,10 +1632,10 @@ template <class T>
 int launch_restart(void* H, void* Q, void* Qbig, void* state, const void* flags,
                    void* info, void* work, void* iwork, void* stamps, int m, int nev,
                    int mindim, double tol, int restarts, int which, int maxiter,
-                   int shared, int threads, void* stream) {
+                   int shared, int helper, int threads, void* stream) {
   auto f = shared ? launch_restart_as<T, true> : launch_restart_as<T, false>;
   return f(H, Q, Qbig, state, flags, info, work, iwork, stamps, m, nev, mindim, tol,
-           restarts, which, maxiter, threads, stream);
+           restarts, which, maxiter, helper, threads, stream);
 }
 
 template <class T>
@@ -1668,11 +1661,11 @@ long long dense_restart_shared_limit() { return SMEM_LIMIT; }
 #define RESTART_ARGS                                                              \
   void *H, void *Q, void *Qbig, void *state, const void *flags, void *info,       \
       void *work, void *iwork, void *stamps, int m, int nev, int mindim,          \
-      double tol, int restarts, int which, int maxiter, int shared, int threads,  \
-      void *stream
+      double tol, int restarts, int which, int maxiter, int shared, int helper,   \
+      int threads, void *stream
 #define RESTART_PASS                                                              \
   H, Q, Qbig, state, flags, info, work, iwork, stamps, m, nev, mindim, tol,       \
-      restarts, which, maxiter, shared, threads, stream
+      restarts, which, maxiter, shared, helper, threads, stream
 #define FINISH_ARGS                                                               \
   void *H, void *Q, void *Qbig, void *lam, const void *state, void *iwork, int m, \
       int which, int shared, int threads, void *stream

@@ -990,8 +990,8 @@ def finish_plain(H, Qbig, lam, count, which):
 
 _SOURCE = PACKAGE_DIR / "csrc" / "dense_restart.cu"
 # Threads of the one CTA a call runs on: warp 0 runs the rotation chain,
-# warp 1 applies the rotations the chain does not read again, and all
-# eight warps run the block-wide phases.
+# warp 1 (the helper, see `uses_helper`) applies the rotations the chain
+# does not read again, and all eight warps run the block-wide phases.
 THREADS = 256
 
 
@@ -1003,18 +1003,36 @@ def storage(lib, m, dtype):
     return "shared" if fits else "global"
 
 
+# The smallest m at which the helper warp pays (see `uses_helper`): on an
+# H100 the restart at m = 32 ran 2-4 % faster without it, at m = 40 1-2 %
+# faster with it, at m = 80 7 % and at m = 200 34-38 % (chip_smoke.py's
+# dense_restart_helper and dense_restart_kernel lines).
+HELPER_FROM = 40
+
+
+def uses_helper(m):
+    """Whether a restart launch of order m hands the rotations its chain
+    does not read again to the helper warp (from m = HELPER_FROM on; below
+    it the ring's handshakes cost more than the updates they move)."""
+    return m >= HELPER_FROM
+
+
 class _DenseRestartKernel:
     """The built library of `csrc/dense_restart.cu` and the counts of its
     launches: `launches` for the restart kernel, `finish_launches` for the
-    final sort.  `stamps` holds the last restart launch's clock64() stamps
-    (int64 on the card: entry, then the end of each of `PHASES`), and
-    `storage` where the last launch kept H and Q ("shared" or "global",
-    chosen by `storage()`)."""
+    final sort.  `storage` says where the last launch kept H and Q
+    ("shared" or "global", chosen by `storage()`).  For measurement only:
+    with `stamping` set, each restart launch writes its clock64() stamps
+    into `stamps` (int64 on the card: entry, then the end of each of
+    `PHASES`; otherwise it passes none and `stamps` is None), and
+    `helper`, when not None, overrides `uses_helper()`."""
 
     def __init__(self):
         self.launches = 0
         self.finish_launches = 0
+        self.stamping = False
         self.stamps = None
+        self.helper = None
         self.storage = None
         self.build_log = ""
         self._lib = None
@@ -1054,17 +1072,19 @@ class _DenseRestartKernel:
             info = torch.empty(info_len(m), dtype=torch.int32, device=H.device)
         if info.numel() < info_len(m):
             raise ValueError(f"info must hold info_len(m) = {info_len(m)} int32")
-        self.stamps = torch.empty(len(PHASES) + 1, dtype=torch.int64,
-                                  device=H.device)
+        self.stamps = (torch.empty(len(PHASES) + 1, dtype=torch.int64,
+                                   device=H.device) if self.stamping else None)
+        helper = uses_helper(m) if self.helper is None else self.helper
         fn = lib.dense_restart_f32 if H.dtype == torch.float32 else lib.dense_restart_f64
         with torch.cuda.device(H.device):
             stream = torch.cuda.current_stream(H.device).cuda_stream
             err = fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(),
                      state.data_ptr(), flags.data_ptr(), info.data_ptr(),
-                     work.data_ptr(), iwork.data_ptr(), self.stamps.data_ptr(),
+                     work.data_ptr(), iwork.data_ptr(),
+                     None if self.stamps is None else self.stamps.data_ptr(),
                      m, nev, mindim, float(tol), restarts, ORDER_CODES[which],
-                     100 * m if maxiter is None else maxiter, shared, THREADS,
-                     stream)
+                     100 * m if maxiter is None else maxiter, shared,
+                     int(helper), THREADS, stream)
         if err != 0:
             raise RuntimeError(f"dense_restart kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -1101,7 +1121,7 @@ def bind(lib):
     lib.dense_restart_shared_limit.restype = ctypes.c_longlong
     for word in ("_f32", "_f64"):
         f = getattr(lib, "dense_restart" + word)
-        f.argtypes = [p] * 9 + [i, i, i, d, i, i, i, i, i, p]
+        f.argtypes = [p] * 9 + [i, i, i, d, i, i, i, i, i, i, p]
         f.restype = i
         f = getattr(lib, "dense_finish" + word)
         f.argtypes = [p] * 6 + [i, i, i, i, p]

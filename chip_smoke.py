@@ -154,9 +154,15 @@ Phases, each printed as one JSON line:
            a purge restart and the H of device_main's third restart; the
            integer outputs equal, H, Q, Qbig and the finish outputs within
            1e-4 (float32) or 1e-10 (float64) of max|H| and bitwise (signed
-           zeros too); ms a call (a graph of 20 calls, the input restored
-           before each) beside PR 11's kernel's (earlier_ms), the plain
-           version's and the host C++ core's on the same H, the operations
+           zeros too), and so are a launch with the phase stamps and one
+           with the helper warp turned the other way; ms a call (a graph
+           of 20 calls, the input restored before each, no stamps) beside
+           PR 11's kernel's (earlier_ms, a record, not measured here), the
+           plain version's and the host C++ core's on the same H; the
+           helper on and off and the stamps on, each twice in graphs of 5
+           calls in the order A B C C B A (variants_ms; helper_gain, the
+           time without the helper over the time with it; stamps_cost,
+           with the stamps over without); the operations
            bound (lane operations of the plain version's rotations and
            reflectors, dense.device.PLAIN_OPS) over the card's rate and over
            one SM's; where the launch kept H and Q (storage), its Francis
@@ -164,6 +170,10 @@ Phases, each printed as one JSON line:
            kernel's clock64() stamps (phases_ms: each phase's share of the
            stamped clocks times ms; phases_ms_at_max_clock: its clocks at
            clocks.max.sm)
+  dense_restart_helper  the restart kernel with the helper warp on and off
+           on Arnoldi H at m = 20 to 80 in float32 and float64: the same
+           bits, ms a call of each and their ratio (helper_gain) beside the
+           wrapper's choice (dense.device.uses_helper)
   device_readme  the README configuration with method="device" on the card
            and on the CPU from one v1: the same matvec and restart counts
   device_main  config 2 with method="device" (bench.py's e2e_1m_device) and
@@ -1352,6 +1362,15 @@ def bitwise(pairs):
     return all(a.shape == b.shape and a.dtype == b.dtype
                and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
                for a, b in pairs)
+
+
+def same_bits(xs, ys):
+    """Equal bits of each pair of float tensors, equal values of each pair
+    of integer ones."""
+    import torch
+
+    return all(bitwise([(a, b)]) if a.is_floating_point() else torch.equal(a, b)
+               for a, b in zip(xs, ys))
 
 
 def _two_prod_exact(torch, dtype, gen):
@@ -2665,11 +2684,32 @@ def _host_core_ms(H0, active, nev, mindim, tol, which, eps, reps=5):
     return 1e3 * statistics.median(times)
 
 
-# The restart kernel's times before its redesign (run D of PR 11, NVIDIA
-# H100 80GB HBM3 at 700 W), by case and word.
+# A record, not measured here: the restart kernel's times before its
+# redesign (run D of PR 11, NVIDIA H100 80GB HBM3 at 700 W), by case and
+# word; a case line prints it as earlier_ms beside earlier_ms_is.
 EARLIER_RESTART_MS = {("arnoldi_m80", "float32"): 12.3664408,
                       ("arnoldi_m200", "float32"): 95.4865763}
-EARLIER_FINISH_MS = 0.0083320
+EARLIER_IS = ("record of PR 11 run D (NVIDIA H100 80GB HBM3, 700 W); "
+              "not measured in this run")
+
+
+class _Launch:
+    """The restart kernel's measurement settings for a block: the stamps
+    and, where not None, the helper forced on or off."""
+
+    def __init__(self, stamping=False, helper=None):
+        self.want = stamping, helper
+
+    def __enter__(self):
+        from arnoldimethod_torch.dense import device as dd
+
+        self.saved = dd.KERNEL.stamping, dd.KERNEL.helper
+        dd.KERNEL.stamping, dd.KERNEL.helper = self.want
+
+    def __exit__(self, *exc):
+        from arnoldimethod_torch.dense import device as dd
+
+        dd.KERNEL.stamping, dd.KERNEL.helper = self.saved
 
 
 def _restart_case(torch, name, H0, S0, flags, kw):
@@ -2681,6 +2721,24 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     m = H0.shape[1]
     dtype = H0.dtype
     word = str(dtype).split(".")[-1]
+
+    def once(dev):
+        H = H0.to(dev).clone()
+        S = S0.to(dev).clone()
+        Qbig = torch.empty((m + 1, m + 1), dtype=dtype, device=dev)
+        info = torch.zeros(dd.info_len(m), dtype=torch.int32, device=dev)
+        Q = dd.restart(H, Qbig, S, flags.to(dev), info=info, **kw)
+        return [t.cpu() for t in (H, Q, Qbig, S, info)]
+
+    # The launch with the stamps, and the one with the helper turned the
+    # other way, must give the production launch's bits.
+    with _Launch(stamping=True):
+        stamped = once("cuda")
+        stamps = dd.KERNEL.stamps.tolist()
+    storage = dd.KERNEL.storage
+    helper = dd.uses_helper(m)
+    with _Launch(helper=not helper):
+        flipped = once("cuda")
     out = {}
     for dev in ("cpu", "cuda"):
         H = H0.to(dev).clone()
@@ -2694,9 +2752,6 @@ def _restart_case(torch, name, H0, S0, flags, kw):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         restart_ops = dd.PLAIN_OPS.n
-        if dev == "cuda":
-            stamps = dd.KERNEL.stamps.tolist()
-            storage = dd.KERNEL.storage
         Hr = H.clone()
         lam = torch.empty((2, m), dtype=dtype, device=dev)
         dd.PLAIN_OPS.n = 0
@@ -2714,6 +2769,8 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     err = max(float((c[k].double() - g[k].double()).abs().max()) for k in floats)
     # Equal bits, signed zeros included.
     same = bitwise([(c[k], g[k]) for k in floats])
+    production = [g[k] for k in ("H", "Q", "Qbig", "S", "info")]
+    variants_same = all(same_bits(v, production) for v in (stamped, flipped))
 
     # Device time: 20 calls in a CUDA graph, each restoring the input
     # first (two small copies) so every call does the same work.
@@ -2742,6 +2799,16 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     copy_ms = graph_ms(copies)
     ms = graph_ms(restart_call) - copy_ms
     fms = graph_ms(finish_call) - graph_ms(lambda: Hw.copy_(Hf0))
+    # The measurement's settings against production, in smaller graphs,
+    # in the order A B C C B A: the helper off and on, the stamps on.
+    settings = {"helper": _Launch(helper=True), "no_helper": _Launch(helper=False),
+                "stamped": _Launch(stamping=True)}
+    variants_ms = {k: [] for k in settings}
+    small_copy_ms = graph_ms(copies, calls=5, reps=6)
+    for k in [*settings, *reversed(settings)]:
+        with settings[k]:
+            variants_ms[k].append(graph_ms(restart_call, calls=5, reps=6)
+                                  - small_copy_ms)
     dd.KERNEL.launches, dd.KERNEL.finish_launches = saved
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bound_ms, bound_by = roofline(2 * H0.numel() * H0.element_size(),
@@ -2762,13 +2829,22 @@ def _restart_case(torch, name, H0, S0, flags, kw):
     res = dict(case=name, m=m, dtype=word, active=active,
                state=g["S"].tolist(), nlock_k_purge=g["info"][:3].tolist(),
                ints_equal=ints_equal, bitwise=same,
+               stamped_and_flipped_helper_bitwise=variants_same,
                max_abs_err=err, tolerance=tol * scale,
-               storage=storage, sweeps=sweeps, steps=steps,
+               storage=storage, helper=helper, sweeps=sweeps, steps=steps,
                phases_ms={p: ms * n / total for p, n in zip(dd.PHASES, clocks)},
                phases_ms_at_max_clock={
                    p: n / (CLOCK_MHZ["sm"] * 1e3) for p, n in zip(dd.PHASES, clocks)},
                us_per_step=1e3 * ms / max(steps, 1),
-               ms=ms, earlier_ms=EARLIER_RESTART_MS.get((name, word)),
+               ms=ms, variants_ms=variants_ms,
+               helper_gain=(statistics.median(variants_ms["no_helper"])
+                            / statistics.median(variants_ms["helper"])),
+               stamps_cost=(statistics.median(variants_ms["stamped"])
+                            / statistics.median(variants_ms[
+                                "helper" if helper else "no_helper"])),
+               **({"earlier_ms": EARLIER_RESTART_MS[(name, word)],
+                   "earlier_ms_is": EARLIER_IS}
+                  if (name, word) in EARLIER_RESTART_MS else {}),
                plain_ms=1e3 * c["s"],
                plain_on="host CPU", bound_ms=bound_ms, bound_by=bound_by,
                one_sm_bound_ms=bound_ms * sms, lane_ops=c["ops"],
@@ -2776,8 +2852,8 @@ def _restart_case(torch, name, H0, S0, flags, kw):
                finish_ms=fms, finish_plain_ms=1e3 * c["fs"],
                finish_bound_ms=fbound_ms, finish_bound_by=fbound_by,
                finish_one_sm_bound_ms=fbound_ms * sms)
-    check("dense_restart_kernel", ints_equal and same and err <= tol * scale,
-          **res)
+    check("dense_restart_kernel", ints_equal and same and variants_same
+          and err <= tol * scale, **res)
     return res
 
 
@@ -2810,6 +2886,56 @@ def _main_op_v1(torch):
     v1 = torch.randn(grid[0] * grid[1], dtype=torch.float32, device="cuda",
                      generator=gen)
     return op, v1, grid
+
+
+def phase_dense_restart_helper(torch):
+    """The restart kernel with the helper warp on and off on the Arnoldi H
+    of m = 20 to 80 in float32 and float64: the same bits either way, and
+    ms a call of each (graphs of 5 calls, in the order on, off, off, on)
+    beside the setting `dense.device.uses_helper` picks."""
+    from arnoldimethod_torch.dense import device as dd
+
+    saved = dd.KERNEL.launches
+    rows, all_same = [], True
+    for m in (20, 24, 32, 40, 48, 64, 80):
+        for dtype in (torch.float32, torch.float64):
+            H0 = _arnoldi_h(m, m, dtype).cuda()
+            S0 = dd.new_state(0, m, 400).cuda()
+            F = torch.zeros(m, dtype=dtype, device="cuda")
+            kw = dict(nev=max(2, m // 4), mindim=m // 2, tol=1e-6,
+                      restarts=400, which="LM")
+            Hw, Sw = H0.clone(), S0.clone()
+            Qb = torch.empty((m + 1, m + 1), dtype=dtype, device="cuda")
+            info = torch.zeros(dd.info_len(m), dtype=torch.int32, device="cuda")
+
+            def copies():
+                Hw.copy_(H0)
+                Sw.copy_(S0)
+
+            def call():
+                copies()
+                return dd.restart(Hw, Qb, Sw, F, info=info, **kw)
+
+            outs = []
+            for on in (True, False):
+                with _Launch(helper=on):
+                    Q = call()
+                    outs.append([t.cpu() for t in (Hw, Q, Qb, Sw, info)])
+            same = same_bits(*outs)
+            all_same = all_same and same
+            copy_ms = graph_ms(copies, calls=5, reps=6)
+            times = {True: [], False: []}
+            for on in (True, False, False, True):
+                with _Launch(helper=on):
+                    times[on].append(graph_ms(call, calls=5, reps=6) - copy_ms)
+            on_ms, off_ms = (statistics.median(times[k]) for k in (True, False))
+            rows.append(dict(m=m, dtype=str(dtype).split(".")[-1],
+                             storage=dd.KERNEL.storage, bitwise=same,
+                             helper_ms=times[True], no_helper_ms=times[False],
+                             helper_gain=off_ms / on_ms,
+                             uses_helper=dd.uses_helper(m)))
+    dd.KERNEL.launches = saved
+    check("dense_restart_helper", all_same, cases=rows)
 
 
 def phase_dense_restart_kernel(torch):
@@ -2872,6 +2998,7 @@ def phase_dense_restart_kernel(torch):
     kw = {k: v for k, v in kw.items() if k != "maxiter"}
     captured = _restart_case(torch, "device_main_restart3", H0.cpu(),
                              S0.cpu(), F0.cpu(), kw)
+    phase_dense_restart_helper(torch)
     return lines, purge, captured
 
 
@@ -3154,9 +3281,8 @@ def main():
               device_launches["dense_restart"], dr80, case="arnoldi_m80 float32",
               one_sm_bound_ms=dr80["one_sm_bound_ms"],
               host_core_ms=dr80["host_core_ms"],
-              earlier_ms=EARLIER_RESTART_MS[("arnoldi_m80", "float32")],
               storage=dr80["storage"], steps=dr80["steps"],
-              m200={k: dr200[k] for k in ("ms", "earlier_ms", "plain_ms", "bound_ms",
+              m200={k: dr200[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "one_sm_bound_ms", "host_core_ms",
                                           "storage")},
               captured_restart3={k: restart_captured[k] for k in (
@@ -3164,7 +3290,7 @@ def main():
         entry("dense_finish", "arnoldimethod_torch/csrc/dense_restart.cu",
               "arnoldimethod_tpu/fused.py:221 _fused_finish" + xla,
               device_launches["dense_finish"], finish80,
-              case="arnoldi_m80 float32", earlier_ms=EARLIER_FINISH_MS,
+              case="arnoldi_m80 float32",
               one_sm_bound_ms=dr80["finish_one_sm_bound_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

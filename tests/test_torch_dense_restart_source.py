@@ -97,17 +97,22 @@ def _shared(lib, H, storage):
 
 
 def k_restart(lib, H, Qbig, state, flags, nev, mindim, tol, restarts, which,
-              info, threads=96, storage=None):
+              info, threads=96, storage=None, helper=None, stamps=None):
+    """One restart through the C entry; `helper` None takes the wrapper's
+    rule, `stamps` an int64 buffer for the phase stamps (None: none)."""
     m = H.shape[1]
     Q = torch.empty((m, m), dtype=H.dtype)
     work = torch.empty(lib.dense_restart_work_len(m), dtype=H.dtype)
     iwork = torch.empty(lib.dense_restart_iwork_len(m), dtype=torch.int32)
     fn = lib.dense_restart_f32 if H.dtype == torch.float32 else lib.dense_restart_f64
+    shared = _shared(lib, H, storage)
+    if helper is None:
+        helper = dd.uses_helper(m)
     assert fn(H.data_ptr(), Q.data_ptr(), Qbig.data_ptr(), state.data_ptr(),
               flags.data_ptr(), info.data_ptr(), work.data_ptr(),
-              iwork.data_ptr(), None, m, nev, mindim, tol, restarts,
-              dd.ORDER_CODES[which], 100 * m, _shared(lib, H, storage),
-              threads, None) == 0
+              iwork.data_ptr(), None if stamps is None else stamps.data_ptr(),
+              m, nev, mindim, tol, restarts, dd.ORDER_CODES[which], 100 * m,
+              shared, int(helper), threads, None) == 0
     return Q
 
 
@@ -143,7 +148,8 @@ def _arnoldi(m, seed, dtype):
     return torch.tensor(H, dtype=dtype)
 
 
-def _both(lib, H0, state0, flags, kw, threads=96, storage=None):
+def _both(lib, H0, state0, flags, kw, threads=96, storage=None, helper=None,
+          stamps=None):
     out = []
     for use_kernel in (False, True):
         m = H0.shape[1]
@@ -152,7 +158,8 @@ def _both(lib, H0, state0, flags, kw, threads=96, storage=None):
         info = torch.zeros(dd.info_len(m), dtype=torch.int32)
         if use_kernel:
             Q = k_restart(lib, H, Qbig, state, flags, info=info,
-                          threads=threads, storage=storage, **kw)
+                          threads=threads, storage=storage, helper=helper,
+                          stamps=stamps, **kw)
         else:
             Q = dd.restart_plain(H, Qbig, state, flags, info=info, **kw)
         out.append((H, Q, Qbig, state, info))
@@ -182,6 +189,37 @@ def test_restart_kernel_is_the_plain_version(lib, dtype, m, which, threads):
     assert sorted(info[4:4 + m]) == list(range(m))
     assert set(info[4 + m:4 + 2 * m]) <= {1, 2, 3}
     assert info[4 + 2 * m] > 0 and info[5 + 2 * m] > info[4 + 2 * m]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("storage", ["shared", "global"])
+@pytest.mark.parametrize("helper", [False, True])
+def test_restart_kernel_with_and_without_the_helper(lib, dtype, storage, helper):
+    """The chain applying every rotation itself, or handing Q's and the
+    sweeps' upper rows to the helper warp: both the plain version, with
+    the same sweep and step counts, in either storage."""
+    m = 24
+    H0 = _arnoldi(m, 7, dtype)
+    kw = dict(nev=5, mindim=m // 2, tol=1e-3, restarts=50, which="LR")
+    plain, kern = _both(lib, H0, dd.new_state(0, m, 50),
+                        torch.zeros(m, dtype=dtype), kw, threads=64,
+                        storage=storage, helper=helper)
+    _equal(plain, kern)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stamps_leave_the_outputs_alone(lib, dtype):
+    """With a stamps buffer the launch writes its phase stamps, in order,
+    and its outputs stay the plain version's."""
+    m = 20
+    H0 = _arnoldi(m, 5, dtype)
+    kw = dict(nev=4, mindim=10, tol=1e-3, restarts=50, which="LM")
+    stamps = torch.full((len(dd.PHASES) + 1,), -1, dtype=torch.int64)
+    plain, kern = _both(lib, H0, dd.new_state(0, m, 50),
+                        torch.zeros(m, dtype=dtype), kw, stamps=stamps)
+    _equal(plain, kern)
+    t = stamps.tolist()
+    assert t[0] > 0 and t == sorted(t)
 
 
 def test_storage_follows_the_shared_memory_limit(lib):
