@@ -5,16 +5,20 @@
 //   df_project       c[j] = sum_i V[j, i] * w[i] for rows j < rows, zero
 //                    beyond; optionally acc[j] <- acc[j] + c[j]
 //   df_axpy          out = w - sum_{j < rows} h_j * V[j], j in order
-//   df_mul_by        out = w * s for a double-word scalar s
+//   df_normalize     out = w / ||w|| for the norm of a double-word sum of
+//                    squares on the card; in its step form it also makes
+//                    the DGKS step's two decisions (second pass, breakdown)
+//                    and writes the step's H column and breakdown flag
 //   df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, i < rows
 //   stencil5_df      the Dirichlet 5-point stencil on a double-word vector
 //
 // None replaces a Pallas kernel: the JAX package runs this work as XLA
 // loops (arnoldimethod_tpu/ops/df32.py df_sum, df_axpy_update_df;
-// ops/df_expansion.py _df_basis_change_impl; models/operators.py
-// Stencil5Operator.matvec_df).  Each kernel computes exactly the products
-// and sums of the plain PyTorch version in arnoldimethod_torch/ops/df32.py
-// and ops/df.py, in the same order, so its result is bitwise equal to it.
+// ops/df_expansion.py _df_dgks, _df_normalize, _df_basis_change_impl;
+// models/operators.py Stencil5Operator.matvec_df).  Each kernel computes
+// exactly the products and sums of the plain PyTorch version in
+// arnoldimethod_torch/ops/df32.py and ops/df.py, in the same order, so its
+// result is bitwise equal to it.
 //
 // Rounding.  The error-free transforms need every product and sum rounded
 // on its own: an FMA contraction of `a * b - p` would skip a rounding and
@@ -27,8 +31,8 @@
 // Bound.  Each add or multiply is one lane-instruction (no FMA): the card
 // issues 132 x 128 of them a clock in float32 (~33 T/s at 1,980 MHz) and
 // 132 x 64 in float64.  A double-word multiply-add is 35 of them, 27 when
-// both operands were split beforehand.  df_project, df_axpy, df_mul_by and
-// stencil5_df touch each word a few times and are bound by memory;
+// both operands were split beforehand.  df_project, df_axpy, df_normalize
+// and stencil5_df touch each word a few times and are bound by memory;
 // df_basis_change uses each V word for every output row (27 x rows
 // operations for 2 words) and is bound by operations.  Tensor cores
 // cannot carry the compensation bit for bit (their products and sums are
@@ -72,7 +76,16 @@
 //     With NORM the result's squares (df_mul(out, out), pads (0, 0)) go
 //     through df_project's steps 1-3 (finish_row, its scratch), so the
 //     norm of a Gram-Schmidt pass costs no second launch and no second
-//     read of w.  df_mul_by is a plain elementwise kernel.
+//     read of w.
+//   - df_normalize: every block recomputes the step's scalars from the six
+//     words of the three sums on the card (df32.df_sqrt and df_inv, IEEE
+//     divides and square roots, no contraction), so the decisions need no
+//     host read and no second launch; then a grid-stride loop scales the
+//     chosen pass's w, 16 bytes of each word a thread a step.  Block 0
+//     also writes the H column and the flag.  On a breakdown the row is
+//     left unscaled (finite for the steps that run on it until the host
+//     reads the flags); the host finishes such a step and runs the steps
+//     after it again (ops/df_expansion.py).
 //   - df_basis_change (plan: ops/df.py basis_plan): only the first `rows`
 //     outputs (a restart keeps rows 0..k; the expansion rewrites the
 //     rest).  A register tile: a thread sums R rows by C columns over j in
@@ -107,6 +120,10 @@ __device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b)
 __device__ __forceinline__ double add_(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub_(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double mul_(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_(double a) { return __dsqrt_rn(a); }
 
 template <typename T> struct Split;
 template <> struct Split<float> { static constexpr float value = 4097.0f; };
@@ -198,6 +215,28 @@ __device__ __forceinline__ void df_scale(T xh, T xl, T c, T& zh, T& zl) {
   two_prod(xh, c, ph, pe);
   pe = add_(pe, mul_(xl, c));
   quick_two_sum(ph, pe, zh, zl);
+}
+
+// 1 / (xh, xl): df32.df_inv (a seed and one Newton step in double word).
+template <typename T>
+__device__ __forceinline__ void df_inv(T xh, T xl, T& zh, T& zl) {
+  const T r = div_(T(1), xh);
+  T ph, pe, dh, dl, ch, ce;
+  df_mul(xh, xl, r, T(0), ph, pe);
+  df_add(T(1), T(0), -ph, -pe, dh, dl);
+  df_scale(dh, dl, r, ch, ce);
+  df_add(r, T(0), ch, ce, zh, zl);
+}
+
+// The root of a non-negative (sh, sl): df32.df_sqrt; zero gives (0, 0).
+template <typename T>
+__device__ __forceinline__ void df_sqrt(T sh, T sl, T& zh, T& zl) {
+  const T r = sqrt_(sh);
+  T r2h, r2e, dh, dl;
+  two_prod(r, r, r2h, r2e);
+  df_add(sh, sl, -r2h, -r2e, dh, dl);
+  const T corr = r > T(0) ? div_(add_(dh, dl), mul_(T(2), r)) : T(0);
+  quick_two_sum(r, corr, zh, zl);
 }
 
 // -- df_project ------------------------------------------------------------
@@ -911,49 +950,131 @@ int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
   return norm ? go(std::true_type{}) : go(std::false_type{});
 }
 
-// df_mul_by: out = w * (sh, sl), grid-stride; 16 bytes of each word a
-// thread a step where every operand is 16-byte aligned, the rest (and
-// every element otherwise) one a step.
+// -- df_normalize ----------------------------------------------------------
+
+// ETA = sqrt(2)/2 (ops/expansion.py), rounded to the word as the plain
+// version rounds it.
+template <typename T> struct Eta;
+template <> struct Eta<float> { static constexpr float value = 0x1.6a09e6p-1f; };
+template <> struct Eta<double> { static constexpr double value = 0x1.6a09e667f3bcdp-1; };
+
+// df_normalize's operands.  The one-sum form has only w1, s1 and out (r2
+// null); the step form has them all.  Each sum is a double word of two
+// scalars on the card.
+template <typename T>
+struct NormalizeArgs {
+  const T *w1h, *w1l, *s1h, *s1l;  // the first pass's w and its sum
+  const T *w2h, *w2l, *s2h, *s2l;  // the second pass's w and its sum
+  const T *r2h, *r2l;              // the matvec's sum of squares
+  const T *h1h, *h1l, *ch, *cl;    // both passes' coefficients, m1 each
+  T *Hh, *Hl, *flag;               // H's column j (stride ld) and flags[j]
+  T *outh, *outl;                  // the new row
+  int64_t n, m1, ld, row;          // row = j + 1, where the norm goes
+};
+
+// What the step decides, from the sums: the host version's branches of
+// ops/df_expansion.py (_dgks, then `not nh <= eta * ref`) on the same
+// words with the same operations, so a NaN keeps the row as it does there.
+template <typename T>
+struct Decision {
+  bool second;  // w and h from the second pass
+  bool keep;    // scale w (no breakdown)
+  T nh, nl;     // ||w||
+  T ih, il;     // 1 / ||w||
+};
+
+template <typename T>
+__device__ __forceinline__ Decision<T> decide(const NormalizeArgs<T>& a) {
+  Decision<T> d{false, true, T(0), T(0), T(0), T(0)};
+  df_sqrt(*a.s1h, *a.s1l, d.nh, d.nl);
+  if (a.r2h != nullptr) {
+    T rnorm, rl, ref;
+    df_sqrt(*a.r2h, *a.r2l, rnorm, rl);
+    const T wn1 = d.nh;
+    d.second = wn1 < mul_(Eta<T>::value, rnorm);
+    if (d.second) {
+      df_sqrt(*a.s2h, *a.s2l, d.nh, d.nl);
+      ref = wn1;
+    } else {
+      ref = rnorm;
+    }
+    d.keep = !(d.nh <= mul_(Eta<T>::value, ref));
+  }
+  df_inv(d.nh, d.nl, d.ih, d.il);
+  return d;
+}
+
+// Grid-stride over the row, 16 bytes of each word a thread a step where
+// every operand is 16-byte aligned, the rest (and every element
+// otherwise) one a step: out = w * (ih, il) (df32.df_mul), or w itself on
+// a breakdown.  Block 0 also writes the H column (df_add(h1, c) after a
+// second pass, df_project's acc order; the norm at row j + 1) and the
+// flag (1 for a breakdown).
 template <typename T>
 __global__ void __launch_bounds__(256)
-mul_by_kernel(const T* __restrict__ wh, const T* __restrict__ wl, int64_t n,
-              T sh, T sl, T* __restrict__ outh, T* __restrict__ outl,
-              bool vec) {
+normalize_kernel(NormalizeArgs<T> a, bool vec) {
   constexpr int E = 16 / sizeof(T);
+  const Decision<T> d = decide(a);
+  if (blockIdx.x == 0 && a.Hh != nullptr) {
+    for (int64_t i = threadIdx.x; i < a.m1; i += blockDim.x) {
+      T zh = a.h1h[i], zl = a.h1l[i];
+      if (d.second) df_add(zh, zl, a.ch[i], a.cl[i], zh, zl);
+      if (i == a.row) {
+        zh = d.nh;
+        zl = d.nl;
+      }
+      a.Hh[i * a.ld] = zh;
+      a.Hl[i * a.ld] = zl;
+    }
+    if (threadIdx.x == 0) *a.flag = d.keep ? T(0) : T(1);
+  }
+  const T* __restrict__ wh = d.second ? a.w2h : a.w1h;
+  const T* __restrict__ wl = d.second ? a.w2l : a.w1l;
+  T* __restrict__ outh = a.outh;
+  T* __restrict__ outl = a.outl;
+  const int64_t n = a.n;
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
   const int64_t first = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t nv = vec ? n / E : 0;
   for (int64_t v = first; v < nv; v += stride) {
     const Cols<T, E> h = reinterpret_cast<const Cols<T, E>*>(wh)[v];
     const Cols<T, E> l = reinterpret_cast<const Cols<T, E>*>(wl)[v];
-    Cols<T, E> zh, zl;
+    Cols<T, E> zh = h, zl = l;
+    if (d.keep) {
 #pragma unroll
-    for (int c = 0; c < E; ++c) df_mul(h.v[c], l.v[c], sh, sl, zh.v[c], zl.v[c]);
+      for (int c = 0; c < E; ++c)
+        df_mul(h.v[c], l.v[c], d.ih, d.il, zh.v[c], zl.v[c]);
+    }
     reinterpret_cast<Cols<T, E>*>(outh)[v] = zh;
     reinterpret_cast<Cols<T, E>*>(outl)[v] = zl;
   }
   for (int64_t i = nv * E + first; i < n; i += stride) {
-    T zh, zl;
-    df_mul(wh[i], wl[i], sh, sl, zh, zl);
+    T zh = wh[i], zl = wl[i];
+    if (d.keep) df_mul(wh[i], wl[i], d.ih, d.il, zh, zl);
     outh[i] = zh;
     outl[i] = zl;
   }
 }
 
 template <typename T>
-int mul_by(const void* wh, const void* wl, double sh, double sl, int64_t n,
-           void* outh, void* outl, void* stream) {
-  if (n < 1) return int(cudaErrorInvalidValue);
+int normalize(NormalizeArgs<T> a, void* stream) {
+  const bool step = a.r2h != nullptr;
+  if (a.n < 1 || a.w1h == nullptr || a.s1h == nullptr || a.outh == nullptr
+      || (step && (a.w2h == nullptr || a.s2h == nullptr || a.h1h == nullptr
+                   || a.ch == nullptr || a.Hh == nullptr || a.flag == nullptr
+                   || a.m1 < 1 || a.ld < 1 || a.row < 1 || a.row >= a.m1)))
+    return int(cudaErrorInvalidValue);
+  if (!step) a.Hh = nullptr;
   constexpr int E = 16 / sizeof(T);
   auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const bool vec = aligned(wh) && aligned(wl) && aligned(outh) && aligned(outl);
-  const int64_t blocks = ((vec ? (n + E - 1) / E : n) + 255) / 256;
+  const bool vec = aligned(a.w1h) && aligned(a.w1l) && aligned(a.w2h)
+                   && aligned(a.w2l) && aligned(a.outh) && aligned(a.outl);
+  const int64_t blocks = ((vec ? (a.n + E - 1) / E : a.n) + 255) / 256;
   const unsigned grid = unsigned(blocks < 132 * 16 ? blocks : 132 * 16);
-  mul_by_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(wh), static_cast<const T*>(wl), n, T(sh), T(sl),
-      static_cast<T*>(outh), static_cast<T*>(outl), vec);
+  normalize_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, vec);
   return int(cudaGetLastError());
 }
 
@@ -1117,10 +1238,22 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
                    stage, part, part_words, arrivals, arrival_slots, outh,     \
                    outl, sum, stream);                                         \
   }                                                                            \
-  extern "C" int df_mul_by##SUFFIX(const void* wh, const void* wl, double sh,  \
-                                   double sl, int64_t n, void* outh,           \
-                                   void* outl, void* stream) {                 \
-    return mul_by<T>(wh, wl, sh, sl, n, outh, outl, stream);                   \
+  extern "C" int df_normalize##SUFFIX(                                         \
+      const void* w1h, const void* w1l, const void* s1h, const void* s1l,      \
+      const void* w2h, const void* w2l, const void* s2h, const void* s2l,      \
+      const void* r2h, const void* r2l, int64_t n, const void* h1h,            \
+      const void* h1l, const void* ch, const void* cl, int64_t m1, void* Hh,   \
+      void* Hl, int64_t ld, int64_t row, void* flag, void* outh, void* outl,   \
+      void* stream) {                                                          \
+    using P = const T*;                                                        \
+    return normalize<T>(                                                       \
+        NormalizeArgs<T>{P(w1h), P(w1l), P(s1h), P(s1l), P(w2h), P(w2l),       \
+                         P(s2h), P(s2l), P(r2h), P(r2l), P(h1h), P(h1l),       \
+                         P(ch), P(cl), static_cast<T*>(Hh),                    \
+                         static_cast<T*>(Hl), static_cast<T*>(flag),           \
+                         static_cast<T*>(outh), static_cast<T*>(outl), n, m1,  \
+                         ld, row},                                             \
+        stream);                                                               \
   }                                                                            \
   extern "C" int df_basis_change##SUFFIX(                                      \
       const void* Vh, const void* Vl, const void* Qh, const void* Ql,          \

@@ -103,10 +103,12 @@ class History:
     the C++ core, or "numpy"), and `host_syncs` counts the device-to-host
     reads the expansion made to branch on: on the DGKS path one or two per
     Krylov step, the H readbacks not included; on the low-sync path
-    (lowsync=True) one per expansion range, which brings back H and the
-    range's breakdown flags together, and one more per rollback of a step
-    that broke down; with method="device" every read of the solve: one
-    state read a restart, one more a rollback, and the final readback."""
+    (lowsync=True) and the extended path (extended=True) one per expansion
+    range, which brings back H (both words, extended) and the range's
+    breakdown flags together, and one more per rollback of a step that
+    broke down (the extended start reads nothing); with method="device"
+    every read of the solve: one state read a restart, one more a
+    rollback, and the final readback."""
 
     def __init__(self, mvproducts, nconverged, converged, nev, restarts=0,
                  purges=0, timings=None, dense_layer=None, host_syncs=0):
@@ -331,7 +333,9 @@ def partial_schur(
     operator with `matvec_df(xh, xl)` (DiaOperator, Stencil5Operator);
     others take two plain matvecs.  The default tol drops to eps_word.
     On a CUDA card the double-word work runs in the kernels of
-    `csrc/df.cu` (ops/df.py).
+    `csrc/df.cu` (ops/df.py).  Both DGKS passes run every step and the
+    step's decisions stay on the device; H and the range's breakdown
+    flags come back in one transfer a restart, as with lowsync.
 
     `lowsync=True` runs the low-synchronization CGS2 expansion
     (ops/expansion.py::expand_range_lowsync): two contractions a Krylov
@@ -495,16 +499,13 @@ def partial_schur(
         )
 
 
-def _pull(Hdev, Hlo, dd):
-    """The device Hessenberg on the host: one word as float64, a
-    double-word pair as the float64 sum (float32 words) or as DD scalars
-    (float64 words)."""
-    Hh = Hdev.cpu().numpy()
-    if Hlo is None:
-        return Hh
+def _join(Hwords, dd):
+    """The double-word Hessenberg's host words (hi, lo) as the float64 sum
+    (float32 words) or as DD scalars (float64 words)."""
+    Hh, Hl = Hwords
     if dd:
-        return dd_pack(Hh, Hlo.cpu().numpy())
-    return Hh.astype(np.float64) + Hlo.cpu().numpy().astype(np.float64)
+        return dd_pack(Hh, Hl)
+    return Hh.astype(np.float64) + Hl.astype(np.float64)
 
 
 def _df_words(Qbig, dd, V):
@@ -614,7 +615,6 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             # The seed row is only single-word orthogonal to the locked
             # double-word prefix.
             df_reorthogonalize_row(V, Vlo, active0)
-        syncs += 1
 
     # Initial expansion straight to a maxdim-sized relation (the reference
     # stops at mindim first, but nothing happens in between,
@@ -628,11 +628,13 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             syncs += reads
         else:
             if extended:
-                syncs += df_expand_range(op, V, Vlo, Hdev, Hlo, active0, m,
-                                         generator)
+                words, _, reads = df_expand_range(op, V, Vlo, Hdev, Hlo,
+                                                  active0, m, generator)
+                syncs += reads
+                Hpull = _join(words, dd)
             else:
                 syncs += expand_range(op, V, Hdev, active0, m, generator)
-            Hpull = _pull(Hdev, Hlo, dd)
+                Hpull = Hdev.cpu().numpy()
     if dd:
         # The host Hessenberg becomes an object array of DD scalars for the
         # whole restart loop; a warm start rehydrates the locked block from
@@ -745,9 +747,10 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 # dd: Qbig's true hi/lo words (a split of the rounded value
                 # would zero the low word).
                 Qh, Ql = _df_words(Qbig, dd, V)
-                syncs += df_truncate_and_expand(op, V, Vlo, Hdev, Hlo, Qh, Ql,
-                                                k, m, generator)
-                Hpull = _pull(Hdev, Hlo, dd)
+                words, _, reads = df_truncate_and_expand(
+                    op, V, Vlo, Hdev, Hlo, Qh, Ql, k, m, generator)
+                syncs += reads
+                Hpull = _join(words, dd)
             else:
                 Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
                 if lowsync:
@@ -757,7 +760,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 else:
                     syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m,
                                                  generator)
-                    Hpull = _pull(Hdev, Hlo, dd)
+                    Hpull = Hdev.cpu().numpy()
         H[:, k:m] = Hpull[:, k:m]
         prods += m - k
         timings["device"] += time.perf_counter() - t0

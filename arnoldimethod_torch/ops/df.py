@@ -6,7 +6,9 @@
     df_axpy          w - sum_{j < rows} h_j * V[j], j in order; with
                      norm=True also the double-word sum of squares of the
                      result (df_project's one row on it), in the same launch
-    df_mul_by        w * (sh, sl), a double-word scalar
+    df_normalize     w / ||w|| from w's double-word sum of squares on the
+                     card; in its step form also the DGKS step's decisions
+                     (second pass, breakdown), its H column and its flag
     df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, for the
                      first `rows` rows i, optionally into V itself
     stencil5_df      the Dirichlet 5-point stencil (center, west, east,
@@ -18,9 +20,10 @@ kernel is bitwise equal to its plain version, and with float32 words both
 are bitwise equal to the JAX package's ops/df32.py and df_expansion.py.
 
 No TPU kernel stands behind these: the JAX package runs the same work as
-XLA loops (`lax.scan`, `fori_loop`, the tree of `df_sum`).  In plain
-PyTorch each of those ops is one launch, thousands per Krylov step, so the
-n-sized double-word work has kernels of its own.  Why CUDA and not Triton:
+XLA loops and branches (`lax.scan`, `fori_loop`, the tree of `df_sum`,
+`lax.cond`).  In plain PyTorch each of those ops is one launch, thousands
+per Krylov step, so the double-word work has kernels of its own.  Why CUDA
+and not Triton:
 Triton contracts a*b + c into an FMA by default, which would break the
 error-free transforms; the CUDA source rounds every step explicitly.
 
@@ -43,11 +46,13 @@ import torch.nn.functional as F
 
 from .._build import PACKAGE_DIR, build_shared, nvcc_command
 from . import df32
+from .expansion import ETA
 
 __all__ = [
     "KERNEL",
     "AxpyPlan",
     "BasisPlan",
+    "DgksStep",
     "ProjectPlan",
     "StencilPlan",
     "axpy_plan",
@@ -57,8 +62,8 @@ __all__ = [
     "df_axpy_plain",
     "df_basis_change",
     "df_basis_change_plain",
-    "df_mul_by",
-    "df_mul_by_plain",
+    "df_normalize",
+    "df_normalize_plain",
     "df_project",
     "df_project_plain",
     "dirichlet_shifts",
@@ -289,11 +294,52 @@ def _scalar(v, like):
     return torch.as_tensor(v, dtype=like.dtype, device="cpu")
 
 
-def df_mul_by_plain(wh, wl, sh, sl, out=None):
-    """The plain version of df_mul_by (df32.df_mul by a broadcast scalar)."""
-    yh, yl = df32.df_mul(wh, wl, _scalar(sh, wh), _scalar(sl, wh))
-    if out is None:
-        return yh, yl
+class DgksStep(NamedTuple):
+    """What df_normalize's step form takes beside w1 and its sum: the rest
+    of a DGKS step j (ops/df_expansion.py) and where its results go.
+    Every pair is (hi, lo); every sum a pair of 0-dim tensors."""
+
+    r2: tuple     # the matvec's sum of squares
+    w2: tuple     # the second Gram-Schmidt pass's result (n)
+    s2: tuple     # its sum of squares
+    h1: tuple     # the first pass's coefficients (m1)
+    c: tuple      # the second pass's coefficients (m1)
+    H: tuple      # the Hessenberg pair (m1, m): column j is written
+    j: int
+    flags: torch.Tensor  # (m,) of the word type: flags[j] = breakdown
+
+
+def _eta_times(x):
+    """ETA * x in x's word type, ETA rounded to the word first (as the
+    host's numpy scalars and the kernel round it)."""
+    return torch.full_like(x, ETA) * x
+
+
+def df_normalize_plain(w, s, out, step=None):
+    """The plain version of df_normalize: df32's ops on 0-dim tensors and
+    torch.where in place of the host's branches."""
+    nh, nl = df32.df_sqrt(*s)
+    wh, wl = w
+    if step is not None:
+        rnorm = df32.df_sqrt(*step.r2)[0]
+        second = nh < _eta_times(rnorm)
+        n2h, n2l = df32.df_sqrt(*step.s2)
+        ref = torch.where(second, nh, rnorm)
+        nh, nl = torch.where(second, n2h, nh), torch.where(second, n2l, nl)
+        breakdown = nh <= _eta_times(ref)
+        wh = torch.where(second, step.w2[0], wh)
+        wl = torch.where(second, step.w2[1], wl)
+    ih, il = df32.df_inv(nh, nl)
+    yh, yl = df32.df_mul(wh, wl, ih, il)
+    if step is not None:
+        yh, yl = torch.where(breakdown, wh, yh), torch.where(breakdown, wl, yl)
+        ah, al = df32.df_add(*step.h1, *step.c)
+        Hh, Hl = step.H
+        Hh[:, step.j] = torch.where(second, ah, step.h1[0])
+        Hl[:, step.j] = torch.where(second, al, step.h1[1])
+        Hh[step.j + 1, step.j] = nh
+        Hl[step.j + 1, step.j] = nl
+        step.flags[step.j] = breakdown
     out[0].copy_(yh)
     out[1].copy_(yl)
     return out
@@ -343,7 +389,7 @@ def stencil5_df_plain(xh, xl, coeffs, grid, shifts=dirichlet_shifts):
 
 # -- the CUDA kernels -------------------------------------------------------
 
-_NAMES = ("df_project", "df_axpy", "df_mul_by", "df_basis_change",
+_NAMES = ("df_project", "df_axpy", "df_normalize", "df_basis_change",
           "stencil5_df")
 
 
@@ -381,13 +427,14 @@ class _DfKernel:
                 "df", [_SOURCE],
                 [*nvcc_command("double-word"), "-fmad=false"])
             lib = ctypes.CDLL(str(path))
-            p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+            p, i = ctypes.c_void_p, ctypes.c_int64
             sigs = {
                 "df_project": [p, p, i, p, p, i, i, i, i, i, i, i, i, p, i, p,
                                i, p, p, p, p, p],
                 "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i,
                             p, i, p, p, p, p],
-                "df_mul_by": [p, p, d, d, i, p, p, p],
+                "df_normalize": [p] * 10 + [i, p, p, p, p, i, p, p, i, i, p,
+                                            p, p, p],
                 "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
                 "stencil5_df": [p, p, p, p, i, i, i, p, p],
             }
@@ -522,13 +569,9 @@ class _DfKernel:
         self.axpy_forms["norm" if norm else "plain"] += 1
         return ((outh, outl), (s[0], s[1])) if norm else (outh, outl)
 
-    def mul_by(self, wh, wl, sh, sl, out=None):
-        _check(wh, wl, *(out or ()))
-        if out is None:
-            out = (torch.empty_like(wh), torch.empty_like(wl))
-        self._launch("df_mul_by", "df_mul_by", wh, wh.data_ptr(), wl.data_ptr(),
-                     float(sh), float(sl), wh.numel(), out[0].data_ptr(),
-                     out[1].data_ptr())
+    def normalize(self, w, s, out, step=None):
+        self._launch("df_normalize", "df_normalize", w[0],
+                     *_normalize_args(w, s, out, step))
         return out
 
     def basis_change(self, Vh, Vl, Qh, Ql, rows=None, out=None):
@@ -594,6 +637,41 @@ class _DfKernel:
         return yh, yl
 
 
+def _normalize_args(w, s, out, step=None):
+    """df_normalize's C arguments but the stream, after checking the
+    operands: every tensor of one word dtype and device, contiguous; the
+    step's shapes and column."""
+    flat = [*w, *s, *out]
+    if step is not None:
+        flat += [*step.r2, *step.w2, *step.s2, *step.h1, *step.c, *step.H,
+                 step.flags]
+    _check(*flat)
+    n = w[0].numel()
+    if (any(t.shape != (n,) for t in (*w, *out))
+            or any(t.dim() != 0 for t in s)):
+        raise ValueError("df_normalize: w and out must be flat of one length "
+                         "and the sum two 0-dim words")
+    ptrs = [t.data_ptr() for t in (*w, *s)]
+    if step is None:
+        return [*ptrs, *(None,) * 6, n, *(None,) * 4, 0, None, None, 0, 0,
+                None, out[0].data_ptr(), out[1].data_ptr()]
+    Hh, Hl = step.H
+    m1, m = Hh.shape
+    if (any(t.shape != (n,) for t in step.w2)
+            or any(t.dim() != 0 for t in (*step.r2, *step.s2))
+            or any(t.shape != (m1,) for t in (*step.h1, *step.c))
+            or Hl.shape != (m1, m) or step.flags.shape != (m,)
+            or not 0 <= step.j < m or step.j + 1 >= m1):
+        raise ValueError(f"df_normalize: a step j={step.j} of H "
+                         f"{tuple(Hh.shape)} with w of {n}")
+    col = step.j * Hh.element_size()
+    return [*ptrs, *(t.data_ptr() for t in (*step.w2, *step.s2, *step.r2)),
+            n, *(t.data_ptr() for t in (*step.h1, *step.c)), m1,
+            Hh.data_ptr() + col, Hl.data_ptr() + col, m, step.j + 1,
+            step.flags.data_ptr() + col, out[0].data_ptr(),
+            out[1].data_ptr()]
+
+
 @functools.lru_cache(maxsize=64)
 def _coefficient_array(coeffs, dtype):
     """coefficient_words as the C array the kernel takes, made once."""
@@ -631,12 +709,18 @@ def df_axpy(wh, wl, hh, hl, Vh, Vl, rows, norm=False):
     return df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm)
 
 
-def df_mul_by(wh, wl, sh, sl, out=None):
-    """w * (sh, sl) for a host double-word scalar (numbers or 0-dim CPU
-    tensors of the word dtype), into `out` (a pair) when given."""
-    if _on_card(wh, "df_mul_by"):
-        return KERNEL.mul_by(wh, wl, sh, sl, out)
-    return df_mul_by_plain(wh, wl, sh, sl, out)
+def df_normalize(w, s, out, step=None):
+    """out <- w / ||w|| in double word, ||w|| = df_sqrt(s) from w's sum of
+    squares s (two 0-dim words on w's device), into the pair `out`.  With
+    step (a DgksStep of step j): w is the first Gram-Schmidt pass's result
+    and s its sum; the second pass is taken (its w, and h1 + c into H's
+    column j) when ||w1|| < ETA ||r||, and the step breaks down when the
+    norm is at most ETA times the norm before the last pass.  Then out is
+    w unscaled, H[j+1, j] the norm all the same, flags[j] = 1.  Every
+    decision is the host version's, on the card."""
+    if _on_card(w[0], "df_normalize"):
+        return KERNEL.normalize(w, s, out, step)
+    return df_normalize_plain(w, s, out, step)
 
 
 def df_basis_change(Vh, Vl, Qh, Ql, rows=None, out=None):

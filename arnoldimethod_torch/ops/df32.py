@@ -34,14 +34,16 @@ far below that (the normalized Krylov bases and O(||A||) Hessenberg entries
 this serves are).
 
 The scalar functions (two_sum, two_prod, df_add, df_mul, df_scale, df_inv,
-df_sqrt) also take numpy scalars of the word type: the extended solve
-finishes its norms and reciprocals on the host that way, with the same
-IEEE operations at a fraction of the cost of 0-dim tensors.  Constants are
-made in the operands' type, so no numpy promotion rule can widen them.
+df_sqrt) also take numpy scalars of the word type: the host-decided
+reference expansion (ops/df_expansion.py df_expand_range_stepwise)
+finishes its norms and reciprocals that way, with the same IEEE
+operations.  Constants are made in the operands' type, so no numpy
+promotion rule can widen them.
 
 `PLAIN_ON_CARD` counts calls of the public functions made on CUDA tensors:
-on the card the extended solve runs its n-sized work in the kernels and its
-scalar work on the host, so a solve there should leave it at 0.
+on the card the extended solve runs all its double-word work, the scalar
+work of each step included, in the kernels, so a solve there should leave
+it at 0.
 """
 
 from __future__ import annotations
@@ -256,13 +258,25 @@ def df_inv(xh, xl):
     return df_add(r, zero, ch, ce)
 
 
+def _sqrt(x):
+    """The correctly rounded square root of a tensor, as IEEE defines it
+    and as np.sqrt and the kernels' __fsqrt_rn / __dsqrt_rn give it.
+    torch.sqrt on a CUDA card agrees with them (chip_smoke.py compares the
+    plain version there and on the CPU), but on the CPU it runs through a
+    vector math library that misses by an ulp for some float32 and float64
+    inputs, so a CPU tensor takes numpy's root."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    return torch.sqrt(x)
+
+
 @_counted
 def df_sqrt(sh, sl):
     """Double-word square root of a non-negative double-word (sh, sl): the
-    single-word root and one Newton step r' = r + (s - r^2) / (2r).  Zero
-    gives (0, 0), not NaN."""
+    correctly rounded single-word root and one Newton step
+    r' = r + (s - r^2) / (2r).  Zero gives (0, 0), not NaN."""
     tensor = isinstance(sh, torch.Tensor)
-    r = torch.sqrt(sh) if tensor else np.sqrt(sh)
+    r = _sqrt(sh) if tensor else np.sqrt(sh)
     r2h, r2e = two_prod(r, r)
     dh, dl = df_add(sh, sl, -r2h, -r2e)
     two = _const(r, 2.0)

@@ -15,13 +15,22 @@ operator applied through `matvec_df(xh, xl) -> (yh, yl)`.  What differs:
     kernels, on a CPU tensor their plain versions.  A masked row of the
     JAX package (a row past the current step) is simply not visited: its
     coefficient is zero, and adding a zero double word changes no value.
-  - The scalar work (the Newton step of each norm, the reciprocal, the
-    DGKS and breakdown tests) runs on the host, on numpy scalars of the
-    word type, with the operations of df32.py: one device-to-host read
-    after the first Gram-Schmidt pass, one more when the second pass runs.
-    The sum of squares of a pass's result comes from the pass's own
-    df_axpy launch (norm=True), the same bits as df_norm's sum.
-  - Random rows come from the solve's `torch.Generator`.
+  - The step's scalar work (the Newton step of each norm, the reciprocal,
+    the DGKS and breakdown decisions) runs inside df_normalize, from the
+    sums of squares on the card: both Gram-Schmidt passes always run and
+    the kernel keeps what the JAX package's `lax.cond`s would.  The sum of
+    squares of a pass's result comes from the pass's own df_axpy launch
+    (norm=True), the same bits as df_norm's sum.
+  - The breakdown is deferred, as in ops/expansion.py's low-sync range:
+    each step is written as if it kept its vector, its flag goes to a
+    device tensor, and the flags come back once a range in the same
+    transfer as the Hessenberg pair.  The first step that broke down is
+    finished on the breakdown path and the steps after it run again (one
+    more read); `expansion.LOWSYNC` counts such rollbacks.  The result is
+    bitwise `df_expand_range_stepwise`'s, which decides each step on the
+    host from numpy scalars of the word type (one or two reads a step).
+  - Random rows come from the solve's `torch.Generator`; it advances only
+    where the stepwise version's does.
   - V and the device Hessenberg pair (Hh, Hl) are updated in place.
 """
 
@@ -31,11 +40,12 @@ import numpy as np
 import torch
 
 from . import df, df32
-from .expansion import ETA
+from .expansion import ETA, LOWSYNC
 
 __all__ = [
     "df_apply_basis_change",
     "df_expand_range",
+    "df_expand_range_stepwise",
     "df_reorthogonalize_row",
     "df_set_initial_vector",
     "df_set_random_vector",
@@ -61,18 +71,6 @@ def _sumsq(wh, wl):
     return ch[0], cl[0]
 
 
-def _root(sh, sl):
-    """The double-word square root on the host of a device sum of
-    squares (one read)."""
-    s = _host(sh, sl)
-    return df32.df_sqrt(s[0], s[1])
-
-
-def _norm(wh, wl):
-    """The double-word norm of w on the host (one read)."""
-    return _root(*_sumsq(wh, wl))
-
-
 def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False):
     """h = V[:rows] w and the projection update w - h V[:rows] in double
     word; with acc, acc <- acc + h as well (the JAX package's
@@ -83,36 +81,15 @@ def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False):
     return ((ch, cl), *out) if norm else ((ch, cl), out)
 
 
-def _normalize(wh, wl, nh, nl, out=None):
-    """w / ||w|| for the host double-word norm (nh, nl)."""
-    ih, il = df32.df_inv(nh, nl)
-    return df.df_mul_by(wh, wl, ih, il, out)
-
-
-def _dgks(Vh, Vl, wh, wl, rows):
-    """Two-stage DGKS against V[:rows] in double word.  Returns (wh, wl, hh,
-    hl, norm, ref, syncs): norm the host double-word norm of the returned w,
-    ref the hi word of the norm before the last pass."""
-    r2 = _sumsq(wh, wl)
-    (hh, hl), (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, rows, norm=True)
-    s = _host(*r2, *w2)
-    rnorm = df32.df_sqrt(s[0], s[1])[0]
-    wnorm = df32.df_sqrt(s[2], s[3])
-    if wnorm[0] < _eta(rnorm) * rnorm:
-        _, (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, rows, acc=(hh, hl),
-                                          norm=True)
-        return wh, wl, hh, hl, _root(*w2), wnorm[0], 2
-    return wh, wl, hh, hl, wnorm, rnorm, 1
-
-
-def _random_unit(generator, Vh, Vl, rows):
-    """A fresh random unit vector orthogonal to V[:rows], double word."""
+def _random_unit(generator, Vh, Vl, rows, out):
+    """A fresh random unit vector orthogonal to V[:rows], double word, into
+    the pair `out`."""
     zh = torch.randn(Vh.shape[1], dtype=Vh.dtype, device=Vh.device,
                      generator=generator)
     zl = torch.zeros_like(zh)
-    _, (zh, zl) = _masked_project(Vh, Vl, zh, zl, rows)
-    _, (zh, zl), z2 = _masked_project(Vh, Vl, zh, zl, rows, norm=True)
-    return _normalize(zh, zl, *_root(*z2))
+    _, z = _masked_project(Vh, Vl, zh, zl, rows)
+    _, z, z2 = _masked_project(Vh, Vl, *z, rows, norm=True)
+    df.df_normalize(z, z2, out)
 
 
 def _matvec_df(op, xh, xl):
@@ -125,29 +102,107 @@ def _matvec_df(op, xh, xl):
     return df32.df_add(yh, torch.zeros_like(yh), yl, torch.zeros_like(yl))
 
 
+def _step(op, Vh, Vl, Hh, Hl, j, flags):
+    """Krylov step j with no host read: the matvec, its sum of squares,
+    both Gram-Schmidt passes (each norm fused into its df_axpy), then
+    df_normalize's step form, which decides, writes V[j+1], H's column j
+    and flags[j].  Seven launches with a one-launch matvec_df."""
+    wh, wl = _matvec_df(op, Vh[j], Vl[j])
+    r2 = _sumsq(wh, wl)
+    h1, w1, s1 = _masked_project(Vh, Vl, wh, wl, j + 1, norm=True)
+    c, w2, s2 = _masked_project(Vh, Vl, *w1, j + 1, norm=True)
+    df.df_normalize(w1, s1, (Vh[j + 1], Vl[j + 1]),
+                    df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags))
+
+
+def _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator):
+    """Finish step j, found broken down after its range ran on to j1, on
+    the breakdown path: H[j+1, j] = 0 and a fresh random row (w itself
+    stays when j+1 == n).  Counts the rollback in `LOWSYNC`."""
+    LOWSYNC.rollbacks += 1
+    LOWSYNC.discarded_matvecs += j1 - 1 - j
+    Hh[j + 1, j] = 0
+    Hl[j + 1, j] = 0
+    if j + 1 < Vh.shape[1]:
+        _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]))
+
+
 def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
     """Extend A V[:j].T = V[:j+1].T H[:j+1, :j] in double word, writing
     basis rows j0+1 .. j1 and the columns j0 .. j1-1 of the device pair
-    (Hh, Hl), in place.  Returns the number of host reads made."""
+    (Hh, Hl), in place, with no host read inside a step.  One transfer
+    brings back (Hh, Hl) and every step's breakdown flag.  If step j*
+    broke down, it is finished on the breakdown path and the steps from
+    j*+1 run again, one more read.  The result equals
+    `df_expand_range_stepwise` bit for bit.
+
+    Returns ((Hh, Hl) on the host as numpy arrays of the word type, the
+    flags of steps j0..j1-1, host reads made)."""
+    size = Hh.numel()
+    flags = torch.zeros(Hh.shape[1], dtype=Hh.dtype, device=Hh.device)
+    final = [False] * (j1 - j0)
+    reads = 0
+    start = j0
+    while True:
+        for j in range(start, j1):
+            _step(op, Vh, Vl, Hh, Hl, j, flags)
+        packed = torch.cat((Hh.reshape(-1), Hl.reshape(-1), flags))
+        packed = packed.cpu().numpy()
+        reads += 1
+        host = (packed[:size].reshape(Hh.shape),
+                packed[size:2 * size].reshape(Hh.shape))
+        broke = np.flatnonzero(packed[2 * size + start:2 * size + j1])
+        if broke.size == 0:
+            return host, final, reads
+        j = start + int(broke[0])
+        final[j - j0] = True
+        _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator)
+        host[0][j + 1, j] = host[1][j + 1, j] = 0
+        start = j + 1
+        if start == j1:
+            return host, final, reads
+
+
+def _dgks(Vh, Vl, wh, wl, rows):
+    """Two-stage DGKS against V[:rows] in double word, decided on the host.
+    Returns (w, its device sum of squares, (hh, hl), the host double-word
+    norm of w, ref, reads): ref the hi word of the norm before the last
+    pass."""
+    r2 = _sumsq(wh, wl)
+    (hh, hl), w, s = _masked_project(Vh, Vl, wh, wl, rows, norm=True)
+    host = _host(*r2, *s)
+    rnorm = df32.df_sqrt(host[0], host[1])[0]
+    wnorm = df32.df_sqrt(host[2], host[3])
+    if wnorm[0] < _eta(rnorm) * rnorm:
+        _, w, s = _masked_project(Vh, Vl, *w, rows, acc=(hh, hl), norm=True)
+        return w, s, (hh, hl), df32.df_sqrt(*_host(*s)), wnorm[0], 2
+    return w, s, (hh, hl), wnorm, rnorm, 1
+
+
+def df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+    """The expansion with each step's decisions made on the host as the
+    step makes them, from numpy scalars of the word type (one read after
+    the first Gram-Schmidt pass, one more when the second runs): the plain
+    version that `df_expand_range` must equal bit for bit.  On no path of
+    partial_schur.  Returns the number of host reads made."""
     n = Vh.shape[1]
     syncs = 0
     for j in range(j0, j1):
         wh, wl = _matvec_df(op, Vh[j], Vl[j])
-        wh, wl, hh, hl, (nh, nl), ref, s = _dgks(Vh, Vl, wh, wl, j + 1)
-        syncs += s
+        w, s, (hh, hl), (nh, nl), ref, reads = _dgks(Vh, Vl, wh, wl, j + 1)
+        syncs += reads
         Hh[:, j] = hh
         Hl[:, j] = hl
         if not nh <= _eta(ref) * ref:
-            _normalize(wh, wl, nh, nl, out=(Vh[j + 1], Vl[j + 1]))
+            df.df_normalize(w, s, (Vh[j + 1], Vl[j + 1]))
             Hh[j + 1, j] = float(nh)
             Hl[j + 1, j] = float(nl)
         elif j + 1 < n:
             # H[j+1, j] stays zero: deflation.
-            Vh[j + 1], Vl[j + 1] = _random_unit(generator, Vh, Vl, j + 1)
-            syncs += 1
+            _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]))
         else:
             # The basis already spans the whole space.
-            Vh[j + 1], Vl[j + 1] = wh, wl
+            Vh[j + 1], Vl[j + 1] = w
     return syncs
 
 
@@ -161,9 +216,9 @@ def df_apply_basis_change(Vh, Vl, Qh, Ql, rows=None):
 
 def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator):
     """One restart's device step: the truncation basis change, then the
-    expansion from j0 back to j1.  Returns the number of host reads.  When
-    the expansion runs to the last row (j1 = m, as every restart does), only
-    rows 0..j0 of the change are computed: the expansion rewrites rows
+    expansion from j0 back to j1; returns what `df_expand_range` returns.
+    When the expansion runs to the last row (j1 = m, as every restart does),
+    only rows 0..j0 of the change are computed: the expansion rewrites rows
     j0+1..j1 before it reads them (the JAX package computes them and
     overwrites them, so V ends bitwise the same)."""
     rows = j0 + 1 if j1 == Vh.shape[0] - 1 else None
@@ -172,24 +227,26 @@ def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator):
 
 
 def df_set_initial_vector(Vh, Vl, v):
-    """V[0] = v / ||v|| in double word (v single-word, not mutated)."""
+    """V[0] = v / ||v|| in double word (v single-word, not mutated); no
+    host read."""
     vh = v.to(dtype=Vh.dtype, device=Vh.device, copy=True)
     vl = torch.zeros_like(vh)
-    _normalize(vh, vl, *_norm(vh, vl), out=(Vh[0], Vl[0]))
+    df.df_normalize((vh, vl), _sumsq(vh, vl), (Vh[0], Vl[0]))
 
 
 def df_reorthogonalize_row(Vh, Vl, j):
     """Orthogonalize row j against rows [0, j) and renormalize, in double
-    word: on a warm start the seed row was placed by the single-word path."""
+    word: on a warm start the seed row was placed by the single-word path.
+    No host read."""
     wh, wl = Vh[j].clone(), Vl[j].clone()
-    _, (wh, wl) = _masked_project(Vh, Vl, wh, wl, j)
-    _, (wh, wl), w2 = _masked_project(Vh, Vl, wh, wl, j, norm=True)
-    _normalize(wh, wl, *_root(*w2), out=(Vh[j], Vl[j]))
+    _, w = _masked_project(Vh, Vl, wh, wl, j)
+    _, w, w2 = _masked_project(Vh, Vl, *w, j, norm=True)
+    df.df_normalize(w, w2, (Vh[j], Vl[j]))
 
 
 def df_set_random_vector(Vh, Vl, j, generator):
     """V[j] = a fresh random unit vector orthogonal to rows [0, j)."""
-    Vh[j], Vl[j] = _random_unit(generator, Vh, Vl, j)
+    _random_unit(generator, Vh, Vl, j, (Vh[j], Vl[j]))
 
 
 def split_f64(Q, dtype, device):

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --axpy-sweep    # df_axpy under other plans
     python3 chip_smoke.py --device        # the method="device" phases only
     python3 chip_smoke.py --dense-restart # the dense_restart_kernel phase only
+    python3 chip_smoke.py --extended      # df_kernel and the extended solves
 
 Phases, each printed as one JSON line:
 
@@ -106,16 +107,20 @@ Phases, each printed as one JSON line:
            DiaOperator of the same matrix beside it (matvecs, walls)
   df_kernel  two_prod's exactness for both words, then the double-word
            kernels (df_project, its one-row norm form, df_axpy and its
-           fused norm, df_mul_by, df_basis_change, stencil5_df) against
+           fused norm, df_normalize's step form, df_basis_change,
+           stencil5_df) against
            their plain versions, bitwise, in float32 and float64 words at
            config 3's shapes (61 x 65,536; 256^2), 61 x 1,048,576 and 1021
            x 1000; ms (CUDA graph of 20 calls), GB/s and the bound,
            df_project's beside the two-pass kernel's it replaced,
            df_basis_change's and stencil5_df's beside their run-F times,
-           df_axpy's, its fused form's and df_mul_by's beside the earlier
-           column kernel's (COLUMN_AXPY_MS), with their targets; df_axpy in both
+           df_axpy's and its fused form's beside the earlier column
+           kernel's (COLUMN_AXPY_MS), with their targets, and
+           df_normalize's beside df_mul_by's record; df_axpy in both
            forms at rows 31 and 46, and its fused form under CUDA-graph
-           replays on a warm and a fresh stream; then
+           replays on a warm and a fresh stream; df_normalize at 65,536 and
+           1,048,576 rows, both words, aligned and one word off, in every
+           decision of its step form and its one-sum form; then
            df_project alone: the full form at rows 1, 7 and 60, the one-row
            form at n = 1, 1,000, 65,536 and 1,048,576 (bitwise with acc,
            both words), 20 calls in a CUDA graph replayed 10 times against
@@ -137,12 +142,19 @@ Phases, each printed as one JSON line:
            complex pairs, residual in host float64 at most 1e-8, every
            double-word kernel launched, no plain double-word op on the
            card, and the two-pass kernel's result repeated exactly (6,387
-           matvecs, 213 restarts, residual 3.872e-12); df_project's
-           launches split into its one-row and full forms (one-row fewer
-           than 7,000: every pass's norm comes from its df_axpy), df_axpy's
-           into plain and fused; a profile of its first restarts gives the
-           device's busy share and the share of the device time of
-           df_project, df_axpy, df_mul_by, df_basis_change and stencil5_df
+           matvecs, 213 restarts, residual 3.872e-12); df_mul_by gone and
+           df_normalize launched; host reads a step at most (ranges +
+           rollbacks + 3) / matvecs; df_project's launches split into its
+           one-row and full forms (one-row fewer than 7,000: every pass's
+           norm comes from its df_axpy), df_axpy's into plain and fused;
+           then the same solve with df_expand_range_stepwise swapped in
+           (its host decisions, one or two reads a step) and the range's
+           solve once more: the same bits, the walls and their ratio; the
+           host's microseconds a call of each wrapper of a step
+           (ext_conv_host); a profile of its first restarts gives the
+           device's busy share, device launches a Krylov step (at most 8)
+           and the share of the device time of df_project, df_axpy,
+           df_normalize, df_basis_change and stencil5_df
            (chiprun_out/profile_conv.txt), and shows one device launch a
            df_project call (ext_conv_one_launch)
   roofline bench.py's memcpy in the port: a 1 GiB device-to-device copy,
@@ -1309,6 +1321,11 @@ CLOCK_MHZ = {}
 # split beforehand, each split (4) counted once an operand: two_prod 9,
 # df_mul 16, df_scale 14, df_add 11 (17, 24, 22 with both splits).
 SPLIT, DF_MUL, DF_SCALE, DF_ADD = 4, 16, 14, 11
+# df_normalize's scalar work, once a launch: three df_sqrt (a root, two_prod
+# of r with its splits 17, df_add 11, an add, a multiply and a divide,
+# quick_two_sum 3: 35 each), df_inv (a divide, df_mul 24, df_add 11,
+# df_scale 22, df_add 11: 69), two ETA products and two comparisons.
+NORMALIZE_SCALAR_OPS = 3 * 35 + 69 + 4
 
 
 def set_peak_ops(torch, clock_mhz):
@@ -1342,8 +1359,11 @@ def df_ops(name, n, rows=1, m1=1):
     if name == "df_axpy_norm":
         # The axpy, then df_sum's tree over the n squares of the result.
         return df_ops("df_axpy", n, rows) + n * DF_MUL + (N - 1) * DF_ADD
-    if name == "df_mul_by":
-        return n * (DF_MUL + SPLIT) + SPLIT
+    if name == "df_normalize":
+        # The product w * (1/||w||) (w split a point, the scalar once), the
+        # H column's m1 df_add after a second pass and the scalar work.
+        return (n * (DF_MUL + SPLIT) + SPLIT + m1 * DF_ADD
+                + NORMALIZE_SCALAR_OPS)
     if name == "df_basis_change":
         return rows * m1 * n * (DF_MUL + DF_ADD) + SPLIT * m1 * (n + rows)
     if name == "stencil5_df":
@@ -1375,9 +1395,10 @@ def same_bits(xs, ys):
 
 def _two_prod_exact(torch, dtype, gen):
     """two_prod's exactness on the card: the plain version (torch ops) on
-    65,536 random pairs and the df_mul_by kernel on (a, 0) * (b, 0) for 8
-    scalars b; p + e must equal a * b exactly (float64 arithmetic for
-    float32 words, exact rationals on 2,000 pairs for float64 words)."""
+    65,536 random pairs and the df_axpy kernel on 0 - (b, 0) * (a, 0) for
+    8 scalars b (df_mul's two_prod, then exact renormalizations); p + e
+    must equal a * b exactly (float64 arithmetic for float32 words, exact
+    rationals on 2,000 pairs for float64 words)."""
     from fractions import Fraction
 
     from arnoldimethod_torch.ops import df, df32
@@ -1385,9 +1406,11 @@ def _two_prod_exact(torch, dtype, gen):
     a = torch.randn(1 << 16, dtype=dtype, device="cuda", generator=gen)
     b = torch.randn(1 << 16, dtype=dtype, device="cuda", generator=gen)
     pairs = [(a, b, *df32.two_prod(a, b))]
-    for s in b[:8].cpu():
-        p, e = df.df_mul_by(a, torch.zeros_like(a), s, 0.0)
-        pairs.append((a, s.to("cuda").expand_as(a), p, e))
+    zero = torch.zeros_like(a)
+    for s in b[:8]:
+        ph, pl = df.df_axpy(zero, zero, s.reshape(1), zero[:1], a[None],
+                            zero[None], 1)
+        pairs.append((a, s.expand_as(a), -ph, -pl))
     bad = 0
     for x, y, p, e in pairs:
         if dtype == torch.float32:
@@ -1421,8 +1444,14 @@ def _df_case(torch, grid, dtype, gen, time_plain):
     Qh, Ql = pair(m1, m1)
     Oh, Ol = torch.empty_like(Vh), torch.empty_like(Vl)
     ah, al = pair(m1)
-    sh, sl = (torch.tensor(v, dtype=dtype) for v in (0.7431, 0.7431 * lo))
+    w2 = pair(n)
     coeffs = (4.0, -1.0 - 0.5039, -1.0 + 0.5039, -1.0, -1.0)
+    # df_normalize's step j = rows - 1 with its second pass taken and no
+    # breakdown (most of config 3's steps), each form into outputs of its
+    # own.
+    norm_args = normalize_inputs(torch, (wh, wl), w2, (hh, hl), (ah, al),
+                                 "second")
+    norm_k, norm_p = (normalize_outputs(torch, wh, m1) for _ in range(2))
     calls = {
         "df_project": (
             lambda acc: df.df_project(Vh, Vl, wh, wl, rows, acc),
@@ -1442,10 +1471,12 @@ def _df_case(torch, grid, dtype, gen, time_plain):
             lambda acc: _flat(df.df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows,
                                                True)),
             axpy_norm_bytes(n, rows, item), df_ops("df_axpy_norm", n, rows)),
-        "df_mul_by": (
-            lambda acc: df.df_mul_by(wh, wl, sh, sl),
-            lambda acc: df.df_mul_by_plain(wh, wl, sh, sl),
-            2 * n * 2 * item, df_ops("df_mul_by", n)),
+        "df_normalize": (
+            lambda acc: normalize_call(df.df_normalize, norm_args, norm_k,
+                                       rows - 1),
+            lambda acc: normalize_call(df.df_normalize_plain, norm_args,
+                                       norm_p, rows - 1),
+            normalize_bytes(n, m1, item), df_ops("df_normalize", n, m1=m1)),
         "df_basis_change": (
             lambda acc: df.df_basis_change(Vh, Vl, Qh, Ql, out=(Oh, Ol)),
             lambda acc: df.df_basis_change_plain(Vh, Vl, Qh, Ql),
@@ -1480,6 +1511,8 @@ def _df_case(torch, grid, dtype, gen, time_plain):
             res["two_pass_ms"] = was
             res["slower_than_two_pass"] = ms > was
         res.update(against_earlier(name, case, word, ms))
+        if name == "df_normalize":
+            res.update(normalize_record(n, item, case, word, ms))
         if time_plain:
             res["plain_ms"] = median_ms(lambda: plain(None), reps=3, warm=1)
         out[name] = res
@@ -1505,8 +1538,8 @@ TWO_PASS_PROJECT_MS = {
 }
 
 
-# df_axpy's and df_mul_by's device ms with the earlier kernel (a thread a
-# column, one launch for both; PERF.md §6, its last run, NVIDIA H100 80GB
+# df_axpy's device ms with the earlier kernel (a thread a
+# column; PERF.md §6, its last run, NVIDIA H100 80GB
 # HBM3, 700.00 W), by (form, case, word); the fused form against that axpy
 # plus the one-row df_project of its result: no case may be slower now.
 COLUMN_AXPY_MS = {
@@ -1522,11 +1555,6 @@ COLUMN_AXPY_MS = {
     ("df_axpy_norm", "config3", "float64"): 0.0447 + 0.0058,
     ("df_axpy_norm", "1m", "float64"): 0.4166 + 0.0186,
     ("df_axpy_norm", "odd", "float64"): 0.4018 + 0.0187,
-    ("df_mul_by", "1m", "float32"): 0.0053,
-    ("df_mul_by", "odd", "float32"): 0.0054,
-    ("df_mul_by", "config3", "float64"): 0.0027,
-    ("df_mul_by", "1m", "float64"): 0.0096,
-    ("df_mul_by", "odd", "float64"): 0.0088,
 }
 
 
@@ -1596,6 +1624,138 @@ def basis_bytes(m1, rows, n, item):
     """df_basis_change's bytes: V read (both words), its first `rows` rows
     written, Q's m1 x rows entries read."""
     return ((m1 + rows) * n + m1 * rows) * 2 * item
+
+
+# df_normalize's cases: the hi words of the sums r2, s1 and s2 (each lo a
+# small fraction of its hi), r2 None for the one-sum form; "zero" has w = 0
+# as well (df_sqrt(0) = (0, 0): a breakdown, no NaN).
+NORMALIZE_SUMS = {
+    "one_sum": (None, 0.81, None),
+    "first": (3.0, 2.25, 1.44),
+    "second": (9.0, 2.25, 1.44),
+    "second_breakdown": (9.0, 2.25, 0.25),
+    "zero": (0.0, 0.0, 0.0),
+}
+# df_mul_by's device ms, the kernel df_normalize replaced, at config 3's
+# 65,536 float32 pairs (PERF.md §6's kernel table: PR 11 run D, NVIDIA H100
+# 80GB HBM3, 700.00 W): a record, not measured here.
+MUL_BY_RECORD_MS = {("config3", "float32"): 0.0022880}
+
+
+def normalize_inputs(torch, w1, w2, h1, c, case):
+    """(w1, s1, (r2, w2, s2, h1, c) or None): df_normalize's operands for
+    one of NORMALIZE_SUMS, the sums as 0-dim words on w1's device."""
+    lo = 2.0 ** (-27 if w1[0].dtype == torch.float32 else -56)
+
+    def word_pair(v):
+        return tuple(torch.tensor(x, dtype=w1[0].dtype, device=w1[0].device)
+                     for x in (v, v * lo))
+
+    r2, s1, s2 = NORMALIZE_SUMS[case]
+    if r2 is None:
+        return w1, word_pair(s1), None
+    return w1, word_pair(s1), (word_pair(r2), w2, word_pair(s2), h1, c)
+
+
+def normalize_outputs(torch, like, m1):
+    """A row pair, an (m1, m1 - 1) Hessenberg pair and m1 - 1 flags, zero."""
+    return ((torch.zeros_like(like), torch.zeros_like(like)),
+            tuple(torch.zeros(m1, m1 - 1, dtype=like.dtype, device=like.device)
+                  for _ in range(2)),
+            torch.zeros(m1 - 1, dtype=like.dtype, device=like.device))
+
+
+def normalize_call(fn, args, outs, j):
+    """fn (df_normalize or its plain version) on `args` into `outs`, step
+    j; returns the row pair, the H pair and the flags."""
+    from arnoldimethod_torch.ops import df
+
+    w1, s1, parts = args
+    out, H, flags = outs
+    step = None if parts is None else df.DgksStep(*parts, H, j, flags)
+    fn(w1, s1, out, step)
+    return (*out, *H, flags)
+
+
+def normalize_bytes(n, m1, item):
+    """df_normalize's step form: both passes' w read and the row written
+    (24 bytes an element in float32 words), both coefficient vectors read
+    and the H column written, six sum words read and the flag written."""
+    return (6 * n + 6 * m1 + 7) * item
+
+
+def normalize_record(n, item, case, word, ms):
+    """df_mul_by's record beside df_normalize's time, and the bytes bound
+    of the pass's w that the kernel reads (16 bytes an element in float32
+    words: the other pass's w is never read)."""
+    out = {"bytes_bound_ms_read": 4 * n * item / PEAK_BYTES_S * 1e3}
+    was = MUL_BY_RECORD_MS.get((case, word))
+    if was is not None:
+        out.update(df_mul_by_record_ms=was, slower_than_df_mul_by=ms > was)
+    return out
+
+
+def _normalize_forms(torch, dtype, gen):
+    """df_normalize against its plain version on the card and on a CPU
+    copy of the inputs, bitwise (row, H pair, flags), at 65,536 and
+    1,048,576 rows, with every operand 16-byte aligned and with w and the
+    row one word off, in every case of NORMALIZE_SUMS; ms (CUDA graph of
+    20 calls) and bounds of the step form with the second pass taken."""
+    from arnoldimethod_torch.ops import df
+
+    word = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+    m1 = 61
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    def cpu(x):
+        return (None if x is None else x.cpu() if isinstance(x, torch.Tensor)
+                else tuple(cpu(t) for t in x))
+
+    out = []
+    h1, c = pair(m1), pair(m1)
+    for n in (1 << 16, 1 << 20):
+        w1, w2 = pair(n + 1), pair(n + 1)
+        for offset in (0, 1):
+            at = slice(offset, n + offset)
+            for case in NORMALIZE_SUMS:
+                a1, a2 = ((w[0][at], w[1][at]) for w in (w1, w2))
+                if case == "zero":
+                    a1 = a2 = (torch.zeros(n, dtype=dtype, device="cuda"),) * 2
+                args = normalize_inputs(torch, a1, a2, h1, c, case)
+                outs = [normalize_outputs(torch, w1[0], m1) for _ in range(3)]
+                rows = [(o[0][0][at], o[0][1][at]) for o in outs]
+                outs = [(r, *o[1:]) for r, o in zip(rows, outs)]
+                got = normalize_call(df.df_normalize, args, outs[0], m1 - 2)
+                want = normalize_call(df.df_normalize_plain, args, outs[1],
+                                      m1 - 2)
+                host = normalize_call(df.df_normalize_plain, cpu(args),
+                                      cpu(outs[2]), m1 - 2)
+                torch.cuda.synchronize()
+                res = {"n": n, "offset_words": offset, "case": case,
+                       "bitwise": bitwise(zip(got, want)) and bitwise(
+                           zip((t.cpu() for t in got), host)),
+                       "finite": all(bool(torch.isfinite(t).all())
+                                     for t in got),
+                       "flag": float(got[4][m1 - 2])}
+                if case == "second":
+                    nbytes = normalize_bytes(n, m1, item)
+                    ms = graph_ms(lambda: normalize_call(
+                        df.df_normalize, args, outs[0], m1 - 2))
+                    bound_ms, bound_by = roofline(
+                        nbytes, df_ops("df_normalize", n, m1=m1), word)
+                    res.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                               share_of_bound=bound_ms / ms,
+                               **normalize_record(
+                                   n, item, "config3" if (n, offset) == (
+                                       1 << 16, 0) else None, word, ms))
+                out.append(res)
+    return out
 
 
 def _df_windows(torch, dtype, gen):
@@ -1706,13 +1866,13 @@ def _dense_ptxas(log):
 def _df_ptxas(log):
     """Registers, stack frame and spills of each instantiation of csrc/df.cu
     (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
-    mul_by_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
+    normalize_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
     from nvcc's -Xptxas -v output."""
     import re
 
     rows = []
     for name, info in _ptxas_functions(log).items():
-        m = re.search(r"(project|axpy|mul_by|basis|stencil)_kernelI([fd])"
+        m = re.search(r"(project|axpy|normalize|basis|stencil)_kernelI([fd])"
                       r"((?:L[ib]\d+E)*)E", name)
         if m:
             rows.append({"kernel": m.group(1),
@@ -2103,8 +2263,10 @@ def phase_df_kernel(torch):
     df_project alone: both forms at more shapes (`_project_forms`), 20
     calls in a CUDA graph replayed 10 times against one eager call; df_axpy
     in both forms at rows 31 and 46 (`_axpy_rows`) and its fused form under
-    graph replays (`_axpy_replay`).  Then df_basis_change at rows 31, 46
-    and 61, new and in place, and stencil5_df at 64^2 (`_df_windows`).
+    graph replays (`_axpy_replay`).  df_normalize at 65,536 and 1,048,576
+    rows, aligned and one word off, in every decision case
+    (`_normalize_forms`).  Then df_basis_change at rows 31, 46 and 61, new
+    and in place, and stencil5_df at 64^2 (`_df_windows`).
     Last, ptxas' registers, stack and spills for each of the file's 69
     instantiations (none may use local memory).  Each timed case of a
     redesigned kernel names the earlier kernel's time
@@ -2149,6 +2311,16 @@ def phase_df_kernel(torch):
                                (1021 * 1000, 46))]
     check("df_kernel", all(r["bitwise"] for r in replays),
           case="df_axpy_graph_replay", replays=replays)
+    # df_normalize: both sizes, aligned and not, every decision.
+    broke = ("second_breakdown", "zero")
+    for dtype in (torch.float32, torch.float64):
+        forms = _normalize_forms(torch, dtype, gen)
+        check("df_kernel", all(
+                  f["bitwise"] and f["finite"]
+                  and f["flag"] == (1.0 if f["case"] in broke else 0.0)
+                  for f in forms),
+              case="df_normalize_forms", dtype=str(dtype).split(".")[-1],
+              forms=forms)
     from arnoldimethod_torch.ops import df
 
     # Windows of df_basis_change's rows, in place, and stencil5_df's floor.
@@ -2159,11 +2331,12 @@ def phase_df_kernel(torch):
               windows=windows)
         results[("windows", str(dtype).split(".")[-1])] = windows
     # ptxas: 10 df_project, 44 df_axpy (11 shapes (L, U), plain or fused),
-    # 2 df_mul_by, 5 df_basis_change and 6 stencil5_df instantiations, none
-    # with local memory.
+    # 2 df_normalize, 5 df_basis_change and 6 stencil5_df instantiations,
+    # none with local memory.
     ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
-    want = {"project": 10, "axpy": 44, "mul_by": 2, "basis": 5, "stencil": 6}
+    want = {"project": 10, "axpy": 44, "normalize": 2, "basis": 5,
+            "stencil": 6}
     counts = {k: sum(p["kernel"] == k for p in ptxas) for k in want}
     check("df_kernel", not built or (
               counts == want
@@ -2453,7 +2626,10 @@ def phase_ext_conv(torch):
     float32 words, nev=10, :LM, tol=1e-6, mindim=30, maxdim=60,
     restarts=1000, extended=True, from v1 = N(0, 1) of numpy seed 3.  The
     residual in host float64 as bench.py computes it; every double-word
-    kernel launched, no plain double-word op on the card.
+    kernel launched, no plain double-word op on the card, df_mul_by gone,
+    one host read a range and one a rollback.  Then the same solve with
+    the stepwise range (host decisions each step) swapped in, and the
+    range's solve once more: the same bits, and the three walls.
 
     The start matters here: the operator is far from normal (beta = 2) and
     locking waits on the Schur-coupling floor, so the restarts to converge
@@ -2462,14 +2638,25 @@ def phase_ext_conv(torch):
     of the four; the solve is deterministic on the card."""
     import numpy as np
 
-    from arnoldimethod_torch import partial_schur
+    from arnoldimethod_torch import driver, partial_schur
     from arnoldimethod_torch.models.problems import convection_diffusion_2d
     from arnoldimethod_torch.ops import bsr, df, df32, stencil
+    from arnoldimethod_torch.ops import df_expansion as tde
+    from arnoldimethod_torch.ops.expansion import LOWSYNC
 
     nx = 256
     op = convection_diffusion_2d(nx, peclet=4.0 * (nx + 1),
                                  dtype=torch.float32, fmt="stencil",
                                  device="cuda")
+    kw = dict(nev=10, which="LM", tol=1e-6, mindim=30, maxdim=60,
+              v1=np.random.default_rng(3).standard_normal(nx * nx))
+
+    def solve():
+        t0 = time.perf_counter()
+        d, h = partial_schur(op, restarts=1000, extended=True, **kw)
+        torch.cuda.synchronize()
+        return d, h, time.perf_counter() - t0
+
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2478,39 +2665,46 @@ def phase_ext_conv(torch):
     df.KERNEL.project_forms = dict.fromkeys(df.KERNEL.project_forms, 0)
     df.KERNEL.axpy_forms = dict.fromkeys(df.KERNEL.axpy_forms, 0)
     df32.PLAIN_ON_CARD = 0
-    v1 = np.random.default_rng(3).standard_normal(nx * nx)
-    t0 = time.perf_counter()
-    d, h = partial_schur(op, nev=10, which="LM", tol=1e-6, mindim=30,
-                         maxdim=60, restarts=1000, extended=True, v1=v1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    LOWSYNC.rollbacks = LOWSYNC.discarded_matvecs = 0
+    d, h, wall = solve()
     launches = dict(df.KERNEL.launches)
     forms = dict(df.KERNEL.project_forms)
     axpy_forms = dict(df.KERNEL.axpy_forms)
     plain = df32.PLAIN_ON_CARD
+    rollbacks = LOWSYNC.rollbacks
     peak = torch.cuda.max_memory_allocated()
 
     beta = 4.0 * (nx + 1) * (1.0 / (nx + 1)) / 2.0
-    Q = d.Q.cpu().numpy()
-    G = Q.reshape(nx, nx, -1)
-    AQg = 4.0 * G.copy()
-    AQg[:, 1:] += (-1.0 - beta) * G[:, :-1]
-    AQg[:, :-1] += (-1.0 + beta) * G[:, 1:]
-    AQg[1:, :] += -1.0 * G[:-1, :]
-    AQg[:-1, :] += -1.0 * G[1:, :]
-    resid = float(np.linalg.norm(AQg.reshape(nx * nx, -1) - Q @ d.R))
+
+    def residual(d):
+        Q = d.Q.cpu().numpy()
+        G = Q.reshape(nx, nx, -1)
+        AQg = 4.0 * G.copy()
+        AQg[:, 1:] += (-1.0 - beta) * G[:, :-1]
+        AQg[:, :-1] += (-1.0 + beta) * G[:, 1:]
+        AQg[1:, :] += -1.0 * G[:-1, :]
+        AQg[:-1, :] += -1.0 * G[1:, :]
+        return float(np.linalg.norm(AQg.reshape(nx * nx, -1) - Q @ d.R))
+
+    resid = residual(d)
     pairs = int(np.sum(d.eigenvalues.imag > 0))
     # The solve is deterministic and every double-word kernel bitwise, so
     # it repeats the two-pass kernel's run F to every printed digit.
     repeats = (h.mvproducts == 6387 and h.restarts == 213
                and f"{resid:.3e}" == "3.872e-12")
+    # One read a range (the first and one a restart) and one a rollback.
+    ranges = h.restarts + 1
+    reads_ok = h.host_syncs <= ranges + rollbacks + 3
+    df_calls = sum(launches.values())
     # Every Gram-Schmidt pass that reads a norm takes it from its df_axpy
     # launch: the one-row df_project is left to the r2 of each step and the
     # start (18,188 one-row launches before the fusion, PERF.md §5).
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
           and resid <= 1e-8 and all(v > 0 for v in launches.values())
           and plain == 0 and stencil.KERNEL.launches == 0 and repeats
-          and axpy_forms["norm"] > 0 and forms["one_row"] < 7000,
+          and axpy_forms["norm"] > 0 and forms["one_row"] < 7000
+          and not hasattr(df, "df_mul_by") and "df_mul_by" not in launches
+          and launches["df_normalize"] > 0 and reads_ok,
           n=nx * nx, mvproducts=h.mvproducts, restarts=h.restarts,
           nconverged=h.nconverged, complex_pairs=pairs, schur_residual=resid,
           repeats_two_pass=repeats,
@@ -2521,8 +2715,12 @@ def phase_ext_conv(torch):
                       "source": "PERF.md §5, runs F and H"},
           wall_s=wall, timings=h.timings, dense_layer=h.dense_layer,
           host_syncs=h.host_syncs, syncs_per_step=h.host_syncs / h.mvproducts,
-          df_launches=launches, df_project_forms=forms,
-          df_axpy_forms=axpy_forms,
+          read_limit=ranges + rollbacks + 3, rollbacks=rollbacks,
+          discarded_matvecs=LOWSYNC.discarded_matvecs,
+          df_launches=launches, df_launches_per_step=df_calls / h.mvproducts,
+          df_project_forms=forms, df_axpy_forms=axpy_forms,
+          stepwise_record={"syncs_per_step": 1.847, "launches_per_step": "~13",
+                           "source": "PERF.md §5, PR 9 run H"},
           column_axpy_record={"df_axpy_with_df_mul_by": 18186,
                               "one_row_df_project": 18188,
                               "source": "PERF.md §5, before the fusion"},
@@ -2534,24 +2732,98 @@ def phase_ext_conv(torch):
                           "(JAX on a TPU)", "mvproducts": 25762,
                           "schur_residual": 4.228e-10, "complex_pairs": 5,
                           "wall_s": 107.65})
+    # The stepwise range (host decisions, one or two reads a step) swapped
+    # in for one solve, then the range's solve once more.
+    def stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+        reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
+                                             generator)
+        return (Hh.cpu().numpy(), Hl.cpu().numpy()), None, reads
+
+    real_range, walls = tde.df_expand_range, [wall]
+    driver.df_expand_range = tde.df_expand_range = stepwise
+    try:
+        d_step, h_step, w_step = solve()
+    finally:
+        driver.df_expand_range = tde.df_expand_range = real_range
+    walls.append(solve()[2])
+    same = all(np.array_equal(a, b, equal_nan=True) for a, b in (
+        (d.Q.cpu().numpy(), d_step.Q.cpu().numpy()), (d.R, d_step.R),
+        (d.eigenvalues, d_step.eigenvalues)))
+    check("ext_conv_stepwise", same and h_step.mvproducts == h.mvproducts
+          and h_step.restarts == h.restarts,
+          mvproducts=h_step.mvproducts, restarts=h_step.restarts,
+          same_bits=same, walls_s=walls, stepwise_wall_s=w_step,
+          stepwise_syncs_per_step=h_step.host_syncs / h_step.mvproducts,
+          syncs_per_step=h.host_syncs / h.mvproducts,
+          wall_over_stepwise=statistics.median(walls) / w_step)
+    check("ext_conv_host", True, **_step_host_us(torch, op))
     # The double-word kernels are the file's anonymous-namespace kernels.
     calls = df.KERNEL.launches["df_project"]
     prof = _profile(torch, "ext_conv_profile", op, "(anonymous namespace)",
                     "profile_conv.txt", label="df_kernels",
                     parts={"df_project": "project_kernel",
                            "df_axpy": "axpy_kernel",
-                           "df_mul_by": "mul_by_kernel",
+                           "df_normalize": "normalize_kernel",
                            "df_basis_change": "basis_kernel",
-                           "stencil5_df": "stencil_kernel"}, nev=10,
-                    which="LM", tol=1e-6, mindim=30, maxdim=60, restarts=3,
-                    extended=True, v1=v1)
-    # One device launch a df_project call, both forms, in the profiled solve.
+                           "stencil5_df": "stencil_kernel"}, restarts=3,
+                    extended=True, **kw)
+    # One device launch a df_project call, both forms, in the profiled
+    # solve; at most 8 device launches a Krylov step, everything counted.
     calls = df.KERNEL.launches["df_project"] - calls
+    per_step = prof["device_launches"] / prof["mvproducts"]
     check("ext_conv_one_launch",
-          calls > 0 and prof["df_project_device_launches"] == calls,
+          calls > 0 and prof["df_project_device_launches"] == calls
+          and per_step <= 8,
           wrapper_calls=calls,
-          device_launches=prof["df_project_device_launches"])
+          device_launches=prof["df_project_device_launches"],
+          device_launches_per_step=per_step,
+          dtoh_copies_per_step=prof["dtoh_copies"] / prof["mvproducts"])
     return launches, forms, axpy_forms
+
+
+def _step_host_us(torch, op, reps=300):
+    """Host microseconds a call of each wrapper of a double-word Krylov
+    step at config 3's shapes (step 30 of a 61 x 65,536 float32-word
+    basis), of the whole step (`df_expansion._step`), and of one small
+    PyTorch launch (`add_`) as the yardstick: `reps` calls back to back
+    between host clocks, no synchronisation inside (the card runs each
+    call in less time than the host takes to issue it)."""
+    from arnoldimethod_torch.ops import df
+    from arnoldimethod_torch.ops import df_expansion as tde
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, m1, j = op.shape[0], 61, 30
+    Vh = torch.randn(m1, n, device="cuda", generator=gen) / n ** 0.5
+    Vl = torch.zeros_like(Vh)
+    Hh, Hl = torch.zeros(m1, m1 - 1, device="cuda"), torch.zeros(m1, m1 - 1,
+                                                                 device="cuda")
+    flags = torch.zeros(m1 - 1, device="cuda")
+    w = op.matvec_df(Vh[j], Vl[j])
+    r2 = tde._sumsq(*w)
+    h1, w1, s1 = tde._masked_project(Vh, Vl, *w, j + 1, norm=True)
+    c, w2, s2 = tde._masked_project(Vh, Vl, *w1, j + 1, norm=True)
+    out = (torch.empty_like(Vh[0]), torch.empty_like(Vh[0]))
+    step = df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags)
+    x = torch.zeros(1, device="cuda")
+    calls = {
+        "stencil5_df": lambda: op.matvec_df(Vh[j], Vl[j]),
+        "df_project_one_row": lambda: tde._sumsq(*w),
+        "df_project": lambda: df.df_project(Vh, Vl, *w, j + 1),
+        "df_axpy_norm": lambda: df.df_axpy(*w, *h1, Vh, Vl, j + 1, True),
+        "df_normalize": lambda: df.df_normalize(w1, s1, out, step),
+        "step": lambda: tde._step(op, Vh, Vl, Hh, Hl, j, flags),
+        "torch_add_": lambda: x.add_(1.0),
+    }
+    us = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return {"host_us_per_call": us, "reps": reps}
 
 
 def conv_starts(torch):
@@ -3154,6 +3426,12 @@ def main():
     if sys.argv[1:] == ["--df-kernel"]:
         phase_df_kernel(torch)
         return
+    if sys.argv[1:] == ["--extended"]:
+        phase_df_kernel(torch)
+        phase_ext_readme(torch)
+        phase_ext_dd(torch)
+        phase_ext_conv(torch)
+        return
     if sys.argv[1:] == ["--project-sweep"]:
         project_sweep(torch)
         return
@@ -3262,10 +3540,15 @@ def main():
               norm_launches=axpy_forms["norm"],
               **{"plain_form_" + k: df_shapes["df_axpy"][k] for k in (
                   "ms", "plain_ms", "bound_ms")}),
-        entry("df_mul_by", df_src,
+        entry("df_normalize", df_src,
               "arnoldimethod_tpu/ops/df_expansion.py:71 _df_normalize "
-              "(df_mul by 1 / ||w||)" + xla, df_launches["df_mul_by"],
-              df_shapes["df_mul_by"]),
+              "(df_mul by 1 / ||w||)" + xla, df_launches["df_normalize"],
+              df_shapes["df_normalize"],
+              also_replaces="arnoldimethod_tpu/ops/df_expansion.py:48 "
+                            "_df_dgks's lax.cond and :109 the breakdown test",
+              form="step (second pass taken)",
+              **{k: df_shapes["df_normalize"][k] for k in (
+                  "bytes_bound_ms_read", "df_mul_by_record_ms")}),
         entry("df_basis_change", df_src,
               "arnoldimethod_tpu/ops/df_expansion.py:150 "
               "_df_basis_change_impl" + xla, df_launches["df_basis_change"],

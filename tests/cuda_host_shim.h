@@ -13,6 +13,7 @@
 #pragma once
 #include <barrier>
 #include <chrono>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
@@ -66,6 +67,10 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
 inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
+inline double __dsqrt_rn(double a) { volatile double r = std::sqrt(a); return r; }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }

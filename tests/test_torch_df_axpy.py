@@ -7,7 +7,7 @@ equal to JAX's op-by-op df_axpy_update_df followed by df_sum(df_mul(x, x))
 ROADMAP.md §3) it is held to the port's own plain chain.  The expansion
 with the fused norm gives exactly the results and host reads of the
 unfused one.  Also: axpy_plan's invariants and the split launch counts
-(plain form, fused form, df_mul_by) with the C entry stubbed out.
+(plain form, fused form, df_normalize) with the C entry stubbed out.
 """
 
 import jax
@@ -128,7 +128,7 @@ def _expand(monkeypatch, fused, case):
     tde.df_set_initial_vector(Vh, Vl, torch.from_numpy(v.astype(np.float32)))
     Hh, Hl = torch.zeros(m + 1, m), torch.zeros(m + 1, m)
     gen = torch.Generator().manual_seed(4)
-    syncs = tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m, gen)
+    syncs = tde.df_expand_range_stepwise(top, Vh, Vl, Hh, Hl, 0, m, gen)
     tde.df_reorthogonalize_row(Vh, Vl, 3)
     monkeypatch.undo()
     return Vh, Vl, Hh, Hl, syncs
@@ -136,9 +136,10 @@ def _expand(monkeypatch, fused, case):
 
 @pytest.mark.parametrize("case", ["random", "deflating"])
 def test_expansion_with_the_fused_norm_is_unchanged(monkeypatch, case):
-    """df_expand_range (and a reorthogonalized row) with the fused norm:
-    exactly the V, (Hh, Hl) and host reads of the unfused expansion; the
-    deflating start takes the second DGKS pass and a random row."""
+    """df_expand_range_stepwise (and a reorthogonalized row) with the
+    fused norm: exactly the V, (Hh, Hl) and host reads of the unfused
+    expansion; the deflating start takes the second DGKS pass and a random
+    row."""
     fused = _expand(monkeypatch, True, case)
     unfused = _expand(monkeypatch, False, case)
     for a, b in zip(fused[:4], unfused[:4]):
@@ -164,14 +165,13 @@ def test_dgks_reads_the_fused_sum_with_r2(monkeypatch):
     n_fused = len(calls)
     monkeypatch.setattr(tde, "_masked_project", _unfused_masked_project)
     unfused = tde._dgks(Vh, Vl, wh, wl, 40)
-    for a, b in zip(fused[:4], unfused[:4]):
+    for a, b in zip((*fused[0], *fused[1], *fused[2]),
+                    (*unfused[0], *unfused[1], *unfused[2])):
         assert torch.equal(a, b)
-    assert [tuple(map(float, x)) if isinstance(x, tuple) else float(x)
-            for x in fused[4:6]] == [
-        tuple(map(float, x)) if isinstance(x, tuple) else float(x)
-        for x in unfused[4:6]]
-    assert fused[6] == unfused[6]
-    assert len(calls) - n_fused == n_fused + fused[6]
+    assert (tuple(map(float, fused[3])), float(fused[4])) == (
+        tuple(map(float, unfused[3])), float(unfused[4]))
+    assert fused[5] == unfused[5]
+    assert len(calls) - n_fused == n_fused + fused[5]
 
 
 @pytest.mark.parametrize("n", [1, 5, 100, 1000, 1 << 16, 1021 * 1000,
@@ -227,18 +227,28 @@ def _stub_kernel(monkeypatch):
 
 
 def test_launch_counts_split_by_form(monkeypatch):
-    """The plain form, the fused norm and df_mul_by count apart."""
+    """The plain form, the fused norm and df_normalize count apart; the
+    step form of df_normalize is one launch too."""
     K, seen = _stub_kernel(monkeypatch)
     v = torch.ones(64)
     V = torch.ones(3, 64)
     K.axpy(v, v, v[:3], v[:3], V, V, 3)
     (out, (sh, sl)) = K.axpy(v, v, v[:3], v[:3], V, V, 2, norm=True)
     K.axpy(v, v, v[:3], v[:3], V, V, 1, norm=True)
-    K.mul_by(v, v, 2.0, 0.0)
-    assert K.launches == {"df_project": 0, "df_axpy": 3, "df_mul_by": 1,
+    K.normalize(out, (sh, sl), (v, v))
+    H, flags = torch.zeros(3, 2), torch.zeros(2)
+    K.normalize(out, (sh, sl), (v, v), df.DgksStep(
+        (sh, sl), out, (sh, sl), (v[:3], v[:3]), (v[:3], v[:3]), (H, H), 1,
+        flags))
+    assert K.launches == {"df_project": 0, "df_axpy": 3, "df_normalize": 2,
                           "df_basis_change": 0, "stencil5_df": 0}
     assert K.axpy_forms == {"plain": 1, "norm": 2}
-    assert [e for e, _ in seen] == ["df_axpy"] * 3 + ["df_mul_by"]
+    assert [e for e, _ in seen] == ["df_axpy"] * 3 + ["df_normalize"] * 2
+    # The one-sum form passes no second pass and no H; the step form
+    # passes H's column j (row j + 1 for the norm) and flags[j].
+    assert seen[3][1][4:10] == (None,) * 6
+    assert seen[4][1][16:21] == (H.data_ptr() + 4, H.data_ptr() + 4, 2, 2,
+                                 flags.data_ptr() + 4)
     assert sh.dim() == sl.dim() == 0
     # The plain form passes no sum and no scratch; the fused form both.
     assert seen[0][1][-1] is None and seen[1][1][-1] is not None

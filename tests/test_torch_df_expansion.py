@@ -30,11 +30,13 @@ from arnoldimethod_tpu.ops import df_expansion as jde
 from arnoldimethod_torch import _device
 from arnoldimethod_torch.models import problems as tp
 from arnoldimethod_torch.models.operators import (
+    DenseOperator,
     DiaOperator,
     Stencil5Operator,
 )
 from arnoldimethod_torch.ops import df, df32
 from arnoldimethod_torch.ops import df_expansion as tde
+from arnoldimethod_torch.ops.expansion import ETA, LOWSYNC
 
 torch.set_num_threads(2)
 
@@ -219,34 +221,72 @@ def test_project_and_axpy_match_jax_masked_project(basis, rows):
     _same((jch, jcl, jw2h, jw2l, jah, jal), (*c, *w2, *acc))
 
 
-def test_normalize_matches_jax(basis):
-    _, _, wh, wl, _, _ = basis
+def _dgks_basis(second):
+    """Seven orthonormal rows (float64 split into two words) and a w that
+    the first pass over rows 0..4 shrinks below ETA of its norm (w mostly
+    in their span: the second pass runs) or not (mostly outside)."""
+    rng = np.random.default_rng(9)
+    Q = np.linalg.qr(rng.standard_normal((N, 7)))[0].T
+    inside, outside = (1.0, 0.01) if second else (0.01, 1.0)
+    w = Q[:5].T @ rng.standard_normal(5) * inside + (
+        rng.standard_normal(N) * outside)
+    hi, whi = Q.astype(F32), w.astype(F32)
+    return hi, (Q - hi).astype(F32), whi, (w - whi).astype(F32)
+
+
+@pytest.mark.parametrize("second", [True, False])
+def test_normalize_matches_jax(second):
+    """df_normalize_plain's step form from the device sums of both passes:
+    the normalized w, H's column (h, and the norm at row j + 1) and the
+    breakdown flag of JAX's _df_dgks and _df_normalize, bitwise, with the
+    second pass taken and not; the one-sum form is JAX's _df_normalize."""
+    Vh, Vl, wh, wl = _dgks_basis(second)
+    j = 4
     with jax.disable_jit():
-        (jsh, jsl), (jnh, jnl) = jde._df_normalize(*_j(wh, wl))
-    twh, twl = _t(wh, wl)
-    nh, nl = tde._norm(twh, twl)  # host numpy scalars
-    assert type(nh) is type(nl) is np.float32
-    _same((jnh, jnl, jsh, jsl),
-          (*_t(nh, nl), *tde._normalize(twh, twl, nh, nl)))
-    # df_mul_by's plain version with host scalars is df_mul.
+        jw2h, jw2l, jhh, jhl, jwn, jref = jde._df_dgks(
+            *_j(Vh, Vl, wh, wl), jnp.arange(7) <= j)
+        (jsh, jsl), (jnh, jnl) = jde._df_normalize(jw2h, jw2l)
+        jbreak = bool(jwn <= ETA * jref)
+        (j1h, j1l), _ = jde._df_normalize(*_j(wh, wl))
+    tVh, tVl, twh, twl = _t(Vh, Vl, wh, wl)
+    assert tde._dgks(tVh, tVl, twh, twl, j + 1)[-1] == (2 if second else 1)
+    r2 = tde._sumsq(twh, twl)
+    h1, w1, s1 = tde._masked_project(tVh, tVl, twh, twl, j + 1, norm=True)
+    c, w2, s2 = tde._masked_project(tVh, tVl, *w1, j + 1, norm=True)
+    Hh, Hl = torch.full((7, 6), 7.0), torch.full((7, 6), 7.0)
+    flags = torch.full((6,), 7.0)
     out = (torch.empty(N), torch.empty(N))
-    df.df_mul_by(twh, twl, nh, nl, out=out)
-    _same(df32.df_mul(twh, twl, *_t(nh, nl)), out)
+    df.df_normalize(w1, s1, out,
+                    df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags))
+    rows = np.arange(7)
+    _same((jsh, jsl, np.where(rows == j + 1, jnh, jhh),
+           np.where(rows == j + 1, jnl, jhl)), (*out, Hh[:, j], Hl[:, j]))
+    assert not jbreak and flags[j] == 0
+    assert (Hh[:, :j] == 7).all() and (flags[:j] == 7).all()
+    # The one-sum form: w / ||w|| from w's sum.
+    df.df_normalize((twh, twl), tde._sumsq(twh, twl), out)
+    _same((j1h, j1l), out)
 
 
 def test_host_scalar_ops_equal_the_tensor_ops():
-    """df_sqrt and df_inv on numpy scalars (the host side of the solve)
-    give the bits of the same ops on 0-dim tensors, in both word types."""
+    """df_sqrt and df_inv on numpy scalars (the host side of the stepwise
+    solve) give the bits of the same ops on 0-dim tensors and on a vector
+    (df_normalize's plain version), in both word types, over 4,000 sums
+    across six decades: every root correctly rounded on both sides."""
     rng = np.random.default_rng(10)
     for dtype in (np.float32, np.float64):
-        for x in rng.standard_normal(50) ** 2:
-            h = dtype(x)
-            lo = dtype((x - float(h)) if dtype == np.float32 else x * 2.0 ** -60)
-            for fn in (df32.df_sqrt, df32.df_inv):
-                a = fn(h, lo)
-                b = fn(*_t(h, lo))
-                assert all(type(v) is dtype for v in a)
-                _same([np.asarray(v) for v in a], b)
+        x = rng.standard_normal(4000) ** 2 * 10.0 ** rng.uniform(-3, 3, 4000)
+        h = x.astype(dtype)
+        lo = ((x - h.astype(np.float64)) if dtype == np.float32
+              else x * 2.0 ** -60).astype(dtype)
+        for fn in (df32.df_sqrt, df32.df_inv):
+            vec = fn(*_t(h, lo))
+            for i in range(0, 4000, 97):
+                b = fn(*_t(h[i], lo[i]))
+                _same([np.asarray(v) for v in b], [v[i] for v in vec])
+            host = [fn(a, b) for a, b in zip(h, lo)]
+            assert all(type(v) is dtype for v in host[0])
+            _same([np.array([v[k] for v in host]) for k in (0, 1)], vec)
 
 
 def test_basis_change_matches_jax(basis):
@@ -406,8 +446,10 @@ def test_expand_range_matches_jax(case):
     V0 = _start(N, m)
     Vh, Vl = _port_start(V0)
     Hh, Hl = torch.zeros(m + 1, m), torch.zeros(m + 1, m)
-    syncs = tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m, torch.Generator())
-    assert m <= syncs <= 2 * m
+    (wh, wl), flags, reads = tde.df_expand_range(top, Vh, Vl, Hh, Hl, 0, m,
+                                                 torch.Generator())
+    assert reads == 1 and flags == [False] * m
+    _same((wh, wl), (Hh, Hl))
     with jax.disable_jit():
         jV, jVl = _jax_start(V0)
         zero = jnp.zeros((m + 1, m), jnp.float32)
@@ -466,6 +508,128 @@ def test_truncate_and_expand_matches_jax():
         _same(jout, (Vh, Vl, Hh, Hl))
 
 
+# -- the range with no host read against the stepwise one -------------------
+
+
+INTS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _bits(*pairs):
+    """Equal bits (signed zeros and NaNs included) of each pair."""
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.view(INTS[a.dtype]), b.view(INTS[b.dtype]))
+               for a, b in pairs)
+
+
+def _operator(case, dtype):
+    word = torch.empty(0, dtype=dtype).numpy().dtype
+    if case == "laplacian_1d":
+        return tp.laplacian_1d(N, dtype=dtype), N
+    if case == "stencil":
+        return Stencil5Operator(COEFFS, (25, 40), dtype=dtype), N
+    if case == "diag_e1":  # tests/test_torch_extended.py's exact closure
+        diag = np.linspace(1.0, 4.0, 32).astype(word)
+        return DiaOperator(diag[None, :], (0,), (32, 32)), 32
+    if case == "zero":
+        return DiaOperator(np.zeros((1, 12), word), (0,), (12, 12)), 12
+    # A 3-cycle and a 7-cycle: from e_0 the Krylov space closes at step 2.
+    P = np.zeros((10, 10), word)
+    for c in (list(range(3)), list(range(3, 10))):
+        P[c[1:] + c[:1], c] = 1.0
+    return DenseOperator(P), 10
+
+
+def _both_ranges(case, dtype, m, restart=None):
+    """One expansion of m steps by df_expand_range_stepwise and by
+    df_expand_range from one start and generator seed, then, with restart
+    = (Q, k), a restart's step by each (the basis change, then steps
+    k..m-1).  Returns both (Vh, Vl, Hh, Hl, the generator's state, what
+    the last range returned)."""
+    top, n = _operator(case, dtype)
+    v = np.random.default_rng(1).standard_normal(n)
+    if case in ("diag_e1", "cycles"):
+        v = np.eye(n)[0]
+    out = []
+    for deferred in (False, True):
+        Vh = torch.zeros(m + 1, n, dtype=dtype)
+        Vl = torch.zeros_like(Vh)
+        tde.df_set_initial_vector(Vh, Vl, torch.from_numpy(v))
+        Hh = torch.zeros(m + 1, m, dtype=dtype)
+        Hl = torch.zeros_like(Hh)
+        gen = torch.Generator().manual_seed(3)
+        expand = (tde.df_expand_range if deferred
+                  else tde.df_expand_range_stepwise)
+        got = expand(top, Vh, Vl, Hh, Hl, 0, m, gen)
+        if restart is not None:
+            Q, k = restart
+            Qh, Ql = tde.split_f64(Q, dtype, "cpu")
+            if deferred:
+                got = tde.df_truncate_and_expand(top, Vh, Vl, Hh, Hl, Qh, Ql,
+                                                 k, m, gen)
+            else:
+                tde.df_apply_basis_change(Vh, Vl, Qh, Ql)
+                got = tde.df_expand_range_stepwise(top, Vh, Vl, Hh, Hl, k, m,
+                                                   gen)
+        out.append((Vh, Vl, Hh, Hl, gen.get_state(), got))
+    return out
+
+
+WORDS = [torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", WORDS)
+@pytest.mark.parametrize("case", ["laplacian_1d", "stencil"])
+def test_range_is_the_stepwise_range(case, dtype):
+    """No breakdown: the same V and H pairs bit for bit, the generator
+    untouched by both, one read, and the host words are H's."""
+    m = 8
+    (V1, L1, H1, G1, g1, reads1), (V2, L2, H2, G2, g2, got) = _both_ranges(
+        case, dtype, m)
+    assert _bits((V1, V2), (L1, L2), (H1, H2), (G1, G2))
+    assert torch.equal(g1, g2)
+    (hh, hl), flags, reads = got
+    assert reads == 1 and flags == [False] * m and m <= reads1 <= 2 * m
+    assert _bits((torch.from_numpy(hh), H2), (torch.from_numpy(hl), G2))
+
+
+@pytest.mark.parametrize("dtype", WORDS)
+def test_truncate_and_expand_is_the_stepwise_one(dtype):
+    """A restart's step after the first range, with a Qbig built as the
+    driver builds it: bit for bit the stepwise change and expansion."""
+    m, k = 8, 3
+    (V1, L1, H1, G1, g1, _), (V2, L2, H2, G2, g2, got) = _both_ranges(
+        "laplacian_1d", dtype, m, (_driver_qbig(m, k, 1, 3), k))
+    assert _bits((V1, V2), (L1, L2), (H1, H2), (G1, G2))
+    assert torch.equal(g1, g2)
+    assert got[2] == 1 and got[1] == [False] * (m - k)
+
+
+@pytest.mark.parametrize("dtype", WORDS)
+@pytest.mark.parametrize("case,m,want", [("diag_e1", 6, [0]),
+                                         ("cycles", 8, [2]),
+                                         ("zero", 5, [0, 1, 2, 3, 4])])
+def test_breakdown_rolls_back_to_the_stepwise_result(case, m, want, dtype):
+    """An exact closure at the first step (an eigenvector start), one in
+    mid-range (step 2 of a permutation's 3-cycle) and a zero operator
+    (every step): the steps after each breakdown run again; V, H and the
+    generator end bitwise the stepwise version's, one rollback and one
+    read more a breakdown (none for one at the range's last step), and
+    every row stays finite."""
+    LOWSYNC.rollbacks = LOWSYNC.discarded_matvecs = 0
+    (V1, L1, H1, G1, g1, _), (V2, L2, H2, G2, g2, got) = _both_ranges(
+        case, dtype, m)
+    assert _bits((V1, V2), (L1, L2), (H1, H2), (G1, G2))
+    assert torch.equal(g1, g2)
+    (hh, hl), flags, reads = got
+    assert [j for j, f in enumerate(flags) if f] == want
+    assert LOWSYNC.rollbacks == len(want)
+    assert LOWSYNC.discarded_matvecs == sum(m - 1 - j for j in want)
+    assert reads == 1 + len(want) - (m - 1 in want)
+    assert _bits((torch.from_numpy(hh), H2), (torch.from_numpy(hl), G2))
+    assert all(H2[j + 1, j] == 0 for j in want)
+    assert bool(torch.isfinite(V2).all() and torch.isfinite(L2).all())
+
+
 def test_reorthogonalize_row_matches_jax():
     m, j = 6, 3
     rng = np.random.default_rng(6)
@@ -511,8 +675,18 @@ def test_kernel_wrappers_reject_bad_input():
     v = torch.zeros(8)
     with pytest.raises(ValueError, match="share dtype"):
         K.axpy(v, v.double(), v, v, v[None], v[None], 1)
+    s = (torch.zeros(()), torch.zeros(()))
     with pytest.raises(ValueError, match="contiguous"):
-        K.mul_by(torch.zeros(16)[::2], torch.zeros(8), 1.0, 0.0)
+        K.normalize((torch.zeros(16)[::2], torch.zeros(8)), s, (v, v))
+    with pytest.raises(ValueError, match="flat of one length"):
+        K.normalize((v, v), s, (v, torch.zeros(9)))
+    H = torch.zeros(4, 3)
+    step = df.DgksStep(s, (v, v), s, (torch.zeros(4),) * 2,
+                       (torch.zeros(4),) * 2, (H, H), 3, torch.zeros(3))
+    with pytest.raises(ValueError, match="a step j=3"):
+        K.normalize((v, v), s, (v, v), step)
+    with pytest.raises(ValueError, match="a step j=2"):
+        K.normalize((v, v), s, (v, v), step._replace(j=2, c=(v, v)))
     with pytest.raises(ValueError, match="rows"):
         K.project(v[None], v[None], v, v, 2)
     with pytest.raises(ValueError, match="Q must be"):
@@ -610,7 +784,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_launch_counts_start_at_zero_and_plain_does_not_count():
     assert df._DfKernel().launches == dict.fromkeys(
-        ("df_project", "df_axpy", "df_mul_by", "df_basis_change",
+        ("df_project", "df_axpy", "df_normalize", "df_basis_change",
          "stencil5_df"), 0)
     assert df._DfKernel().project_forms == {"one_row": 0, "full": 0}
     assert df._DfKernel().axpy_forms == {"plain": 0, "norm": 0}
@@ -618,7 +792,7 @@ def test_launch_counts_start_at_zero_and_plain_does_not_count():
     forms = dict(df.KERNEL.project_forms), dict(df.KERNEL.axpy_forms)
     v = torch.ones(8)
     df.df_project(v[None], v[None], v, v, 1)
-    df.df_mul_by(v, v, 1.0, 0.0)
+    df.df_normalize((v, v), (v[0], v[1]), (v.clone(), v.clone()))
     df.df_axpy(v, v, v, v, v[None], v[None], 1, norm=True)
     assert df.KERNEL.launches == before
     assert (df.KERNEL.project_forms, df.KERNEL.axpy_forms) == forms

@@ -4,7 +4,8 @@ which emulates the few CUDA features they use (a thread per CUDA thread,
 blocks in turn, barriers, shared memory, cp.async, atomics, warp
 shuffles), and held bit for bit to their plain PyTorch versions: the basis
 change and the stencil under every tile and every number of points a
-thread, into new tensors and (the basis change) in place; df_mul_by;
+thread, into new tensors and (the basis change) in place; df_normalize
+in both forms and every decision of its step form;
 df_axpy, plain and with its fused norm, under several launch plans (every
 fold, short runs and runs of a block, one block and many, the norm's last
 block with levels in device memory); df_project at its plan.  A copy of
@@ -27,7 +28,8 @@ import pytest
 import torch
 
 from arnoldimethod_torch import _device
-from arnoldimethod_torch.ops import df
+from arnoldimethod_torch.ops import df, df32
+from arnoldimethod_torch.ops.expansion import ETA
 
 torch.set_num_threads(2)
 
@@ -90,13 +92,14 @@ def _host_build(directory, cu):
                     str(so), str(src)], check=True, capture_output=True,
                    timeout=300)
     out = ctypes.CDLL(str(so))
-    p, i, d = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    p, i = ctypes.c_void_p, ctypes.c_int64
     sigs = {"df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
             "stencil5_df": [p, p, p, p, i, i, i, p, p],
             "df_axpy": [p, p, p, p, p, p, *[i] * 8, p, i, p, i, p, p, p, p],
             "df_project": [p, p, i, p, p, *[i] * 8, p, i, p, i, p, p, p, p,
                            p],
-            "df_mul_by": [p, p, d, d, i, p, p, p]}
+            "df_normalize": [p] * 10 + [i, p, p, p, p, i, p, p, i, i, p, p,
+                                        p, p]}
     for name, args in sigs.items():
         for word in ("_f32", "_f64"):
             f = getattr(out, name + word)
@@ -306,21 +309,79 @@ def test_axpy_source_mutation_fails(mutant):
     assert not (_bitwise(out[0], want[0]) and _bitwise(out[1], want[1]))
 
 
+# df_normalize's cases: the sums (hi words; lo a fraction of them) of
+# r2, s1 and s2, or None for the one-sum form (s1 alone), and what the
+# step decides (second pass, breakdown).
+NORMALIZE_CASES = {
+    "one_sum": ((None, 0.81, None), None),
+    "first": ((3.0, 2.25, 1.44), (False, False)),
+    "second": ((9.0, 2.25, 1.44), (True, False)),
+    "second_breakdown": ((9.0, 2.25, 0.25), (True, True)),
+    "zero": ((0.0, 0.0, 0.0), (False, True)),
+}
+
+
+def _sum(v, dtype):
+    lo = 2.0 ** (-27 if dtype == torch.float32 else -56)
+    return (torch.tensor(v, dtype=dtype), torch.tensor(v * lo, dtype=dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 7, 1000, 1003])
-def test_mul_by_source_is_bitwise(lib, dtype, n):
-    """16 bytes of each word a step where every operand is aligned (the
-    rest one by one), and one element a step where w starts one word off."""
+@pytest.mark.parametrize("case", list(NORMALIZE_CASES))
+def test_normalize_source_is_bitwise(lib, dtype, n, case):
+    """Every decision of the step form (second pass taken and not,
+    breakdown and not, an exactly zero sum: df_sqrt(0) = (0, 0), no NaN)
+    and the one-sum form; 16 bytes of each word a step where every
+    operand is aligned (the rest one by one), and one element a step where
+    w starts one word off.  The row, H's column j and flags[j] are the
+    plain version's bit for bit; the other columns and flags untouched."""
     rng = np.random.default_rng(n)
-    wh, wl = _pair(rng, dtype, n + 1)
-    fn = getattr(lib, "df_mul_by" + _word(dtype))
-    s = (0.7431, 0.7431 * 2.0 ** -26)
-    for a, b in ((wh[:n], wl[:n]), (wh[1:], wl[1:])):
-        oh, ol = torch.full_like(a, 7.0), torch.full_like(a, 7.0)
-        assert fn(a.data_ptr(), b.data_ptr(), *s, n, oh.data_ptr(),
-                  ol.data_ptr(), None) == 0
-        want = df.df_mul_by_plain(a, b, *s)
-        assert _bitwise(oh, want[0]) and _bitwise(ol, want[1])
+    (r2, s1, s2), decides = NORMALIZE_CASES[case]
+    w1h, w1l = _pair(rng, dtype, n + 1)
+    w2h, w2l = _pair(rng, dtype, n + 1)
+    if case == "zero":
+        for t in (w1h, w1l, w2h, w2l):
+            t.zero_()
+    m1, m, j = 7, 6, 3
+    h1, c = _pair(rng, dtype, m1), _pair(rng, dtype, m1)
+    fn = getattr(lib, "df_normalize" + _word(dtype))
+    for at in (slice(0, n), slice(1, n + 1)):
+        w1, w2 = (w1h[at], w1l[at]), (w2h[at], w2l[at])
+        outs, Hs, flags = [], [], []
+        for kernel in (True, False):
+            out = (torch.full((n,), 7.0, dtype=dtype),
+                   torch.full((n,), 7.0, dtype=dtype))
+            H = (torch.full((m1, m), 7.0, dtype=dtype),
+                 torch.full((m1, m), 7.0, dtype=dtype))
+            flag = torch.full((m,), 7.0, dtype=dtype)
+            step = None if decides is None else df.DgksStep(
+                _sum(r2, dtype), w2, _sum(s2, dtype), h1, c, H, j, flag)
+            if kernel:
+                assert fn(*df._normalize_args(w1, _sum(s1, dtype), out, step),
+                          None) == 0
+            else:
+                df.df_normalize_plain(w1, _sum(s1, dtype), out, step)
+            outs.append(out)
+            Hs.append(H)
+            flags.append(flag)
+        assert all(_bitwise(a, b) for a, b in zip(
+            (*outs[0], *Hs[0], flags[0]), (*outs[1], *Hs[1], flags[1])))
+        if decides is None:
+            assert (Hs[0][0] == 7).all() and (flags[0] == 7).all()
+            continue
+        second, breakdown = decides
+        w = w2 if second else w1
+        assert flags[0][j] == float(breakdown)
+        assert (Hs[0][0][:, j] != 7).all() and (Hs[0][0][:, j + 1:] == 7).all()
+        if breakdown:
+            assert _bitwise(outs[0][0], w[0]) and _bitwise(outs[0][1], w[1])
+        else:
+            assert not _bitwise(outs[0][0], w[0])
+        want = df32.df_add(*h1, *c) if second else h1
+        assert _bitwise(Hs[0][0][:j + 1, j], want[0][:j + 1])
+        assert all(bool(torch.isfinite(t).all())
+                   for t in (*outs[0], *Hs[0], flags[0]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -349,3 +410,13 @@ def test_project_source_is_bitwise(lib, dtype, m1, n, rows):
     assert _bitwise(ch, want[0]) and _bitwise(cl, want[1])
     assert _bitwise(gh, acc[0]) and _bitwise(gl, acc[1])
     assert not arrivals.any()
+
+
+def test_eta_literals_are_the_rounded_constant():
+    """The kernel's ETA is the word-rounded ETA of ops/expansion.py, the
+    value the plain version and the host's numpy scalars compare with."""
+    text = CU.read_text()
+    for word, ctype in ((np.float32, "float"), (np.float64, "double")):
+        lit = re.search(rf"struct Eta<{ctype}> {{ static constexpr {ctype} "
+                        rf"value = (0x[0-9a-f.]+p-?\d+)f?; }}", text).group(1)
+        assert float.fromhex(lit) == float(word(ETA))

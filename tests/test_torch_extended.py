@@ -23,7 +23,7 @@ from arnoldimethod_tpu.models.operators import (
     BsrOperator as JBsr,
     SplitComplexOperator,
 )
-from arnoldimethod_torch import _device
+from arnoldimethod_torch import _device, driver
 from arnoldimethod_torch.convert import workspace_from_npz
 from arnoldimethod_torch.models import problems as tp
 from arnoldimethod_torch.models.operators import (
@@ -32,6 +32,8 @@ from arnoldimethod_torch.models.operators import (
     DiaOperator,
 )
 from arnoldimethod_torch.ops import bsr
+from arnoldimethod_torch.ops import df_expansion as tde
+from arnoldimethod_torch.ops.expansion import LOWSYNC
 
 torch.set_num_threads(2)
 
@@ -60,9 +62,11 @@ def _v1(n, seed=11):
 def test_readme_f32_words_same_count_as_jax():
     """laplacian_1d(100), nev=10, :SR, tol=1e-12: same matvec count as JAX
     from one v1, a Schur residual below 1e-11 in float64 (bench.py's
-    limit), Q as the float64 combine of the two words."""
+    limit), Q as the float64 combine of the two words, and one host read
+    a restart."""
     kw = dict(nev=10, which="SR", tol=1e-12, extended=True, v1=_v1(100))
     jd, jh = jam.partial_schur(jp.laplacian_1d(100, dtype=np.float32), **kw)
+    LOWSYNC.rollbacks = 0
     td, th = tam.partial_schur(tp.laplacian_1d(100, dtype=torch.float32), **kw)
     assert th.converged and jh.converged
     assert th.mvproducts == jh.mvproducts and th.restarts == jh.restarts
@@ -72,7 +76,8 @@ def test_readme_f32_words_same_count_as_jax():
     assert np.linalg.norm(Q.T @ Q - np.eye(10)) < 1e-11
     assert np.abs(np.sort(td.eigenvalues.real)
                   - np.sort(jd.eigenvalues.real)).max() < 1e-13
-    assert th.mvproducts - 1 <= th.host_syncs <= 2 * th.mvproducts + 1
+    # One read a range (H with the breakdown flags), one more a rollback.
+    assert th.host_syncs == th.restarts + LOWSYNC.rollbacks
 
 
 def test_partial_eigen_of_an_extended_result():
@@ -178,9 +183,11 @@ def test_exact_breakdown_reinit():
     op = DiaOperator(diag[None, :], (0,), (n, n))
     e1 = np.zeros(n, np.float32)
     e1[0] = 1.0
+    LOWSYNC.rollbacks = 0
     d, h = tam.partial_schur(op, nev=2, which="LM", v1=e1, tol=1e-10,
                              extended=True)
     assert h.converged and h.nconverged >= 2
+    assert LOWSYNC.rollbacks >= 1  # the first step, found after its range
     assert np.allclose(np.sort(d.eigenvalues.real)[-2:], np.sort(diag)[-2:],
                        atol=1e-9)
 
@@ -289,3 +296,43 @@ def test_complex_bsr_runs_the_real_matvec_on_two_words(monkeypatch, with_imagina
         torch.from_numpy(x))
     assert not calls
     assert np.abs(y_plain.numpy() - y.numpy()).max() <= 1e-10
+
+
+def _stepwise_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+    """df_expand_range's interface over the host-decided stepwise range."""
+    reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
+                                         generator)
+    return (Hh.numpy().copy(), Hl.numpy().copy()), None, reads
+
+
+@pytest.mark.parametrize("case", ["config3_16", "dd_lap40"])
+def test_solve_is_the_stepwise_solve(monkeypatch, case):
+    """A whole extended solve, the range with one read a restart against
+    the same solve with the host-decided stepwise range swapped in: the
+    same counts and the same bits of Q, R and the eigenvalues.  Config 3's
+    operator at 16 x 16 (float32 words, 11 restarts) split in one low word
+    of H while the CPU's plain df_sqrt was not correctly rounded; float64
+    words run the double-double host layer."""
+    if case == "config3_16":
+        op = tp.convection_diffusion_2d(16, peclet=68.0, dtype=torch.float32,
+                                        fmt="stencil")
+        kw = dict(nev=10, which="LM", tol=1e-6, mindim=30, maxdim=60,
+                  restarts=1000,
+                  v1=np.random.default_rng(3).standard_normal(256))
+    else:
+        op = tp.laplacian_1d(40, dtype=torch.float64)
+        kw = dict(nev=4, which="SR", tol=1e-24, v1=_v1(40))
+    out = []
+    for stepwise in (False, True):
+        if stepwise:
+            monkeypatch.setattr(driver, "df_expand_range", _stepwise_range)
+            monkeypatch.setattr(tde, "df_expand_range", _stepwise_range)
+        d, h = tam.partial_schur(op, extended=True, **kw)
+        out.append((d, h))
+    (d1, h1), (d2, h2) = out
+    assert h1.converged and (h1.mvproducts, h1.restarts) == (
+        h2.mvproducts, h2.restarts)
+    assert h1.host_syncs == h1.restarts < h2.host_syncs
+    for a, b in ((d1.Q.numpy(), d2.Q.numpy()), (d1.R, d2.R),
+                 (d1.eigenvalues, d2.eigenvalues)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
