@@ -952,7 +952,7 @@ int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
 
 // -- df_normalize ----------------------------------------------------------
 
-// ETA = sqrt(2)/2 (ops/expansion.py), rounded to the word as the plain
+// ETA = sqrt(2)/2 (ops/df32.py), rounded to the word as the plain
 // version rounds it.
 template <typename T> struct Eta;
 template <> struct Eta<float> { static constexpr float value = 0x1.6a09e6p-1f; };

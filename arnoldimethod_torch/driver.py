@@ -628,7 +628,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             syncs += reads
         else:
             if extended:
-                words, _, reads = df_expand_range(op, V, Vlo, Hdev, Hlo,
+                words, reads = df_expand_range(op, V, Vlo, Hdev, Hlo,
                                                   active0, m, generator)
                 syncs += reads
                 Hpull = _join(words, dd)
@@ -747,7 +747,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 # dd: Qbig's true hi/lo words (a split of the rounded value
                 # would zero the low word).
                 Qh, Ql = _df_words(Qbig, dd, V)
-                words, _, reads = df_truncate_and_expand(
+                words, reads = df_truncate_and_expand(
                     op, V, Vlo, Hdev, Hlo, Qh, Ql, k, m, generator)
                 syncs += reads
                 Hpull = _join(words, dd)

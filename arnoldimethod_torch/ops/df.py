@@ -46,7 +46,7 @@ import torch.nn.functional as F
 
 from .._build import PACKAGE_DIR, build_shared, nvcc_command
 from . import df32
-from .expansion import ETA
+from .df32 import ETA
 
 __all__ = [
     "KERNEL",

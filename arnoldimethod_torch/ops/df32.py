@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "ETA",
     "PLAIN_ON_CARD",
     "two_sum",
     "split",
@@ -73,6 +74,8 @@ __all__ = [
     "df_sqrt",
     "split_constant",
 ]
+
+ETA = 0.7071067811865476  # sqrt(2)/2, the ARPACK DGKS constant
 
 PLAIN_ON_CARD = 0
 

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from . import df, df32
-from .expansion import ETA, LOWSYNC
+from .df32 import ETA
+from .expansion import LOWSYNC
 
 __all__ = [
     "df_apply_basis_change",
@@ -136,11 +137,10 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
     j*+1 run again, one more read.  The result equals
     `df_expand_range_stepwise` bit for bit.
 
-    Returns ((Hh, Hl) on the host as numpy arrays of the word type, the
-    flags of steps j0..j1-1, host reads made)."""
+    Returns ((Hh, Hl) on the host as numpy arrays of the word type, host
+    reads made)."""
     size = Hh.numel()
     flags = torch.zeros(Hh.shape[1], dtype=Hh.dtype, device=Hh.device)
-    final = [False] * (j1 - j0)
     reads = 0
     start = j0
     while True:
@@ -153,14 +153,13 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
                 packed[size:2 * size].reshape(Hh.shape))
         broke = np.flatnonzero(packed[2 * size + start:2 * size + j1])
         if broke.size == 0:
-            return host, final, reads
+            return host, reads
         j = start + int(broke[0])
-        final[j - j0] = True
         _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator)
         host[0][j + 1, j] = host[1][j + 1, j] = 0
         start = j + 1
         if start == j1:
-            return host, final, reads
+            return host, reads
 
 
 def _dgks(Vh, Vl, wh, wl, rows):

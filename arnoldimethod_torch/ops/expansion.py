@@ -46,6 +46,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .df32 import ETA
+
 __all__ = [
     "ETA",
     "LOWSYNC",
@@ -62,8 +64,6 @@ __all__ = [
     "truncate_and_expand",
     "truncate_and_expand_lowsync",
 ]
-
-ETA = 0.7071067811865476  # sqrt(2)/2, the ARPACK DGKS constant
 
 
 @contextlib.contextmanager

@@ -1512,7 +1512,7 @@ def _df_case(torch, grid, dtype, gen, time_plain):
             res["slower_than_two_pass"] = ms > was
         res.update(against_earlier(name, case, word, ms))
         if name == "df_normalize":
-            res.update(normalize_record(n, item, case, word, ms))
+            res.update(normalize_record(case, word, ms))
         if time_plain:
             res["plain_ms"] = median_ms(lambda: plain(None), reps=3, warm=1)
         out[name] = res
@@ -1637,9 +1637,11 @@ NORMALIZE_SUMS = {
     "zero": (0.0, 0.0, 0.0),
 }
 # df_mul_by's device ms, the kernel df_normalize replaced, at config 3's
-# 65,536 float32 pairs (PERF.md §6's kernel table: PR 11 run D, NVIDIA H100
-# 80GB HBM3, 700.00 W): a record, not measured here.
+# 65,536 float32 pairs (PERF.md §6's kernel table, NVIDIA H100 80GB HBM3,
+# 700.00 W): a record, not measured here.
 MUL_BY_RECORD_MS = {("config3", "float32"): 0.0022880}
+MUL_BY_IS = ("record of df_mul_by in PERF.md §6 (NVIDIA H100 80GB HBM3, "
+             "700 W); not measured in this run")
 
 
 def normalize_inputs(torch, w1, w2, h1, c, case):
@@ -1678,21 +1680,21 @@ def normalize_call(fn, args, outs, j):
 
 
 def normalize_bytes(n, m1, item):
-    """df_normalize's step form: both passes' w read and the row written
-    (24 bytes an element in float32 words), both coefficient vectors read
-    and the H column written, six sum words read and the flag written."""
-    return (6 * n + 6 * m1 + 7) * item
+    """df_normalize's step form: the chosen pass's w read and the row
+    written (16 bytes an element in float32 words: the other pass's w is
+    never read), both coefficient vectors read and the H column written,
+    six sum words read and the flag written."""
+    return (4 * n + 6 * m1 + 7) * item
 
 
-def normalize_record(n, item, case, word, ms):
-    """df_mul_by's record beside df_normalize's time, and the bytes bound
-    of the pass's w that the kernel reads (16 bytes an element in float32
-    words: the other pass's w is never read)."""
-    out = {"bytes_bound_ms_read": 4 * n * item / PEAK_BYTES_S * 1e3}
+def normalize_record(case, word, ms):
+    """df_mul_by's record beside df_normalize's time, labelled as a record
+    that this run did not measure."""
     was = MUL_BY_RECORD_MS.get((case, word))
-    if was is not None:
-        out.update(df_mul_by_record_ms=was, slower_than_df_mul_by=ms > was)
-    return out
+    if was is None:
+        return {}
+    return {"df_mul_by_record_ms": was, "df_mul_by_record_is": MUL_BY_IS,
+            "slower_than_df_mul_by_record": ms > was}
 
 
 def _normalize_forms(torch, dtype, gen):
@@ -1752,7 +1754,7 @@ def _normalize_forms(torch, dtype, gen):
                     res.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                                share_of_bound=bound_ms / ms,
                                **normalize_record(
-                                   n, item, "config3" if (n, offset) == (
+                                   "config3" if (n, offset) == (
                                        1 << 16, 0) else None, word, ms))
                 out.append(res)
     return out
@@ -2720,7 +2722,7 @@ def phase_ext_conv(torch):
           df_launches=launches, df_launches_per_step=df_calls / h.mvproducts,
           df_project_forms=forms, df_axpy_forms=axpy_forms,
           stepwise_record={"syncs_per_step": 1.847, "launches_per_step": "~13",
-                           "source": "PERF.md §5, PR 9 run H"},
+                           "source": "PERF.md §5, the stepwise range"},
           column_axpy_record={"df_axpy_with_df_mul_by": 18186,
                               "one_row_df_project": 18188,
                               "source": "PERF.md §5, before the fusion"},
@@ -2737,7 +2739,7 @@ def phase_ext_conv(torch):
     def stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
         reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
                                              generator)
-        return (Hh.cpu().numpy(), Hl.cpu().numpy()), None, reads
+        return (Hh.cpu().numpy(), Hl.cpu().numpy()), reads
 
     real_range, walls = tde.df_expand_range, [wall]
     driver.df_expand_range = tde.df_expand_range = stepwise
@@ -3546,9 +3548,7 @@ def main():
               df_shapes["df_normalize"],
               also_replaces="arnoldimethod_tpu/ops/df_expansion.py:48 "
                             "_df_dgks's lax.cond and :109 the breakdown test",
-              form="step (second pass taken)",
-              **{k: df_shapes["df_normalize"][k] for k in (
-                  "bytes_bound_ms_read", "df_mul_by_record_ms")}),
+              form="step (second pass taken)"),
         entry("df_basis_change", df_src,
               "arnoldimethod_tpu/ops/df_expansion.py:150 "
               "_df_basis_change_impl" + xla, df_launches["df_basis_change"],

@@ -29,7 +29,7 @@ import torch
 
 from arnoldimethod_torch import _device
 from arnoldimethod_torch.ops import df, df32
-from arnoldimethod_torch.ops.expansion import ETA
+from arnoldimethod_torch.ops.df32 import ETA
 
 torch.set_num_threads(2)
 
@@ -413,7 +413,7 @@ def test_project_source_is_bitwise(lib, dtype, m1, n, rows):
 
 
 def test_eta_literals_are_the_rounded_constant():
-    """The kernel's ETA is the word-rounded ETA of ops/expansion.py, the
+    """The kernel's ETA is the word-rounded ETA of ops/df32.py, the
     value the plain version and the host's numpy scalars compare with."""
     text = CU.read_text()
     for word, ctype in ((np.float32, "float"), (np.float64, "double")):

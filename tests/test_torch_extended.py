@@ -302,7 +302,7 @@ def _stepwise_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
     """df_expand_range's interface over the host-decided stepwise range."""
     reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
                                          generator)
-    return (Hh.numpy().copy(), Hl.numpy().copy()), None, reads
+    return (Hh.numpy().copy(), Hl.numpy().copy()), reads
 
 
 @pytest.mark.parametrize("case", ["config3_16", "dd_lap40"])
