@@ -773,7 +773,7 @@ int basis_change(const void* Vh, const void* Vl, const void* Qh,
   return int(cudaErrorInvalidValue);
 }
 
-// -- df_axpy and df_mul_by -------------------------------------------------
+// -- df_axpy ---------------------------------------------------------------
 
 constexpr int kAxpyThreads = 256;   // the most threads a block
 constexpr int kAxpyMaxRows = 256;   // rows of V a launch (h records staged)
