@@ -12,6 +12,8 @@ held against; module paths and public names match it.
     partial_eigen(decomp)                          -> (values, vectors)
     ArnoldiWorkspace                               -- resume/warm-start state
     LM, LR, SR, LI, SI                             -- eigenvalue targets
+    parallel                                       -- row-sharded solves
+                                                      over torch.distributed
 """
 
 from .driver import History, PartialSchur, partial_schur
@@ -27,6 +29,7 @@ from .transforms import (
     rayleigh_ritz,
 )
 from .workspace import ArnoldiWorkspace
+from . import parallel
 from .models.operators import (
     CsrOperator,
     DenseOperator,
@@ -35,6 +38,7 @@ from .models.operators import (
     FunctionOperator,
     LinearOperator,
     SellOperator,
+    ShardedCsrOperator,
     ShiftInvertDenseOperator,
     SplitComplexDenseOperator,
     SplitComplexOperator,
@@ -66,6 +70,7 @@ __all__ = [
     "EllOperator",
     "CsrOperator",
     "SellOperator",
+    "ShardedCsrOperator",
     "Stencil5Operator",
     "SplitComplexOperator",
     "SplitComplexDenseOperator",
@@ -81,4 +86,5 @@ __all__ = [
     "rayleigh_ritz",
     "as_operator",
     "csr_to_ell",
+    "parallel",
 ]

@@ -18,6 +18,7 @@ from .models.operators import (
     DiaOperator,
     EllOperator,
     SellOperator,
+    ShardedCsrOperator,
     ShiftInvertDenseOperator,
     SplitComplexDenseOperator,
     SplitComplexOperator,
@@ -64,6 +65,11 @@ def operator_from_arrays(kind, arrays, meta, device=None):
     kind "circulant_shift_invert":  arrays {"inv_re", "inv_im"} (the
                     inverse symbol's real words), meta {"grid", "sigma",
                     "dtype"}.
+    kind "sharded_csr":  arrays {"arrs"}, the JAX ShardedCsrOperator's
+                    `arrs` (every rank's rows), meta {"mode", "shape"} and
+                    optionally "mesh" (default `parallel.make_mesh()`):
+                    this rank's ShardedCsrOperator, on the mesh's device
+                    type unless `device` says otherwise.
     """
     if kind == "dense":
         return DenseOperator(np.asarray(arrays["A"]), device=device)
@@ -113,6 +119,14 @@ def operator_from_arrays(kind, arrays, meta, device=None):
         return ChebyshevFilterOperator(inner, meta["a"], meta["b"],
                                        meta["degree"],
                                        scale_point=meta.get("scale_point"))
+    if kind == "sharded_csr":
+        mesh = meta.get("mesh")
+        if mesh is None:
+            from .parallel.mesh import make_mesh
+
+            mesh = make_mesh()
+        return ShardedCsrOperator(arrays["arrs"], tuple(meta["shape"]), mesh,
+                                  mode=meta["mode"], device=device)
     dev = _device(device)
     if kind == "shift_invert_dense":
         piv = np.asarray(arrays["piv"]).astype(np.int32) + 1

@@ -35,10 +35,12 @@ from .dense.swaps import (
 )
 from .models.operators import (
     DenseOperator,
+    RowShardedOperator,
     SplitComplexDenseOperator,
     as_operator,
 )
 from .fused import fused_solve
+from .parallel.mesh import GatheredOperator, distribute_rows, row_comm
 from .ops.dd import DD_EPS, dd_collapse, dd_hi, dd_lo, dd_pack
 from .ops.df_expansion import (
     df_apply_basis_change,
@@ -70,19 +72,21 @@ __all__ = ["History", "PartialSchur", "partial_schur"]
 _DEBUG = os.environ.get("ARNOLDI_TPU_DEBUG", "0") != "0"
 
 
-def _debug_checks(H, V, k, it):
+def _debug_checks(H, V, k, it, comm=None):
     """Raise FloatingPointError when H has a non-finite entry or the rows
-    [0, k) of V are not orthonormal to 1e-3 (float32) or 1e-8."""
+    [0, k) of V are not orthonormal to 1e-3 (float32) or 1e-8 (a sharded
+    V's Gram matrix summed over the ranks)."""
     if not np.isfinite(H).all():
         raise FloatingPointError(
             f"non-finite Hessenberg entries after restart {it}"
         )
     # Rows [0, k) are the basis proper; row k (the next-vector slot) is
     # legitimately ~0 when the Krylov space is exhausted.
-    Vn = V[:k].cpu().numpy()
-    G = Vn.conj() @ Vn.T
-    err = float(np.linalg.norm(G - np.eye(k)))
-    limit = 1e-3 if Vn.real.dtype == np.float32 else 1e-8
+    G = V[:k].conj() @ V[:k].T
+    if comm is not None:
+        comm.all_reduce_(G)
+    err = float(np.linalg.norm(G.cpu().numpy() - np.eye(k)))
+    limit = 1e-3 if V.dtype.to_real() == torch.float32 else 1e-8
     if err > limit:
         raise FloatingPointError(
             f"basis orthonormality lost after restart {it}: "
@@ -356,9 +360,19 @@ def partial_schur(
     the DGKS expansion with its decisions kept on the device, and the dense
     phase as one launch of the restart kernel (`csrc/dense_restart.cu`) on
     the card, or its plain version on the CPU; one state read a restart.
-    Real dtypes only; not with lowsync, extended or split_complex.  The
-    option of the JAX package that this port does not have yet raises
-    NotImplementedError: sharding=.
+    Real dtypes only; not with lowsync, extended or split_complex.
+
+    `sharding=parallel.basis_sharding(mesh)` runs the solve row-sharded,
+    SPMD over torch.distributed: every rank of the mesh calls partial_schur
+    with the same arguments (`v1` the global vector) and holds its n/P rows
+    of the basis; the contractions are summed over the ranks
+    (parallel/comm.py) and the host decisions, taken from the summed
+    values, agree on every rank.  Give `parallel.shard_operator(op, mesh)`;
+    any other operator runs whole on every rank behind a wrapper that
+    gathers x.  The host method (DGKS, lowsync, complex, split_complex) and
+    method="device" take it; extended=True with sharding raises
+    NotImplementedError (ROADMAP.md item 14).  `PartialSchur.Q` comes back
+    as a DTensor placed Shard(0) on the mesh.
     """
     if method not in (None, "host", "device"):
         raise ValueError(f"method must be 'host' or 'device', got {method!r}")
@@ -374,6 +388,11 @@ def partial_schur(
         )
     if lowsync and method == "device":
         raise ValueError("lowsync is a host-method option")
+    if sharding is None and workspace is not None:
+        sharding = workspace.sharding
+    if sharding is not None and extended:
+        raise _not_ported("sharding= with extended=True (the cross-rank "
+                          "double-word sum)", 14)
 
     op = as_operator(A, n=n, dtype=dtype, device=device,
                      sparse_format=sparse_format)
@@ -441,8 +460,14 @@ def partial_schur(
             "method='device' supports real dtypes only (split-complex pair "
             "bookkeeping, as in the JAX package)"
         )
+    comm = None
     if sharding is not None:
-        raise _not_ported("sharding= (parallel/)", 14)
+        comm = row_comm(sharding, n)
+        if not isinstance(op, RowShardedOperator):
+            op = GatheredOperator(op, comm)
+        if workspace is not None and workspace.comm is None:
+            raise ValueError("a sharded solve needs a sharded workspace "
+                             "(ArnoldiWorkspace(..., sharding=sharding))")
     order_key = get_order(target)
     if tol is None:
         # extended: the double-word noise floor is ~eps^2, so the default
@@ -459,7 +484,8 @@ def partial_schur(
 
     with fp32_matmul():
         if workspace is None:
-            ws = ArnoldiWorkspace(n, maxdim, dtype=work_dtype, device=dev)
+            ws = ArnoldiWorkspace(n, maxdim, dtype=work_dtype, device=dev,
+                                  sharding=sharding)
             if start_from is not None and start_from != 0:
                 raise ValueError("start_from requires an explicit workspace")
             active0 = 0
@@ -467,9 +493,9 @@ def partial_schur(
                 v1 = torch.as_tensor(v1)
                 if tuple(v1.shape) != (n,):
                     raise ValueError("v1 should have the same dimension as A")
-                set_initial_vector(ws.V, v1)
+                set_initial_vector(ws.V, v1, comm)
             else:
-                set_random_vector(ws.V, 0, generator)
+                set_random_vector(ws.V, 0, generator, comm)
         else:
             ws = workspace
             if maxdim >= ws.V.shape[0]:
@@ -485,18 +511,24 @@ def partial_schur(
             if v1 is not None:
                 if active0 != 0:
                     raise ValueError("v1 requires start_from == 0")
-                set_initial_vector(ws.V, torch.as_tensor(v1))
+                set_initial_vector(ws.V, torch.as_tensor(v1), comm)
             elif initialize:
-                set_random_vector(ws.V, active0, generator)
+                set_random_vector(ws.V, active0, generator, comm)
 
         if method == "device":
-            return _partial_schur_device(op, ws, mindim, maxdim, nev, tol,
-                                         restarts, target, generator, active0)
-        return _partial_schur(
-            op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
-            active0, generator, extended, lowsync,
-            sc=bool(split_complex) and work_dtype.is_complex,
-        )
+            schur, history = _partial_schur_device(
+                op, ws, mindim, maxdim, nev, tol, restarts, target, generator,
+                active0, comm)
+        else:
+            schur, history = _partial_schur(
+                op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
+                active0, generator, extended, lowsync,
+                sc=bool(split_complex) and work_dtype.is_complex, comm=comm,
+            )
+    if comm is not None:
+        schur = PartialSchur(distribute_rows(schur.Q, sharding.mesh),
+                             schur.R, schur.eigenvalues)
+    return schur, history
 
 
 def _join(Hwords, dd):
@@ -518,7 +550,7 @@ def _df_words(Qbig, dd, V):
 
 
 def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
-                          target, generator, active0=0):
+                          target, generator, active0=0, comm=None):
     """The solve with its restarts on the device (fused.py), repackaged in
     the same PartialSchur/History types, leaving the workspace coherent for
     a later warm start by either method.  For a warm start the locked H
@@ -528,7 +560,7 @@ def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
     Hdev = torch.as_tensor(ws.H).to(dtype=V.dtype, device=V.device)
     lam, state, reads = fused_solve(
         op, V, Hdev, nev, mindim, tol, restarts, generator,
-        type(target).__name__, active0)
+        type(target).__name__, active0, comm=comm)
     # One batched readback of everything the host needs.
     packed = torch.cat((Hdev.reshape(-1), lam.reshape(-1),
                         state.to(Hdev.dtype))).cpu().numpy()
@@ -561,7 +593,7 @@ def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
 
 def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                    order_key, active0, generator, extended=False,
-                   lowsync=False, sc=False):
+                   lowsync=False, sc=False, comm=None):
     m = maxdim
     # Dense restart kernels: the native C++ core when it builds and the
     # workspace fits its scratch buffers; the numpy layer otherwise
@@ -624,7 +656,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     with torch.profiler.record_function("arnoldi:expand"):
         if lowsync:
             Hpull, _, reads = expand_range_lowsync(op, V, Hdev, active0, m,
-                                                   generator)
+                                                   generator, comm)
             syncs += reads
         else:
             if extended:
@@ -633,7 +665,8 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 syncs += reads
                 Hpull = _join(words, dd)
             else:
-                syncs += expand_range(op, V, Hdev, active0, m, generator)
+                syncs += expand_range(op, V, Hdev, active0, m, generator,
+                                      comm)
                 Hpull = Hdev.cpu().numpy()
     if dd:
         # The host Hessenberg becomes an object array of DD scalars for the
@@ -755,11 +788,11 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 Qdev = torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device)
                 if lowsync:
                     Hpull, _, reads = truncate_and_expand_lowsync(
-                        op, V, Hdev, Qdev, k, m, generator)
+                        op, V, Hdev, Qdev, k, m, generator, comm)
                     syncs += reads
                 else:
                     syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m,
-                                                 generator)
+                                                 generator, comm)
                     Hpull = Hdev.cpu().numpy()
         H[:, k:m] = Hpull[:, k:m]
         prods += m - k
@@ -769,7 +802,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             # The JAX package's exemptions: split-complex (there V is only
             # the real word) and dd (H is an object array the finiteness
             # check cannot see through).
-            _debug_checks(H, V, m, it)
+            _debug_checks(H, V, m, it, comm)
 
         # Keep the workspace coherent after every restart, so an exception
         # leaves a resumable state (dd: H is a fresh object array).

@@ -3,7 +3,10 @@
 LAPACK-free like the JAX package's version: the eigenvectors of the small
 (quasi-)triangular R come from the shifted backward substitution of
 dense/eig.py on the host, and the n-sized back-transformation X = Q @ S is
-one torch.matmul on the basis's device, in full FP32.
+one torch.matmul on the basis's device, in full FP32.  A sharded Q (a
+DTensor placed Shard(0), from `partial_schur(..., sharding=...)`) gives
+sharded eigenvectors: each rank multiplies its own rows, with no
+collective.
 
 The reference's documented caveats carry over: unnecessary (and for
 repeated eigenvalues potentially orthogonality-losing) for Hermitian
@@ -28,7 +31,8 @@ def partial_eigen(decomp: PartialSchur):
     spectrum is real) numpy vector of length k, vectors an (n, k) tensor on
     the basis's device with unit-norm columns satisfying
     A @ vectors ~= vectors * values.  A real basis with complex pairs in
-    its spectrum gives complex vectors."""
+    its spectrum gives complex vectors.  A DTensor Q gives a DTensor of
+    vectors on the same mesh and placements."""
     R = np.asarray(decomp.R)
     k = R.shape[0]
     if k == 0:
@@ -48,6 +52,9 @@ def partial_eigen(decomp: PartialSchur):
         S[:, j] = col
 
     Q = decomp.Q
+    mesh = getattr(Q, "device_mesh", None)
+    if mesh is not None:
+        placements, Q = Q.placements, Q.to_local()
     if bool(np.all(vals.imag == 0)):
         vals = vals.real
         S = S.real
@@ -57,4 +64,8 @@ def partial_eigen(decomp: PartialSchur):
     with fp32_matmul():
         X = torch.matmul(Q, torch.as_tensor(S).to(dtype=Q.dtype,
                                                   device=Q.device))
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+
+        X = DTensor.from_local(X, mesh, placements, run_check=False)
     return vals, X

@@ -26,6 +26,12 @@ target order and the eigenvalues), its basis change, and one batched
 readback in the driver.  So a solve reads the device once a restart, once
 more a rollback, and once at the end.
 
+Sharded (`comm`): V holds this rank's columns, the expansion's
+contractions are summed over the ranks on the stream (ops/expansion.py),
+and every rank launches the restart kernel on its own copy of H, which is
+the same on every rank bit for bit, so the state read and every decision
+agree; Qbig is applied to the local columns.
+
 Divergences from the JAX package: no chunked dispatch (its dispatch
 budget is a TPU-watchdog workaround), one state read a restart where JAX
 reads one flag a chunk, and random rows of the breakdown path from a
@@ -42,16 +48,16 @@ from .ops.expansion import apply_basis_change, expand_range_device, finish_break
 __all__ = ["fused_solve"]
 
 
-def _roll_back(op, V, H, flags, j, m, generator):
+def _roll_back(op, V, H, flags, j, m, generator, comm=None):
     """Finish step j on the breakdown path and run the steps after it
     again (their flags cleared and written anew)."""
-    finish_breakdown(V, H, j, m, generator)
+    finish_breakdown(V, H, j, m, generator, comm)
     flags[j] = 0
-    expand_range_device(op, V, H, j + 1, m, flags)
+    expand_range_device(op, V, H, j + 1, m, flags, comm)
 
 
 def fused_solve(op, V, H, nev, mindim, tol, restarts, generator, which,
-                active0=0, maxiter_qr=None):
+                active0=0, maxiter_qr=None, comm=None):
     """Run the Krylov-Schur iteration with its restarts on the device.
 
     V: (m+1, n) with V[active0] the normalized start vector; for a warm
@@ -63,13 +69,15 @@ def fused_solve(op, V, H, nev, mindim, tol, restarts, generator, which,
 
     Returns (lam, state, reads): lam (2, m) the eigenvalues of the leading
     blocks, re and im; state the int32 loop state on the device (active =
-    nconverged, prods, it, purges, qr_ok); reads the host reads made."""
+    nconverged, prods, it, purges, qr_ok); reads the host reads made.
+    `comm` (a `parallel.comm.RowComm`) runs the sharded solve, V being this
+    rank's columns of the basis."""
     m = H.shape[1]
     flags = torch.zeros(m, dtype=H.dtype, device=H.device)
     state = new_state(active0, m, restarts, device=H.device)
     Qbig = torch.empty((m + 1, m + 1), dtype=H.dtype, device=H.device)
     reads = 0
-    expand_range_device(op, V, H, active0, m, flags)
+    expand_range_device(op, V, H, active0, m, flags, comm)
     if restarts <= 0:
         # No dense phase reads the flags: settle the range here.
         while True:
@@ -77,7 +85,7 @@ def fused_solve(op, V, H, nev, mindim, tol, restarts, generator, which,
             reads += 1
             if not broke:
                 break
-            _roll_back(op, V, H, flags, broke[0], m, generator)
+            _roll_back(op, V, H, flags, broke[0], m, generator, comm)
     else:
         while True:
             restart(H, Qbig, state, flags, nev=nev, mindim=mindim, tol=tol,
@@ -86,12 +94,12 @@ def fused_solve(op, V, H, nev, mindim, tol, restarts, generator, which,
             reads += 1
             if s[STATE["rollback"]] >= 0:
                 _roll_back(op, V, H, flags, s[STATE["rollback"]], m,
-                           generator)
+                           generator, comm)
                 continue
             apply_basis_change(V, Qbig)
             if s[STATE["done"]]:
                 break
-            expand_range_device(op, V, H, s[STATE["k"]], m, flags)
+            expand_range_device(op, V, H, s[STATE["k"]], m, flags, comm)
     lam = torch.empty((2, m), dtype=H.dtype, device=H.device)
     finish(H, Qbig, lam, state, which)
     apply_basis_change(V, Qbig)

@@ -20,8 +20,11 @@ complex arithmetic, so the solver takes their complex `matvec`, which runs
 the parts' own real matvecs (the stencil and BSR kernels among them).
 Other complex matrices are native complex operators here.
 
-Behavioral reference: arnoldimethod_tpu/models/operators.py.  The sharded
-CSR operator is not ported yet (ROADMAP.md queue 1).
+`ShardedCsrOperator` and the other `RowShardedOperator`s (made by
+`parallel.shard_operator`) take and return one rank's rows of a
+row-sharded vector (`partial_schur(..., sharding=...)`).
+
+Behavioral reference: arnoldimethod_tpu/models/operators.py.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ __all__ = [
     "CsrOperator",
     "SellOperator",
     "BsrOperator",
+    "RowShardedOperator",
+    "ShardedCsrOperator",
     "Stencil5Operator",
     "FunctionOperator",
     "SplitComplexDenseOperator",
@@ -857,6 +862,214 @@ class BsrOperator(LinearOperator):
             self._word_matvec, w) for w in self.words)
         return torch.complex(*_split_matvec(
             re, im, x.real.contiguous(), x.imag.contiguous()))
+
+
+class RowShardedOperator(LinearOperator):
+    """An operator over a row-sharded vector (`sharding=` solves): `matvec`
+    takes this rank's n/P entries of x and returns this rank's rows of
+    A x.  `comm` (a `parallel.comm.RowComm`) is the partition; `shape` is
+    the global one.  `parallel.shard_operator` makes them."""
+
+    comm = None
+
+
+def _row_lengths(rows, n_local, device):
+    """Segment lengths of sorted local row ids (padding included)."""
+    return _tensor(np.bincount(rows, minlength=n_local), device)
+
+
+class ShardedCsrOperator(RowShardedOperator):
+    """Row-partitioned general-sparse operator over a 1-D `rows` mesh, the
+    JAX package's layout for irregular row lengths (ref:
+    arnoldimethod_tpu/models/operators.py::ShardedCsrOperator).
+
+    Rows split into mesh-size contiguous, equal chunks; each chunk's
+    nonzeros stored flat in CSR order and padded to the largest chunk's
+    count, the padding zero data pointing at the chunk's last row.  Each
+    rank holds its own chunk; `build` computes every rank's arrays as JAX
+    does (`arrs` keeps this rank's row of each) and two gather strategies:
+
+    * gather="footprint": the unique x entries each (dest, source) pair of
+      ranks needs were found at build time (`send_idx`, this rank's table of
+      what it sends each rank, `footprint_elems` a rank); the matvec sends
+      them in one all_to_all_single, in flight while the sum over the
+      columns this rank owns runs, then adds the remote columns' sum, in
+      JAX's order y_local + y_remote.
+    * gather="all": one all-gather of x, then the sum.
+
+    gather="auto" (the default) takes footprint iff its padded receive
+    volume is at most half of the all-gather's, (P - 1) F <= (n - n/P) // 2.
+    The sums are the port's CSR segment sum (JAX's XLA segment_sum)."""
+
+    def __init__(self, arrs, shape, mesh, mode="all", device=None):
+        """arrs: JAX's arrays of every rank, numpy (P, ...): mode "all"
+        (rows, cols, data); mode "footprint" (rows_l, cols_l, vals_l,
+        rows_r, cols_r, vals_r, send_idx).  Keeps this rank's row of each
+        on `device` (the mesh's device type by default).  Use `build`."""
+        from ..parallel.comm import RowComm  # parallel/ imports this module
+
+        if mode not in ("all", "footprint"):
+            raise ValueError(f"mode must be 'all' or 'footprint', got {mode!r}")
+        arrs = [np.asarray(a) for a in arrs]
+        self.shape = tuple(int(s) for s in shape)
+        self.comm = comm = RowComm(mesh, self.shape[0])
+        self.mesh, self.mode = mesh, mode
+        dev = torch.device(device if device is not None else mesh.device_type)
+        self.device = dev
+        # JAX's nnz: the stored (padded) entries over every rank.
+        self.nnz = int(arrs[2].size + (arrs[5].size if mode == "footprint" else 0))
+        mine = [a[comm.rank] for a in arrs]
+        n_local, p, d = comm.n_local, comm.size, comm.rank
+
+        def put(a):
+            return _tensor(a, dev, torch.int64 if a.dtype.kind in "iu" else None)
+
+        self.arrs = tuple(put(a) for a in mine)
+        self.dtype = self.arrs[2].dtype
+        self._lengths = _row_lengths(mine[0], n_local, dev)
+        if mode == "all":
+            return
+        rr, cr, send = mine[3], mine[4].astype(np.int64), mine[6]
+        F_ = send.shape[-1]
+        # JAX's remote columns index the receive buffers in round order
+        # (round r brings rank (d - r) mod P's entries); all_to_all_single
+        # delivers them in rank order, skipping d.
+        s = (d - (cr // F_ + 1)) % p
+        self._cr = put(np.where(s < d, s, s - 1) * F_ + cr % F_)
+        self._lengths_r = _row_lengths(rr, n_local, dev)
+        self._send = torch.cat([self.arrs[6][t] for t in range(p) if t != d])
+        self._splits = [0 if t == d else F_ for t in range(p)]
+
+    @property
+    def send_idx(self):
+        """This rank's footprint table (P, F): the local x entries it sends
+        each rank (its row of JAX's send_idx); None on the all-gather path."""
+        return self.arrs[6] if self.mode == "footprint" else None
+
+    @property
+    def footprint_elems(self):
+        """Per-rank per-source receive size (0 on the all-gather path)."""
+        return 0 if self.send_idx is None else int(self.send_idx.shape[-1])
+
+    @classmethod
+    def build(cls, indptr, indices, data, shape, mesh, dtype=None,
+              gather="auto", device=None):
+        """Partition host CSR arrays over `mesh` (every rank builds the same
+        arrays, host-side, JAX's pass for pass, and keeps its own).
+
+        gather: "footprint" | "all" | "auto" (see the class docstring)."""
+        from ..parallel.comm import RowComm  # parallel/ imports this module
+
+        indptr = _numpy(indptr).astype(np.int64)
+        indices = _numpy(indices).astype(np.int64)
+        data = _numpy(data)
+        data = data.astype(_numpy_dtype(dtype) if dtype is not None else data.dtype)
+        n = int(shape[0])
+        ndev = RowComm(mesh, n).size  # raises unless n divides evenly
+        n_local = n // ndev
+        row_nnz = np.diff(indptr)
+        chunk_nnz = np.array([
+            int(indptr[(r + 1) * n_local] - indptr[r * n_local])
+            for r in range(ndev)
+        ])
+        nnz_pad = max(1, int(chunk_nnz.max()))
+        rows = np.full((ndev, nnz_pad), n_local - 1, dtype=np.int32)
+        cols = np.zeros((ndev, nnz_pad), dtype=np.int32)
+        vals = np.zeros((ndev, nnz_pad), dtype=data.dtype)
+        for r in range(ndev):
+            lo, hi = indptr[r * n_local], indptr[(r + 1) * n_local]
+            k = hi - lo
+            rows[r, :k] = np.repeat(
+                np.arange(n_local, dtype=np.int32),
+                row_nnz[r * n_local:(r + 1) * n_local],
+            )
+            cols[r, :k] = indices[lo:hi]
+            vals[r, :k] = data[lo:hi]
+
+        mode = gather
+        if mode not in ("auto", "all", "footprint"):
+            raise ValueError(
+                f"gather must be 'auto', 'all' or 'footprint', got {gather!r}")
+        if mode == "footprint" and ndev == 1:
+            # One rank has no remote shards: there is no footprint to
+            # gather, and a silent "all" would make `mode` lie.
+            raise ValueError(
+                "gather='footprint' requires a mesh with >= 2 devices; "
+                "use gather='auto' (or 'all') on a single-device mesh"
+            )
+        if mode != "all" and ndev > 1:
+            # fps[d][s]: the sorted unique global columns of dest shard d
+            # that live in source shard s.
+            fps = [[None] * ndev for _ in range(ndev)]
+            F_ = 1
+            for d in range(ndev):
+                lo, hi = indptr[d * n_local], indptr[(d + 1) * n_local]
+                cu = np.unique(indices[lo:hi])
+                src = cu // n_local
+                for s in range(ndev):
+                    if s != d:
+                        fps[d][s] = cu[src == s]
+                        F_ = max(F_, len(fps[d][s]))
+            if mode == "auto":
+                mode = ("footprint" if (ndev - 1) * F_ <= (n - n_local) // 2
+                        else "all")
+            if mode == "footprint":
+                send_idx = np.zeros((ndev, ndev, F_), dtype=np.int32)
+                for d in range(ndev):
+                    for s in range(ndev):
+                        if s != d:
+                            f = fps[d][s]
+                            send_idx[s, d, :len(f)] = f - s * n_local
+                # Local part (columns in the own shard) and remote part
+                # (columns re-based into the receive buffers in JAX's round
+                # order: round r delivers source (d - r) mod ndev).
+                parts = {"l": [], "r": []}
+                for d in range(ndev):
+                    lo, hi = indptr[d * n_local], indptr[(d + 1) * n_local]
+                    cg = indices[lo:hi]
+                    rg = np.repeat(np.arange(n_local, dtype=np.int32),
+                                   row_nnz[d * n_local:(d + 1) * n_local])
+                    vg = data[lo:hi]
+                    src = cg // n_local
+                    is_loc = src == d
+                    out = np.zeros(len(cg), dtype=np.int64)
+                    out[is_loc] = cg[is_loc] - d * n_local
+                    for s in range(ndev):
+                        sel = src == s
+                        if s == d or not sel.any():
+                            continue
+                        off = (((d - s) % ndev) - 1) * F_
+                        out[sel] = off + np.searchsorted(fps[d][s], cg[sel])
+                    parts["l"].append((rg[is_loc], out[is_loc], vg[is_loc]))
+                    parts["r"].append((rg[~is_loc], out[~is_loc], vg[~is_loc]))
+
+                def pad_part(triples):
+                    kmax = max(1, max(len(t[0]) for t in triples))
+                    pr = np.full((ndev, kmax), n_local - 1, dtype=np.int32)
+                    pc = np.zeros((ndev, kmax), dtype=np.int32)
+                    pv = np.zeros((ndev, kmax), dtype=data.dtype)
+                    for d, (r_, c_, v_) in enumerate(triples):
+                        pr[d, :len(r_)] = r_
+                        pc[d, :len(c_)] = c_
+                        pv[d, :len(v_)] = v_
+                    return pr, pc, pv
+
+                arrs = (*pad_part(parts["l"]), *pad_part(parts["r"]), send_idx)
+                return cls(arrs, shape, mesh, mode="footprint", device=device)
+        return cls((rows, cols, vals), shape, mesh, mode="all", device=device)
+
+    def matvec(self, x):
+        comm = self.comm
+        if self.mode == "all":
+            rows, cols, vals = self.arrs
+            return _segment_sum(vals * comm.gather_rows(x)[cols], self._lengths)
+        _, cl, vl, _, _, vr, _ = self.arrs
+        # The exchange first; the local sum needs none of it and runs while
+        # it is in flight.
+        recv, work = comm.exchange(x[self._send], self._splits, self._splits)
+        y = _segment_sum(vl * x[cl], self._lengths)
+        work.wait()
+        return y + _segment_sum(vr * recv[self._cr], self._lengths_r)
 
 
 def dense_to_bsr(A, block_size=128, use_pallas=None, device=None):

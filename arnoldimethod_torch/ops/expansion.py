@@ -28,6 +28,18 @@ keeps what the host step's branch would; the restart kernel reads the
 flags, and the fused loop finishes a step that broke down with the same
 `finish_breakdown`.
 
+Sharded (`comm`, a `parallel.comm.RowComm`): V holds this rank's columns
+of the basis and every function that contracts over n sums its local
+products over the ranks with one all-reduce a pass, the norm ||w||^2 in the
+same buffer as V^H w where the pass has both: a DGKS step makes two
+all-reduces, four when its second pass runs; a CGS2 step two; the device
+method's step three.  The decisions are taken from the summed values,
+which every rank receives bit for bit the same, so every rank decides
+alike.  A random row is drawn at full length n from the generator (seeded
+alike on every rank) and each rank keeps its rows.  The basis change needs
+no collective.  With comm None (and at one rank, where the sum over ranks
+is the local value) the arithmetic is exactly the unsharded one.
+
 Contractions run in full FP32 (or the working precision): call them inside
 `fp32_matmul()`, which turns TF32 off, as `partial_schur` does.  A basis
 that loses orthogonality to TF32 rounding stalls the restart.
@@ -81,43 +93,73 @@ def fp32_matmul():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def _norm(w):
-    return torch.sqrt(torch.real(torch.vdot(w, w)))
+def _global_n(V, comm):
+    """The basis's length n: V's own, or the sharded basis's global one."""
+    return V.shape[1] if comm is None else comm.n
 
 
-def _project(B, w):
-    """h = B^H w and the projection update w - B^T h over the rows of B."""
+def _summed(t, comm):
+    """t summed over the ranks (in place), or t itself unsharded."""
+    return t if comm is None else comm.all_reduce_(t)
+
+
+def _coeffs(B, w, comm, norm=False):
+    """(B^H w, ||w||^2 or None), summed over the ranks in one all-reduce:
+    the norm rides in the coefficients' buffer."""
     h = torch.mv(B.conj(), w)
+    if not norm:
+        return _summed(h, comm), None
+    s = torch.real(torch.vdot(w, w))
+    if comm is None:
+        return h, s
+    buf = comm.all_reduce_(torch.cat((h, s.reshape(1).to(h.dtype))))
+    return buf[:-1], torch.real(buf[-1])
+
+
+def _norm(w, comm=None):
+    s = torch.real(torch.vdot(w, w))
+    if comm is not None:
+        s = comm.all_reduce_(s.reshape(1))[0]
+    return torch.sqrt(s)
+
+
+def _project(B, w, comm=None):
+    """h = B^H w and the projection update w - B^T h over the rows of B."""
+    h, _ = _coeffs(B, w, comm)
     return h, w - torch.mv(B.T, h)
 
 
-def _dgks_orthogonalize(B, w):
+def _dgks_orthogonalize(B, w, comm=None):
     """Two-stage DGKS against the rows of B.  Returns (w, h, breakdown,
     wnorm, syncs): breakdown iff the final norm <= ETA * the norm before
     the last pass (ref: expansion.jl:69-109)."""
-    rnorm = _norm(w)
-    h, w = _project(B, w)
-    wnorm = _norm(w)
+    h, r2 = _coeffs(B, w, comm, norm=True)
+    rnorm = torch.sqrt(r2)
+    w = w - torch.mv(B.T, h)
+    wnorm = _norm(w, comm)
     r, wn = torch.stack((rnorm, wnorm)).tolist()
     if wn < ETA * r:
-        c, w = _project(B, w)
+        c, w = _project(B, w, comm)
         h = h + c
-        wnorm2 = _norm(w)
+        wnorm2 = _norm(w, comm)
         wn2 = wnorm2.item()
         return w, h, wn2 <= ETA * wn, wnorm2, 2
     return w, h, wn <= ETA * r, wnorm, 1
 
 
-def _random_unit_vector(generator, n, dtype, device, B):
+def _random_unit_vector(generator, n, dtype, device, B, comm=None):
     """Fresh random vector orthonormalized against the rows of B
-    (ref: reinitialize!, expansion.jl:12-59)."""
+    (ref: reinitialize!, expansion.jl:12-59).  Sharded, the full length-n
+    draw, this rank's rows of it."""
     v = torch.randn(n, dtype=dtype, device=device, generator=generator)
-    _, v = _project(B, v)
-    _, v = _project(B, v)
-    return v / _norm(v)
+    if comm is not None:
+        v = comm.local(v)
+    _, v = _project(B, v, comm)
+    _, v = _project(B, v, comm)
+    return v / _norm(v, comm)
 
 
-def expand_range(op, V, H, j0, j1, generator):
+def expand_range(op, V, H, j0, j1, generator, comm=None):
     """Extend the Arnoldi relation A V[:j].T = V[:j+1].T H[:j+1, :j] by
     computing basis rows j0+1 .. j1 and H columns j0 .. j1-1, in place.
 
@@ -125,12 +167,12 @@ def expand_range(op, V, H, j0, j1, generator):
     (only columns [j0, j1) are written; the caller owns the authoritative
     host copy of older columns).  `generator` draws the random vectors of
     the breakdown path.  Returns the number of host syncs made."""
-    n = V.shape[1]
+    n = _global_n(V, comm)
     syncs = 0
     for j in range(j0, j1):
         w = op.matvec(V[j])
         B = V[: j + 1]
-        w, h, breakdown, wnorm, s = _dgks_orthogonalize(B, w)
+        w, h, breakdown, wnorm, s = _dgks_orthogonalize(B, w, comm)
         syncs += s
         H[:, j] = 0
         H[: j + 1, j] = h
@@ -139,7 +181,8 @@ def expand_range(op, V, H, j0, j1, generator):
             V[j + 1] = w / wnorm
         elif j + 1 < n:
             # H[j+1, j] stays zero: deflation.
-            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device, B)
+            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device, B,
+                                           comm)
         else:
             # The basis already spans the whole space (expansion.jl:127).
             V[j + 1] = w
@@ -160,7 +203,7 @@ class LowSyncCounts:
 LOWSYNC = LowSyncCounts()
 
 
-def _cgs2_step(op, V, H, j):
+def _cgs2_step(op, V, H, j, comm=None):
     """The arithmetic of one low-sync Krylov step, JAX's step for step:
     the unnormalized w goes into the spare row j+1 first, so one
     contraction V[:j+2]^H w gives the coefficients and ||w||^2; a second
@@ -174,9 +217,9 @@ def _cgs2_step(op, V, H, j):
     C = V[: j + 2].conj()
     row = V[j + 1]
     row.copy_(w)
-    c1 = torch.mv(C, row)
+    c1 = _summed(torch.mv(C, row), comm)
     row.addmv_(B.T, c1[: j + 1], alpha=-1)
-    c2 = torch.mv(C, row)
+    c2 = _summed(torch.mv(C, row), comm)
     h2 = c2[: j + 1]
     row.addmv_(B.T, h2, alpha=-1)
     torch.add(c1[: j + 1], h2, out=H[: j + 1, j])
@@ -188,15 +231,15 @@ def _cgs2_step(op, V, H, j):
     return wnorm, breakdown
 
 
-def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator):
+def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator, comm=None):
     """The low-sync expansion with each step's breakdown flag read as the
     step makes it: the plain version that `expand_range_lowsync` must
     equal bit for bit.  Returns (flags of steps j0..j1-1, host reads)."""
-    n = V.shape[1]
+    n = _global_n(V, comm)
     H[:, j0:j1] = 0
     flags = []
     for j in range(j0, j1):
-        wnorm, breakdown = _cgs2_step(op, V, H, j)
+        wnorm, breakdown = _cgs2_step(op, V, H, j, comm)
         flags.append(bool(breakdown))
         if not flags[-1]:
             H[j + 1, j] = wnorm
@@ -204,17 +247,17 @@ def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator):
         elif j + 1 < n:
             # H[j+1, j] stays zero: deflation.
             V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device,
-                                           V[: j + 1])
+                                           V[: j + 1], comm)
         # else the basis spans the whole space and V[j+1] keeps w
         # (expansion.jl:127).
     return flags, len(flags)
 
 
-def _speculate(op, V, H, j0, j1, flags, step=_cgs2_step):
+def _speculate(op, V, H, j0, j1, flags, step=_cgs2_step, comm=None):
     """Steps j0..j1-1 of `step`, each written as if it kept its vector,
     its breakdown flag recorded in `flags[j]`; no host read."""
     for j in range(j0, j1):
-        wnorm, breakdown = step(op, V, H, j)
+        wnorm, breakdown = step(op, V, H, j, comm)
         H[j + 1, j] = wnorm
         # A step that broke down keeps w unscaled: the row stays finite for
         # the steps that run on it until the flags are read, and it is
@@ -224,19 +267,20 @@ def _speculate(op, V, H, j0, j1, flags, step=_cgs2_step):
         flags[j] = breakdown
 
 
-def finish_breakdown(V, H, j, j1, generator):
+def finish_breakdown(V, H, j, j1, generator, comm=None):
     """Finish step j, found broken down after its range ran on to j1, on
     the breakdown path: H[j+1, j] = 0 and a fresh random row (w itself
     stays when j+1 == n).  Counts the rollback in `LOWSYNC`."""
     LOWSYNC.rollbacks += 1
     LOWSYNC.discarded_matvecs += j1 - 1 - j
     H[j + 1, j] = 0
-    if j + 1 < V.shape[1]:
-        V[j + 1] = _random_unit_vector(generator, V.shape[1], V.dtype,
-                                       V.device, V[: j + 1])
+    n = _global_n(V, comm)
+    if j + 1 < n:
+        V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device,
+                                       V[: j + 1], comm)
 
 
-def _dgks_step(op, V, H, j):
+def _dgks_step(op, V, H, j, comm=None):
     """One DGKS step with its decisions kept on the device: both passes
     run, and torch.where takes what the host step's branch would, compared
     in float64 as the host compares its read values.  Leaves w in V[j+1]
@@ -244,12 +288,14 @@ def _dgks_step(op, V, H, j):
     arithmetic is `_dgks_orthogonalize`'s, bit for bit."""
     w = op.matvec(V[j])
     B = V[: j + 1]
-    rnorm = _norm(w)
-    h1, w1 = _project(B, w)
-    wnorm1 = _norm(w1)
-    c, w2 = _project(B, w1)
+    h1, r2 = _coeffs(B, w, comm, norm=True)
+    rnorm = torch.sqrt(r2)
+    w1 = w - torch.mv(B.T, h1)
+    c, s1 = _coeffs(B, w1, comm, norm=True)
+    wnorm1 = torch.sqrt(s1)
+    w2 = w1 - torch.mv(B.T, c)
     h2 = h1 + c
-    wnorm2 = _norm(w2)
+    wnorm2 = _norm(w2, comm)
     second = wnorm1.double() < ETA * rnorm.double()
     V[j + 1] = torch.where(second, w2, w1)
     H[:, j] = 0
@@ -259,7 +305,7 @@ def _dgks_step(op, V, H, j):
     return wnorm, wnorm.double() <= ETA * ref.double()
 
 
-def expand_range_device(op, V, H, j0, j1, flags):
+def expand_range_device(op, V, H, j0, j1, flags, comm=None):
     """The DGKS expansion of basis rows j0+1 .. j1 and H columns
     j0 .. j1-1 with no host read (`method="device"`): each step's two
     decisions stay on the device and its breakdown flag goes to
@@ -268,10 +314,10 @@ def expand_range_device(op, V, H, j0, j1, flags):
     step that broke down with `finish_breakdown` and runs the steps after
     it again; the result then equals `expand_range` bit for bit."""
     flags[j0:j1] = 0
-    _speculate(op, V, H, j0, j1, flags, step=_dgks_step)
+    _speculate(op, V, H, j0, j1, flags, step=_dgks_step, comm=comm)
 
 
-def expand_range_lowsync(op, V, H, j0, j1, generator):
+def expand_range_lowsync(op, V, H, j0, j1, generator, comm=None):
     """The low-sync expansion of basis rows j0+1 .. j1 and H columns
     j0 .. j1-1, in place, with the breakdown decisions deferred: the steps
     run on without a host read, and one transfer brings back H and every
@@ -290,7 +336,7 @@ def expand_range_lowsync(op, V, H, j0, j1, generator):
     reads = 0
     start = j0
     while True:
-        _speculate(op, V, H, start, j1, flags)
+        _speculate(op, V, H, start, j1, flags, comm=comm)
         packed = torch.cat((H.reshape(-1), flags)).cpu().numpy()
         reads += 1
         Hh = packed[:size].reshape(H.shape)
@@ -299,7 +345,7 @@ def expand_range_lowsync(op, V, H, j0, j1, generator):
             return Hh, final, reads
         j = start + int(broke[0])
         final[j - j0] = True
-        finish_breakdown(V, H, j, j1, generator)
+        finish_breakdown(V, H, j, j1, generator, comm)
         Hh[j + 1, j] = 0
         start = j + 1
         if start == j1:
@@ -315,46 +361,52 @@ def apply_basis_change(V, Qbig):
     return V
 
 
-def truncate_and_expand(op, V, H, Qbig, j0, j1, generator):
+def truncate_and_expand(op, V, H, Qbig, j0, j1, generator, comm=None):
     """One restart's device step: the truncation basis change, then the
     expansion from j0 back to j1.  Returns the number of host syncs."""
     apply_basis_change(V, Qbig)
-    return expand_range(op, V, H, j0, j1, generator)
+    return expand_range(op, V, H, j0, j1, generator, comm)
 
 
-def truncate_and_expand_lowsync(op, V, H, Qbig, j0, j1, generator):
+def truncate_and_expand_lowsync(op, V, H, Qbig, j0, j1, generator,
+                                comm=None):
     """The low-sync twin of `truncate_and_expand`; returns what
     `expand_range_lowsync` returns."""
     apply_basis_change(V, Qbig)
-    return expand_range_lowsync(op, V, H, j0, j1, generator)
+    return expand_range_lowsync(op, V, H, j0, j1, generator, comm)
 
 
-def set_initial_vector(V, v):
+def set_initial_vector(V, v, comm=None):
     """V[0] = v / ||v||; v is not mutated and need not be normalized
-    (ref: run.jl:38, reinitialize! with j == 0)."""
+    (ref: run.jl:38, reinitialize! with j == 0).  Sharded, v is the global
+    vector and V[0] takes this rank's rows."""
     v = v.to(dtype=V.dtype, device=V.device)
-    V[0] = v / _norm(v)
+    if comm is not None:
+        v = comm.local(v)
+    V[0] = v / _norm(v, comm)
     return V
 
 
-def set_random_vector(V, j, generator):
+def set_random_vector(V, j, generator, comm=None):
     """V[j] = fresh random unit vector orthogonal to rows [0, j), the
     warm-start reinitialization (partialschur! with initialize=true)."""
-    V[j] = _random_unit_vector(generator, V.shape[1], V.dtype, V.device, V[:j])
+    V[j] = _random_unit_vector(generator, _global_n(V, comm), V.dtype,
+                               V.device, V[:j], comm)
     return V
 
 
-def orthonormalize_rows(X, generator):
+def orthonormalize_rows(X, generator, comm=None):
     """Orthonormalize the rows of X (k, n) in place with CGS2/DGKS.  Rows
     that fall in the span of earlier rows (breakdown) are replaced with
     fresh random orthonormal directions, so the result always has full row
     rank."""
-    k, n = X.shape
+    k, n = X.shape[0], _global_n(X, comm)
     for j in range(k):
         B = X[:j]
-        w, _, breakdown, wnorm, _ = _dgks_orthogonalize(B, X[j])
+        w, _, breakdown, wnorm, _ = _dgks_orthogonalize(B, X[j], comm)
         if breakdown:
-            X[j] = _random_unit_vector(generator, n, X.dtype, X.device, B)
+            X[j] = _random_unit_vector(generator, n, X.dtype, X.device, B,
+                                       comm)
         else:
             X[j] = w / wnorm
     return X

@@ -6,6 +6,10 @@ authoritative on the host in float64/complex128: the dense restart kernels
 run there and only freshly expanded columns round-trip through the device
 dtype.  The solver updates V in place, so the workspace owns its storage.
 
+A sharded workspace (`sharding=basis_sharding(mesh)`) holds this rank's
+columns of V, (maxdim+1, n/P), on every rank of the mesh; H stays whole on
+every rank.
+
 Behavioral reference: arnoldimethod_tpu/workspace.py and ArnoldiMethod.jl
 src/ArnoldiMethod.jl:41-93.  The `.npz` checkpoint format is the JAX
 package's, so a checkpoint written there loads here and back.
@@ -40,10 +44,14 @@ class ArnoldiWorkspace:
     Supports the same three uses as the reference type: fresh allocation,
     warm restart from an existing decomposition (`partial_schur` with
     start_from), and reuse across calls without reallocation.
+
+    With `sharding` (`parallel.basis_sharding(mesh)`), V is this rank's
+    (maxdim+1, n/P) columns (a V given is the global one, and each rank
+    keeps its columns) and `comm` the partition (`parallel.comm.RowComm`).
     """
 
     def __init__(self, n, maxdim, dtype=torch.float32, V=None, H=None,
-                 device=None):
+                 device=None, sharding=None):
         if maxdim > n:
             raise ValueError("Krylov dimension should be less than matrix order.")
         if maxdim < 1:
@@ -52,17 +60,28 @@ class ArnoldiWorkspace:
         self.maxdim = int(maxdim)
         dtype = as_torch_dtype(dtype)
         device = _dev.resolve(device, like=V)
+        self.sharding = sharding
+        self.comm = None
+        n_local = self.n
+        if sharding is not None:
+            from .parallel.mesh import row_comm  # it imports this module
+
+            self.comm = row_comm(sharding, self.n)
+            n_local = self.comm.n_local
 
         if V is None:
-            V = torch.zeros((maxdim + 1, n), dtype=dtype, device=device)
+            V = torch.zeros((maxdim + 1, n_local), dtype=dtype, device=device)
         else:
-            # Copy: the solver updates V in place, so the workspace must
-            # own its storage, not alias the caller's.
-            V = torch.as_tensor(V).to(dtype=dtype, device=device, copy=True)
+            V = torch.as_tensor(V)
             if tuple(V.shape) != (maxdim + 1, n):
                 raise ValueError(
                     f"V must have shape {(maxdim + 1, n)}, got {tuple(V.shape)}"
                 )
+            if self.comm is not None:
+                V = self.comm.local(V.T).T
+            # Copy: the solver updates V in place, so the workspace must
+            # own its storage, not alias the caller's.
+            V = V.to(dtype=dtype, device=device, copy=True).contiguous()
         self.V = V
 
         host_dtype = np.complex128 if dtype.is_complex else np.float64
@@ -99,7 +118,14 @@ class ArnoldiWorkspace:
     # the locked R block.
 
     def save(self, path):
-        """Serialize to an .npz file (V and Vlo are copied to the host)."""
+        """Serialize to an .npz file (V and Vlo are copied to the host).
+        Sharded, every rank calls it: V is gathered and rank 0 writes the
+        global checkpoint, the same file an unsharded save writes."""
+        V = self.V
+        if self.comm is not None:
+            V = self.comm.gather_rows(V.T).T
+            if self.comm.rank != 0:
+                return
         extra = {}
         if self.Vlo is not None:
             extra["Vlo"] = self.Vlo.cpu().numpy()
@@ -107,7 +133,7 @@ class ArnoldiWorkspace:
             extra["Hlo"] = np.asarray(self.Hlo)
         np.savez(
             path,
-            V=self.V.cpu().numpy(),
+            V=V.cpu().numpy(),
             H=self.H,
             n=self.n,
             maxdim=self.maxdim,
@@ -116,11 +142,12 @@ class ArnoldiWorkspace:
         )
 
     @classmethod
-    def load(cls, path, device=None):
+    def load(cls, path, device=None, sharding=None):
         """Restore a workspace saved with `save`, by this package or by the
         JAX package, with its extended-precision words (`Vlo`, `Hlo`).  A
         JAX split-complex checkpoint (real words V and `Vim`) loads as the
-        complex basis V + i Vim, so its solve can be warm-started here."""
+        complex basis V + i Vim, so its solve can be warm-started here.
+        With `sharding`, every rank reads the file and keeps its columns."""
         with np.load(path, allow_pickle=False) as f:
             V, dtype = f["V"], str(f["dtype"])
             if "Vim" in f.files:
@@ -138,10 +165,13 @@ class ArnoldiWorkspace:
                 V=V,
                 H=f["H"],
                 device=device,
+                sharding=sharding,
             )
             if "Vlo" in f.files:
-                ws.Vlo = torch.from_numpy(np.array(f["Vlo"])).to(
-                    dtype=ws.dtype, device=ws.device)
+                Vlo = torch.from_numpy(np.array(f["Vlo"]))
+                if ws.comm is not None:
+                    Vlo = ws.comm.local(Vlo.T).T
+                ws.Vlo = Vlo.to(dtype=ws.dtype, device=ws.device).contiguous()
             if "Hlo" in f.files:
                 ws.Hlo = np.array(f["Hlo"], dtype=np.float64)
             return ws

@@ -224,7 +224,8 @@ def test_bsr_operator():
 @pytest.mark.parametrize("kw,err,match", [
     (dict(lowsync=True), ValueError, "host-method"),
     (dict(extended=True), ValueError, "not compatible"),
-    (dict(sharding=object()), NotImplementedError, "item 14"),
+    # sharding= is ported; it takes parallel.basis_sharding(mesh) only.
+    (dict(sharding=object()), TypeError, "basis_sharding"),
 ])
 def test_rejections(kw, err, match):
     with pytest.raises(err, match=match):

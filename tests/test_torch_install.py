@@ -127,8 +127,8 @@ def test_debug_checks_catch_a_lost_basis(monkeypatch):
     monkeypatch.setattr(driver, "_DEBUG", True)
     real = driver.truncate_and_expand
 
-    def spoiled(op, V, H, Qbig, j0, j1, generator):
-        syncs = real(op, V, H, Qbig, j0, j1, generator)
+    def spoiled(op, V, H, Qbig, j0, j1, generator, comm=None):
+        syncs = real(op, V, H, Qbig, j0, j1, generator, comm)
         V[j1 - 1] += 0.5 * V[0]
         return syncs
 

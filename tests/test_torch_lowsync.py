@@ -391,5 +391,7 @@ def test_lowsync_rejects_incompatible_modes(kw, match):
 
 
 def test_lowsync_with_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """lowsync=True with sharding= is ported (tests/test_torch_parallel.py);
+    a sharding that is not parallel.basis_sharding(mesh) is refused."""
+    with pytest.raises(TypeError, match="basis_sharding"):
         tam.partial_schur(np.eye(6), nev=2, lowsync=True, sharding=object())

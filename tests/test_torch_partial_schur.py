@@ -232,19 +232,22 @@ def test_q_rows_is_not_the_workspace():
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw,err,match",
     [
-        # method="device" is ported (tests/test_torch_fused.py); its
-        # sharded path is not.
-        dict(method="device", sharding=object()),
+        # sharding= is ported for the host and device methods
+        # (tests/test_torch_parallel.py): it takes
+        # parallel.basis_sharding(mesh) and refuses anything else.
+        (dict(method="device", sharding=object()), TypeError,
+         "basis_sharding"),
         # extended=True is ported; its sharded path is not.
-        dict(extended=True, sharding=object()),
-        dict(sharding=object()),
+        (dict(extended=True, sharding=object()), NotImplementedError,
+         "ROADMAP.md queue 1, item 14"),
+        (dict(sharding=object()), TypeError, "basis_sharding"),
     ],
     ids=["device", "extended", "sharding"],
 )
-def test_options_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_options_not_ported_raise(kw, err, match):
+    with pytest.raises(err, match=match):
         tam.partial_schur(np.eye(6), **kw)
 
 
