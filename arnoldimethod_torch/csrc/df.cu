@@ -11,11 +11,15 @@
 //                    and writes the step's H column and breakdown flag
 //   df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, i < rows
 //   stencil5_df      the Dirichlet 5-point stencil on a double-word vector
+//   df_rank_sum      sum[i] = the double-word sum over the ranks of a
+//                    row-sharded solve of their partials [r, i]; optionally
+//                    acc[i] <- acc[i] + sum[i]
 //
 // None replaces a Pallas kernel: the JAX package runs this work as XLA
 // loops (arnoldimethod_tpu/ops/df32.py df_sum, df_axpy_update_df;
 // ops/df_expansion.py _df_dgks, _df_normalize, _df_basis_change_impl;
-// models/operators.py Stencil5Operator.matvec_df).  Each kernel computes
+// models/operators.py Stencil5Operator.matvec_df; sharded, the collectives
+// GSPMD makes of df_sum's tree).  Each kernel computes
 // exactly the products and sums of the plain PyTorch version in
 // arnoldimethod_torch/ops/df32.py and ops/df.py, in the same order, so its
 // result is bitwise equal to it.
@@ -105,6 +109,17 @@
 //     its hi word's split; the coefficients' splits come from the host;
 //     every load is issued before the arithmetic.  Missing neighbours are
 //     (0, 0) and still go through the arithmetic.
+//   - df_rank_sum (ops/df.py df_rank_sum): the sharded solve's sums over
+//     the ranks.  Each rank all-gathers every rank's partial pairs
+//     (parallel/comm.py), then runs this on the same bits, so every rank
+//     gets the same sums and df_normalize's decisions agree without a
+//     broadcast.  The order is df_sum's rule along the rank axis (a local
+//     tree and then a rank tree differ from one tree over the global index
+//     in low words; they agree at one rank).  A warp a coefficient: lane l
+//     folds ranks l, l + 32, ... in registers (the top bits first), then
+//     the warp's shuffles halve the rest, as df_project's last levels do,
+//     so up to 256 ranks need no local memory.  It moves P k pairs and
+//     does P k adds; at a step's k <= maxdim + 2 it is bound by its launch.
 // The C entries launch on the caller's stream, never synchronise, and
 // return cudaGetLastError() (or a refusal code) so the wrapper can raise.
 
@@ -1078,6 +1093,68 @@ int normalize(NormalizeArgs<T> a, void* stream) {
   return int(cudaGetLastError());
 }
 
+// -- df_rank_sum -----------------------------------------------------------
+
+constexpr int kRankSumWarps = 4;  // a block: 4 warps, a coefficient each
+constexpr int kRankFold = 8;      // the most ranks a lane folds in registers
+constexpr int64_t kMaxRanks = 32 * kRankFold;
+
+// Coefficient i < k summed over the P ranks' partials, rank r's pair at
+// (hi, lo)[r ld + i], by df32.df_sum's tree along the rank axis: P padded
+// with (0, 0) pairs to P' = 2^p, rank r paired with r + P'/2, repeatedly.
+// A warp takes a coefficient.  Lane l holds ranks t 32 + l for t < fold =
+// max(1, P'/32) and halves them in registers (the top bits, t, first);
+// then the warp halves its `lanes` = min(P', 32) values by shuffles, the
+// lower lane the left operand.  Lane 0 writes the sum and, with acc,
+// acc <- acc + sum (df_project's order).
+template <typename T>
+__global__ void __launch_bounds__(32 * kRankSumWarps)
+rank_sum_kernel(const T* __restrict__ hi, const T* __restrict__ lo,
+                int64_t ld, int P, int lanes, int fold, int k,
+                T* __restrict__ outh, T* __restrict__ outl, T* acc_h,
+                T* acc_l) {
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * kRankSumWarps + threadIdx.x / 32;
+  if (i >= k) return;  // the whole warp: i is the warp's
+  T h[kRankFold], l[kRankFold];
+#pragma unroll
+  for (int t = 0; t < kRankFold; ++t) {
+    const int r = t * 32 + lane;
+    const bool ok = t < fold && r < P;
+    h[t] = ok ? hi[int64_t(r) * ld + i] : T(0);
+    l[t] = ok ? lo[int64_t(r) * ld + i] : T(0);
+  }
+  halve_registers_first<kRankFold>(h, l, fold);
+  T vh = h[0], vl = l[0];
+  for (int half = lanes / 2; half >= 1; half /= 2) {
+    const T uh = __shfl_down_sync(0xffffffffu, vh, half);
+    const T ul = __shfl_down_sync(0xffffffffu, vl, half);
+    df_add(vh, vl, uh, ul, vh, vl);  // valid in lanes < half
+  }
+  if (lane == 0) project_out(i, vh, vl, outh, outl, acc_h, acc_l);
+}
+
+template <typename T>
+int rank_sum(const void* hi, const void* lo, int64_t ld, int64_t P,
+             int64_t k, void* outh, void* outl, void* acc_h, void* acc_l,
+             void* stream) {
+  if (P < 1 || P > kMaxRanks || k < 1 || k > INT32_MAX || ld < 1
+      || hi == nullptr || lo == nullptr || outh == nullptr || outl == nullptr
+      || (acc_h == nullptr) != (acc_l == nullptr))
+    return int(cudaErrorInvalidValue);
+  int64_t width = 1;
+  while (width < P) width *= 2;
+  const int lanes = int(width < 32 ? width : 32);
+  const int fold = int(width / lanes);
+  const unsigned blocks = unsigned((k + kRankSumWarps - 1) / kRankSumWarps);
+  rank_sum_kernel<T><<<blocks, 32 * kRankSumWarps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(hi), static_cast<const T*>(lo), ld, int(P), lanes,
+      fold, int(k), static_cast<T*>(outh), static_cast<T*>(outl),
+      static_cast<T*>(acc_h), static_cast<T*>(acc_l));
+  return int(cudaGetLastError());
+}
+
 // -- stencil5_df -----------------------------------------------------------
 
 constexpr int kStencilWarps = 4;  // a block: 4 warps, a tile 32 columns wide
@@ -1267,6 +1344,11 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
                                      int64_t P, const double* coeffs,          \
                                      void* stream) {                           \
     return stencil<T>(xh, xl, yh, yl, ny, nx, P, coeffs, stream);              \
+  }                                                                            \
+  extern "C" int df_rank_sum##SUFFIX(                                          \
+      const void* hi, const void* lo, int64_t ld, int64_t P, int64_t k,        \
+      void* outh, void* outl, void* acc_h, void* acc_l, void* stream) {        \
+    return rank_sum<T>(hi, lo, ld, P, k, outh, outl, acc_h, acc_l, stream);    \
   }
 
 DF_ENTRIES(_f32, float)

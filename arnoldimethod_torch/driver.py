@@ -264,12 +264,6 @@ def _schur_coupling_floor(rs, H, Q, h_last, lo, hi):
     return rs
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
-    )
-
-
 def partial_schur(
     A,
     *,
@@ -369,10 +363,13 @@ def partial_schur(
     (parallel/comm.py) and the host decisions, taken from the summed
     values, agree on every rank.  Give `parallel.shard_operator(op, mesh)`;
     any other operator runs whole on every rank behind a wrapper that
-    gathers x.  The host method (DGKS, lowsync, complex, split_complex) and
-    method="device" take it; extended=True with sharding raises
-    NotImplementedError (ROADMAP.md item 14).  `PartialSchur.Q` comes back
-    as a DTensor placed Shard(0) on the mesh.
+    gathers x.  The host method (DGKS, lowsync, complex, split_complex,
+    extended) and method="device" take it.  With extended=True each
+    double-word sum is a local partial and one sum over the ranks in
+    df_sum's tree order (`parallel.comm.RowComm.df_sum`): at one rank the
+    solve is bitwise the unsharded one; on P ranks the low words differ
+    from the unsharded sums' at rounding level.  `PartialSchur.Q` (and
+    `Q_lo`) comes back as a DTensor placed Shard(0) on the mesh.
     """
     if method not in (None, "host", "device"):
         raise ValueError(f"method must be 'host' or 'device', got {method!r}")
@@ -390,9 +387,6 @@ def partial_schur(
         raise ValueError("lowsync is a host-method option")
     if sharding is None and workspace is not None:
         sharding = workspace.sharding
-    if sharding is not None and extended:
-        raise _not_ported("sharding= with extended=True (the cross-rank "
-                          "double-word sum)", 14)
 
     op = as_operator(A, n=n, dtype=dtype, device=device,
                      sparse_format=sparse_format)
@@ -526,8 +520,12 @@ def partial_schur(
                 sc=bool(split_complex) and work_dtype.is_complex, comm=comm,
             )
     if comm is not None:
-        schur = PartialSchur(distribute_rows(schur.Q, sharding.mesh),
-                             schur.R, schur.eigenvalues)
+        sharded = PartialSchur(distribute_rows(schur.Q, sharding.mesh),
+                               schur.R, schur.eigenvalues)
+        if hasattr(schur, "Q_lo"):
+            sharded.Q_lo = distribute_rows(schur.Q_lo, sharding.mesh)
+            sharded.R_lo = schur.R_lo
+        schur = sharded
     return schur, history
 
 
@@ -642,11 +640,11 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
         Hlo = torch.zeros_like(Hdev)
         if active0 == 0:
             # The start row was normalized in one word: again, in two.
-            df_set_initial_vector(V, Vlo, V[0])
+            df_set_initial_vector(V, Vlo, V[0], comm)
         else:
             # The seed row is only single-word orthogonal to the locked
             # double-word prefix.
-            df_reorthogonalize_row(V, Vlo, active0)
+            df_reorthogonalize_row(V, Vlo, active0, comm)
 
     # Initial expansion straight to a maxdim-sized relation (the reference
     # stops at mindim first, but nothing happens in between,
@@ -661,7 +659,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
         else:
             if extended:
                 words, reads = df_expand_range(op, V, Vlo, Hdev, Hlo,
-                                                  active0, m, generator)
+                                               active0, m, generator, comm)
                 syncs += reads
                 Hpull = _join(words, dd)
             else:
@@ -781,7 +779,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 # would zero the low word).
                 Qh, Ql = _df_words(Qbig, dd, V)
                 words, reads = df_truncate_and_expand(
-                    op, V, Vlo, Hdev, Hlo, Qh, Ql, k, m, generator)
+                    op, V, Vlo, Hdev, Hlo, Qh, Ql, k, m, generator, comm)
                 syncs += reads
                 Hpull = _join(words, dd)
             else:

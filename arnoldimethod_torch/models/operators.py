@@ -204,16 +204,24 @@ class DiaOperator(LinearOperator):
         products in double-word arithmetic (ops/df32.py), in plain torch
         ops as the JAX package runs them in XLA; the extended=True path's
         operator hook."""
-        n = self.shape[0]
         lo = max(0, -min(self.offsets))
         hi = max(0, max(self.offsets))
-        xph, xpl = F.pad(xh, (lo, hi)), F.pad(xl, (lo, hi))
-        yh = yl = None
-        for d, off in enumerate(self.offsets):
-            sl = slice(lo + off, lo + off + n)
-            th, tl = df32.df_scale(xph[sl], xpl[sl], self.diags[d])
-            yh, yl = (th, tl) if yh is None else df32.df_add(yh, yl, th, tl)
-        return yh, yl
+        return dia_matvec_df(self.diags, self.offsets, F.pad(xh, (lo, hi)),
+                             F.pad(xl, (lo, hi)), lo)
+
+
+def dia_matvec_df(diags, offsets, xph, xpl, lo):
+    """DiaOperator.matvec_df's sum on a padded double-word x, `lo`
+    entries before the rows' own (a sharded operator's halo or the
+    global zero pad): df_scale of each diagonal's shifted read, df_add in
+    the order of `offsets`; one output a row of `diags`."""
+    n = diags.shape[1]
+    yh = yl = None
+    for d, off in enumerate(offsets):
+        sl = slice(lo + off, lo + off + n)
+        th, tl = df32.df_scale(xph[sl], xpl[sl], diags[d])
+        yh, yl = (th, tl) if yh is None else df32.df_add(yh, yl, th, tl)
+    return yh, yl
 
 
 def _periodic_shifts(g):

@@ -13,6 +13,9 @@
                      first `rows` rows i, optionally into V itself
     stencil5_df      the Dirichlet 5-point stencil (center, west, east,
                      north, south) applied to a double-word vector
+    df_rank_sum      the double-word sum over the ranks of a row-sharded
+                     solve of their gathered partials, by df32.df_sum's
+                     tree along the rank axis; optionally acc <- acc + sum
 
 Every operand is a double-word pair of float32 or float64 words; every
 product and sum is the one `ops/df32.py` makes, in its order, so each
@@ -66,6 +69,8 @@ __all__ = [
     "df_normalize_plain",
     "df_project",
     "df_project_plain",
+    "df_rank_sum",
+    "df_rank_sum_plain",
     "dirichlet_shifts",
     "project_plan",
     "stencil5_df",
@@ -120,6 +125,8 @@ _AXPY_SUM_PAIRS = 2048
 # plan keeps where it can: two on each of an H100's 132 SMs.
 _STENCIL_WARPS = 4
 _STENCIL_MIN_BLOCKS = 2 * 132
+# df_rank_sum (csrc/df.cu kMaxRanks): 32 lanes folding 8 ranks each.
+_RANK_SUM_MAX_RANKS = 256
 
 
 class ProjectPlan(NamedTuple):
@@ -345,6 +352,17 @@ def df_normalize_plain(w, s, out, step=None):
     return out
 
 
+def df_rank_sum_plain(hi, lo, acc=None):
+    """The plain version of df_rank_sum: df32.df_sum along axis 0 of the
+    (P, k) pair, then acc <- df_add(acc, sum) as df_project_plain adds."""
+    sh, sl = df32.df_sum(hi, lo, axis=0)
+    if acc is not None:
+        ah, al = df32.df_add(acc[0], acc[1], sh, sl)
+        acc[0].copy_(ah)
+        acc[1].copy_(al)
+    return sh, sl
+
+
 def df_basis_change_plain(Vh, Vl, Qh, Ql, rows=None, out=None):
     """The plain version of df_basis_change: the JAX package's scan over the
     rows of V, accumulating df_mul(Q[j, :rows, None], V[j]) with df_add
@@ -390,7 +408,7 @@ def stencil5_df_plain(xh, xl, coeffs, grid, shifts=dirichlet_shifts):
 # -- the CUDA kernels -------------------------------------------------------
 
 _NAMES = ("df_project", "df_axpy", "df_normalize", "df_basis_change",
-          "stencil5_df")
+          "stencil5_df", "df_rank_sum")
 
 
 def _check(*tensors):
@@ -437,6 +455,7 @@ class _DfKernel:
                                             p, p, p],
                 "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
                 "stencil5_df": [p, p, p, p, i, i, i, p, p],
+                "df_rank_sum": [p, p, i, i, i, p, p, p, p],
             }
             for name, args in sigs.items():
                 for suffix in ("_f32", "_f64"):
@@ -636,6 +655,30 @@ class _DfKernel:
                      _coefficient_array(tuple(coeffs), xh.dtype))
         return yh, yl
 
+    def rank_sum(self, hi, lo, acc=None):
+        if acc is not None:
+            _check(*acc)
+        dtype, device = hi.dtype, hi.device
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"df_rank_sum takes float32 or float64, got {dtype}")
+        P, k = hi.shape
+        if (lo.shape != hi.shape or lo.dtype != dtype or lo.device != device
+                or hi.stride() != lo.stride() or hi.stride(1) != 1
+                or not 1 <= P <= _RANK_SUM_MAX_RANKS
+                or any(t.shape != (k,) or t.dtype != dtype or t.device != device
+                       for t in acc or ())):
+            raise ValueError(
+                f"df_rank_sum: (P, k) words of one dtype, device and row "
+                f"stride, unit column stride, 1 <= P <= {_RANK_SUM_MAX_RANKS}, "
+                f"acc of k; got {tuple(hi.shape)} and {tuple(lo.shape)}")
+        out = torch.empty(2, k, dtype=dtype, device=device)
+        ah, al = acc if acc is not None else (None, None)
+        self._launch("df_rank_sum", "df_rank_sum", hi, hi.data_ptr(),
+                     lo.data_ptr(), hi.stride(0), P, k, out[0].data_ptr(),
+                     out[1].data_ptr(), None if ah is None else ah.data_ptr(),
+                     None if al is None else al.data_ptr())
+        return out[0], out[1]
+
 
 def _normalize_args(w, s, out, step=None):
     """df_normalize's C arguments but the stream, after checking the
@@ -740,3 +783,15 @@ def stencil5_df(xh, xl, coeffs, grid):
     if _on_card(xh, "stencil5_df"):
         return KERNEL.stencil(xh, xl, coeffs, grid)
     return stencil5_df_plain(xh, xl, coeffs, grid)
+
+
+def df_rank_sum(hi, lo, acc=None):
+    """(sh, sl), length k: the double-word sum over the P rows of the
+    (P, k) pair (hi, lo), a row-sharded solve's gathered partials, by
+    df32.df_sum's tree along the rows (P padded with zero pairs to a power
+    of two, row r paired with r + P'/2).  The two may be views into one
+    buffer with a common row stride.  With acc=(ah, al), also acc <-
+    df_add(acc, sum) in place."""
+    if _on_card(hi, "df_rank_sum"):
+        return KERNEL.rank_sum(hi, lo, acc)
+    return df_rank_sum_plain(hi, lo, acc)

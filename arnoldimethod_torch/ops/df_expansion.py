@@ -32,6 +32,18 @@ operator applied through `matvec_df(xh, xl) -> (yh, yl)`.  What differs:
   - Random rows come from the solve's `torch.Generator`; it advances only
     where the stepwise version's does.
   - V and the device Hessenberg pair (Hh, Hl) are updated in place.
+
+Sharded (`comm`, a `parallel.comm.RowComm`): V holds this rank's columns
+of the basis, and every sum over n is a local partial (df_project with no
+acc, df_axpy's fused norm) summed over the ranks by `comm.df_sum` (one
+gather and one df_rank_sum, which applies acc).  A Krylov step makes three
+such sums, batched by the vector they come from: {r2, h1} of the matvec's
+w, {s1, c} of w1, {s2}.  Every rank sums the same gathered bits, so the
+decisions df_normalize makes on the card agree on every rank.  A random
+row is drawn at the global length n and each rank keeps its rows.  At one
+rank the sums are the partials themselves: the arithmetic is the
+unsharded one, bit for bit.  With comm None the launches are those
+above.  The basis change needs no collective.
 """
 
 from __future__ import annotations
@@ -66,30 +78,57 @@ def _eta(x):
     return x.dtype.type(ETA)
 
 
+def _global_n(Vh, comm):
+    """The basis's length n: V's own, or the sharded basis's global one."""
+    return Vh.shape[1] if comm is None else comm.n
+
+
+def _summed(parts, comm, acc=None):
+    """The (hi, lo) pairs `parts` summed over the ranks (acc <- acc + sum
+    with acc), or the pairs themselves unsharded."""
+    return parts if comm is None else comm.df_sum(parts, acc)
+
+
 def _sumsq(wh, wl):
-    """The double-word sum of squares of w (df32.df_norm's sum)."""
+    """The double-word sum of squares of w (df32.df_norm's sum); this
+    rank's partial when sharded."""
     ch, cl = df.df_project(wh[None], wl[None], wh, wl, 1)
     return ch[0], cl[0]
 
 
-def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False):
+def _project(Vh, Vl, wh, wl, rows, acc=None, comm=None):
+    """h = V[:rows] w in double word (zeros beyond), summed over the
+    ranks; with acc, acc <- acc + h as well."""
+    if comm is None:
+        return df.df_project(Vh, Vl, wh, wl, rows, acc)
+    (h,) = comm.df_sum([df.df_project(Vh, Vl, wh, wl, rows)], acc)
+    return h
+
+
+def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False, comm=None):
     """h = V[:rows] w and the projection update w - h V[:rows] in double
     word; with acc, acc <- acc + h as well (the JAX package's
     _df_masked_project).  With norm, also the updated w's sum of squares
     (df_axpy's fused form): (h, w, sum)."""
-    ch, cl = df.df_project(Vh, Vl, wh, wl, rows, acc)
+    ch, cl = _project(Vh, Vl, wh, wl, rows, acc, comm)
     out = df.df_axpy(wh, wl, ch, cl, Vh, Vl, rows, norm)
-    return ((ch, cl), *out) if norm else ((ch, cl), out)
+    if not norm:
+        return (ch, cl), out
+    w, (s,) = out[0], _summed([out[1]], comm)
+    return (ch, cl), w, s
 
 
-def _random_unit(generator, Vh, Vl, rows, out):
+def _random_unit(generator, Vh, Vl, rows, out, comm=None):
     """A fresh random unit vector orthogonal to V[:rows], double word, into
-    the pair `out`."""
-    zh = torch.randn(Vh.shape[1], dtype=Vh.dtype, device=Vh.device,
+    the pair `out`.  Sharded, the draw is the global n long (the generator
+    advances alike on every rank) and this rank keeps its rows."""
+    zh = torch.randn(_global_n(Vh, comm), dtype=Vh.dtype, device=Vh.device,
                      generator=generator)
+    if comm is not None:
+        zh = comm.local(zh)
     zl = torch.zeros_like(zh)
-    _, z = _masked_project(Vh, Vl, zh, zl, rows)
-    _, z, z2 = _masked_project(Vh, Vl, *z, rows, norm=True)
+    _, z = _masked_project(Vh, Vl, zh, zl, rows, comm=comm)
+    _, z, z2 = _masked_project(Vh, Vl, *z, rows, norm=True, comm=comm)
     df.df_normalize(z, z2, out)
 
 
@@ -103,20 +142,27 @@ def _matvec_df(op, xh, xl):
     return df32.df_add(yh, torch.zeros_like(yh), yl, torch.zeros_like(yl))
 
 
-def _step(op, Vh, Vl, Hh, Hl, j, flags):
+def _step(op, Vh, Vl, Hh, Hl, j, flags, comm=None):
     """Krylov step j with no host read: the matvec, its sum of squares,
     both Gram-Schmidt passes (each norm fused into its df_axpy), then
     df_normalize's step form, which decides, writes V[j+1], H's column j
-    and flags[j].  Seven launches with a one-launch matvec_df."""
+    and flags[j].  Seven launches with a one-launch matvec_df; sharded,
+    three sums over the ranks besides."""
+    rows = j + 1
     wh, wl = _matvec_df(op, Vh[j], Vl[j])
     r2 = _sumsq(wh, wl)
-    h1, w1, s1 = _masked_project(Vh, Vl, wh, wl, j + 1, norm=True)
-    c, w2, s2 = _masked_project(Vh, Vl, *w1, j + 1, norm=True)
-    df.df_normalize(w1, s1, (Vh[j + 1], Vl[j + 1]),
+    h1 = df.df_project(Vh, Vl, wh, wl, rows)
+    r2, h1 = _summed([r2, h1], comm)
+    w1, s1 = df.df_axpy(wh, wl, *h1, Vh, Vl, rows, True)
+    c = df.df_project(Vh, Vl, *w1, rows)
+    s1, c = _summed([s1, c], comm)
+    w2, s2 = df.df_axpy(*w1, *c, Vh, Vl, rows, True)
+    (s2,) = _summed([s2], comm)
+    df.df_normalize(w1, s1, (Vh[rows], Vl[rows]),
                     df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags))
 
 
-def _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator):
+def _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator, comm=None):
     """Finish step j, found broken down after its range ran on to j1, on
     the breakdown path: H[j+1, j] = 0 and a fresh random row (w itself
     stays when j+1 == n).  Counts the rollback in `LOWSYNC`."""
@@ -124,18 +170,19 @@ def _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator):
     LOWSYNC.discarded_matvecs += j1 - 1 - j
     Hh[j + 1, j] = 0
     Hl[j + 1, j] = 0
-    if j + 1 < Vh.shape[1]:
-        _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]))
+    if j + 1 < _global_n(Vh, comm):
+        _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]), comm)
 
 
-def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator, comm=None):
     """Extend A V[:j].T = V[:j+1].T H[:j+1, :j] in double word, writing
     basis rows j0+1 .. j1 and the columns j0 .. j1-1 of the device pair
     (Hh, Hl), in place, with no host read inside a step.  One transfer
     brings back (Hh, Hl) and every step's breakdown flag.  If step j*
     broke down, it is finished on the breakdown path and the steps from
     j*+1 run again, one more read.  The result equals
-    `df_expand_range_stepwise` bit for bit.
+    `df_expand_range_stepwise` bit for bit (sharded too, given the same
+    `comm`).
 
     Returns ((Hh, Hl) on the host as numpy arrays of the word type, host
     reads made)."""
@@ -145,7 +192,7 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
     start = j0
     while True:
         for j in range(start, j1):
-            _step(op, Vh, Vl, Hh, Hl, j, flags)
+            _step(op, Vh, Vl, Hh, Hl, j, flags, comm)
         packed = torch.cat((Hh.reshape(-1), Hl.reshape(-1), flags))
         packed = packed.cpu().numpy()
         reads += 1
@@ -155,40 +202,44 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
         if broke.size == 0:
             return host, reads
         j = start + int(broke[0])
-        _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator)
+        _finish_breakdown(Vh, Vl, Hh, Hl, j, j1, generator, comm)
         host[0][j + 1, j] = host[1][j + 1, j] = 0
         start = j + 1
         if start == j1:
             return host, reads
 
 
-def _dgks(Vh, Vl, wh, wl, rows):
+def _dgks(Vh, Vl, wh, wl, rows, comm=None):
     """Two-stage DGKS against V[:rows] in double word, decided on the host.
     Returns (w, its device sum of squares, (hh, hl), the host double-word
     norm of w, ref, reads): ref the hi word of the norm before the last
-    pass."""
-    r2 = _sumsq(wh, wl)
-    (hh, hl), w, s = _masked_project(Vh, Vl, wh, wl, rows, norm=True)
+    pass.  Sharded, each sum is summed over the ranks on its own."""
+    (r2,) = _summed([_sumsq(wh, wl)], comm)
+    (hh, hl), w, s = _masked_project(Vh, Vl, wh, wl, rows, norm=True,
+                                     comm=comm)
     host = _host(*r2, *s)
     rnorm = df32.df_sqrt(host[0], host[1])[0]
     wnorm = df32.df_sqrt(host[2], host[3])
     if wnorm[0] < _eta(rnorm) * rnorm:
-        _, w, s = _masked_project(Vh, Vl, *w, rows, acc=(hh, hl), norm=True)
+        _, w, s = _masked_project(Vh, Vl, *w, rows, acc=(hh, hl), norm=True,
+                                  comm=comm)
         return w, s, (hh, hl), df32.df_sqrt(*_host(*s)), wnorm[0], 2
     return w, s, (hh, hl), wnorm, rnorm, 1
 
 
-def df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+def df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator,
+                             comm=None):
     """The expansion with each step's decisions made on the host as the
     step makes them, from numpy scalars of the word type (one read after
     the first Gram-Schmidt pass, one more when the second runs): the plain
     version that `df_expand_range` must equal bit for bit.  On no path of
     partial_schur.  Returns the number of host reads made."""
-    n = Vh.shape[1]
+    n = _global_n(Vh, comm)
     syncs = 0
     for j in range(j0, j1):
         wh, wl = _matvec_df(op, Vh[j], Vl[j])
-        w, s, (hh, hl), (nh, nl), ref, reads = _dgks(Vh, Vl, wh, wl, j + 1)
+        w, s, (hh, hl), (nh, nl), ref, reads = _dgks(Vh, Vl, wh, wl, j + 1,
+                                                     comm)
         syncs += reads
         Hh[:, j] = hh
         Hl[:, j] = hl
@@ -198,7 +249,8 @@ def df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
             Hl[j + 1, j] = float(nl)
         elif j + 1 < n:
             # H[j+1, j] stays zero: deflation.
-            _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]))
+            _random_unit(generator, Vh, Vl, j + 1, (Vh[j + 1], Vl[j + 1]),
+                         comm)
         else:
             # The basis already spans the whole space.
             Vh[j + 1], Vl[j + 1] = w
@@ -213,7 +265,8 @@ def df_apply_basis_change(Vh, Vl, Qh, Ql, rows=None):
     df.df_basis_change(Vh, Vl, Qh, Ql, rows, out=(Vh, Vl))
 
 
-def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator):
+def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator,
+                           comm=None):
     """One restart's device step: the truncation basis change, then the
     expansion from j0 back to j1; returns what `df_expand_range` returns.
     When the expansion runs to the last row (j1 = m, as every restart does),
@@ -222,30 +275,31 @@ def df_truncate_and_expand(op, Vh, Vl, Hh, Hl, Qh, Ql, j0, j1, generator):
     overwrites them, so V ends bitwise the same)."""
     rows = j0 + 1 if j1 == Vh.shape[0] - 1 else None
     df_apply_basis_change(Vh, Vl, Qh, Ql, rows)
-    return df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator)
+    return df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator, comm)
 
 
-def df_set_initial_vector(Vh, Vl, v):
-    """V[0] = v / ||v|| in double word (v single-word, not mutated); no
-    host read."""
+def df_set_initial_vector(Vh, Vl, v, comm=None):
+    """V[0] = v / ||v|| in double word (v single-word, not mutated; this
+    rank's rows when sharded); no host read."""
     vh = v.to(dtype=Vh.dtype, device=Vh.device, copy=True)
     vl = torch.zeros_like(vh)
-    df.df_normalize((vh, vl), _sumsq(vh, vl), (Vh[0], Vl[0]))
+    (s,) = _summed([_sumsq(vh, vl)], comm)
+    df.df_normalize((vh, vl), s, (Vh[0], Vl[0]))
 
 
-def df_reorthogonalize_row(Vh, Vl, j):
+def df_reorthogonalize_row(Vh, Vl, j, comm=None):
     """Orthogonalize row j against rows [0, j) and renormalize, in double
     word: on a warm start the seed row was placed by the single-word path.
     No host read."""
     wh, wl = Vh[j].clone(), Vl[j].clone()
-    _, w = _masked_project(Vh, Vl, wh, wl, j)
-    _, w, w2 = _masked_project(Vh, Vl, *w, j, norm=True)
+    _, w = _masked_project(Vh, Vl, wh, wl, j, comm=comm)
+    _, w, w2 = _masked_project(Vh, Vl, *w, j, norm=True, comm=comm)
     df.df_normalize(w, w2, (Vh[j], Vl[j]))
 
 
-def df_set_random_vector(Vh, Vl, j, generator):
+def df_set_random_vector(Vh, Vl, j, generator, comm=None):
     """V[j] = a fresh random unit vector orthogonal to rows [0, j)."""
-    _random_unit(generator, Vh, Vl, j, (Vh[j], Vl[j]))
+    _random_unit(generator, Vh, Vl, j, (Vh[j], Vl[j]), comm)
 
 
 def split_f64(Q, dtype, device):

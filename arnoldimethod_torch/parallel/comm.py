@@ -9,6 +9,10 @@ inserts the collectives.  This port is SPMD over torch.distributed, one
 process a device, and each collective is an explicit call here:
 
 - `all_reduce_`: every Gram-Schmidt contraction and norm (JAX's psum);
+- `df_sum`: the double-word sums of the extended path (extended=True),
+  one `all_gather_into_tensor` of every rank's partial pairs and one
+  `df_rank_sum` launch on the gathered bits (JAX: the collectives GSPMD
+  makes of df_sum's tree);
 - `gather_rows`: x for an operator that reads all of it (JAX's all-gather),
   through `all_gather_into_tensor`;
 - `exchange`: ShardedCsrOperator's footprint gather (JAX's ppermute
@@ -29,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..ops import df
+
 __all__ = ["COLLECTIVES", "ROWS", "CollectiveCounts", "RowComm"]
 
 ROWS = "rows"
@@ -36,10 +42,11 @@ ROWS = "rows"
 
 class CollectiveCounts:
     """Calls and bytes of each kind of collective the port made: `calls`
-    and `nbytes` map "all_reduce", "all_gather", "all_to_all" and "halo" to
-    integers.  `reset()` sets them to 0 to count one solve or one step."""
+    and `nbytes` map "all_reduce", "all_gather", "all_to_all", "halo" and
+    "df_sum" to integers.  `reset()` sets them to 0 to count one solve or
+    one step."""
 
-    KINDS = ("all_reduce", "all_gather", "all_to_all", "halo")
+    KINDS = ("all_reduce", "all_gather", "all_to_all", "halo", "df_sum")
 
     def __init__(self):
         self.reset()
@@ -98,6 +105,32 @@ class RowComm:
         COLLECTIVES.add("all_reduce", _bytes(t))
         return t
 
+    def df_sum(self, parts, acc=None):
+        """The double-word sums over the ranks of this rank's partial sums
+        `parts`, a sequence of (hi, lo) pairs of 0-dim or 1-D tensors: one
+        all_gather_into_tensor of them all (a flat buffer, gloo's form,
+        seen as (P, 2k): each rank's k hi words, then its k lo), then one
+        df_rank_sum (df32.df_sum's tree along the ranks; at one rank the
+        partials themselves).  Every rank sums the same gathered bits, so
+        every rank gets the same sums.  Returns the summed pairs, shaped as
+        `parts`.  With acc, a pair of k words (k the parts' total length),
+        also acc <- acc + sum in place.  Not dist.all_reduce: its sum is
+        single-word and its order the library's."""
+        send = torch.cat([p[w].reshape(-1) for w in (0, 1) for p in parts])
+        k = send.numel() // 2
+        buf = send.new_empty(self.size * 2 * k)
+        dist.all_gather_into_tensor(buf, send, group=self.group)
+        COLLECTIVES.add("df_sum", _bytes(buf) - _bytes(send))
+        buf = buf.view(self.size, 2 * k)
+        sh, sl = df.df_rank_sum(buf[:, :k], buf[:, k:], acc)
+        out, at = [], 0
+        for h, _ in parts:
+            c = h.numel()
+            out.append((sh[at:at + c].reshape(h.shape),
+                        sl[at:at + c].reshape(h.shape)))
+            at += c
+        return out
+
     def gather_rows(self, x):
         """The global (n, ...) tensor from every rank's (n_local, ...)
         rows, in rank order."""
@@ -120,12 +153,13 @@ class RowComm:
         return out, work
 
     def halo(self, x, lo, hi):
-        """x (this rank's n_local entries) with `lo` entries of rank - 1's
-        tail before it and `hi` of rank + 1's head after it; zeros past the
-        first and last rank, as a zero-padded global x has.  lo and hi are
-        at most n_local."""
+        """x (this rank's n_local entries, or rows of them) with `lo`
+        entries of rank - 1's tail before it and `hi` of rank + 1's head
+        after it; zeros past the first and last rank, as a zero-padded
+        global x has.  lo and hi are at most n_local."""
         r, p = self.rank, self.size
-        left, right = x.new_zeros(lo), x.new_zeros(hi)
+        rest = tuple(x.shape[1:])
+        left, right = x.new_zeros((lo, *rest)), x.new_zeros((hi, *rest))
         if p > 1 and lo + hi > 0:
             send_splits, recv_splits, parts = [0] * p, [0] * p, []
             if r > 0:
@@ -134,7 +168,7 @@ class RowComm:
             if r + 1 < p:
                 send_splits[r + 1], recv_splits[r + 1] = lo, hi
                 parts.append(x[x.shape[0] - lo:])
-            recv = x.new_empty(sum(recv_splits))
+            recv = x.new_empty((sum(recv_splits), *rest))
             dist.all_to_all_single(recv, torch.cat(parts), recv_splits,
                                    send_splits, group=self.group)
             COLLECTIVES.add("halo", _bytes(recv))

@@ -34,6 +34,7 @@ from ..models.operators import (
     LinearOperator,
     RowShardedOperator,
     ShardedCsrOperator,
+    dia_matvec_df,
 )
 from .comm import ROWS, RowComm
 
@@ -148,7 +149,8 @@ class _RowsOf(RowShardedOperator):
 class _ShardedDia(_RowsOf):
     """A DiaOperator's rows of this rank; the matvec takes max(-offset)
     entries of rank - 1 and max(offset) of rank + 1 (the halo) and runs
-    DiaOperator's shifted multiply-adds on the rank's rows, in its order."""
+    DiaOperator's shifted multiply-adds on the rank's rows, in its order;
+    matvec_df the same with one halo exchange carrying both words."""
 
     def __init__(self, op, comm):
         super().__init__(op, comm)
@@ -170,6 +172,11 @@ class _ShardedDia(_RowsOf):
             off = self.offsets[d]
             y = y + self.diags[d] * xp[lo + off: lo + off + n]
         return y
+
+    def matvec_df(self, xh, xl):
+        xp = self.comm.halo(torch.stack((xh, xl), dim=1), self.lo, self.hi)
+        return dia_matvec_df(self.diags, self.offsets, xp[:, 0], xp[:, 1],
+                             self.lo)
 
 
 class _ShardedEll(_RowsOf):
@@ -199,14 +206,23 @@ class GatheredOperator(_RowsOf):
     """Any operator on a row-sharded vector: the matvec gathers x, applies
     the whole operator on every rank (a Stencil5Operator launches its
     kernel on the full grid, a BsrOperator its kernel, a shift-invert its
-    solve) and keeps this rank's rows."""
+    solve) and keeps this rank's rows.  Where the operator has matvec_df,
+    so does the wrapper: one gather carrying both words, the operator's
+    matvec_df (stencil5_df on the full grid), this rank's rows."""
 
     def __init__(self, op, comm):
         super().__init__(op, comm)
         self.op = op
+        if hasattr(op, "matvec_df"):
+            self.matvec_df = self._matvec_df
 
     def matvec(self, x):
         return self.comm.local(self.op.matvec(self.comm.gather_rows(x)))
+
+    def _matvec_df(self, xh, xl):
+        xh, xl = self.comm.gather_rows(torch.stack((xh, xl), dim=1)).T.contiguous()
+        yh, yl = self.op.matvec_df(xh, xl)
+        return self.comm.local(yh), self.comm.local(yl)
 
 
 def shard_operator(op, mesh):

@@ -119,16 +119,19 @@ class ArnoldiWorkspace:
 
     def save(self, path):
         """Serialize to an .npz file (V and Vlo are copied to the host).
-        Sharded, every rank calls it: V is gathered and rank 0 writes the
-        global checkpoint, the same file an unsharded save writes."""
-        V = self.V
+        Sharded, every rank calls it: V and Vlo are gathered and rank 0
+        writes the global checkpoint, the same file an unsharded save
+        writes."""
+        V, Vlo = self.V, self.Vlo
         if self.comm is not None:
             V = self.comm.gather_rows(V.T).T
+            if Vlo is not None:
+                Vlo = self.comm.gather_rows(Vlo.T).T
             if self.comm.rank != 0:
                 return
         extra = {}
-        if self.Vlo is not None:
-            extra["Vlo"] = self.Vlo.cpu().numpy()
+        if Vlo is not None:
+            extra["Vlo"] = Vlo.cpu().numpy()
         if self.Hlo is not None:
             extra["Hlo"] = np.asarray(self.Hlo)
         np.savez(

@@ -11,7 +11,9 @@
     python3 chip_smoke.py --device        # the method="device" phases only
     python3 chip_smoke.py --dense-restart # the dense_restart_kernel phase only
     python3 chip_smoke.py --extended      # df_kernel and the extended solves
-    python3 chip_smoke.py --sharded       # sharded_p1 and sharded_p2 only
+    python3 chip_smoke.py --sharded       # the four sharded phases only
+    python3 chip_smoke.py --sharded-extended  # df_rank_sum, sharded_ext_p1
+                                              # and sharded_ext_p2 only
     python3 chip_smoke.py --comm-costs    # the collectives' host cost only
 
 Phases, each printed as one JSON line:
@@ -127,8 +129,10 @@ Phases, each printed as one JSON line:
            form at n = 1, 1,000, 65,536 and 1,048,576 (bitwise with acc,
            both words), 20 calls in a CUDA graph replayed 10 times against
            one eager call; df_basis_change at rows 31, 46, 61 (new tensors
-           and in place) and stencil5_df at 64^2; and ptxas' registers,
-           stack and spills of each of the 69 instantiations (no local
+           and in place) and stencil5_df at 64^2; df_rank_sum (the sharded
+           extended path's sum over the ranks) at 1, 2, 3, 4 and 8 ranks
+           (k = 62) and k = 1, with and without acc; and ptxas' registers,
+           stack and spills of each of the 71 instantiations (no local
            memory).  The
            operations bound counts lane-instructions (each operand split
            once) over SMs x 128 (float32) or 64 (float64) a clock at the
@@ -214,11 +218,29 @@ Phases, each printed as one JSON line:
            ranks on one device), each `chip_smoke.py --sharded-rank`: a
            probe of every collective the comm layer makes on CUDA tensors,
            then config 2's CSR matrix split over the two ranks with DGKS in
-           both gather modes to convergence (20/20 within main's limits),
-           lowsync=True and method="device" (the stencil behind the wrapper)
-           for P2_SHORT restarts; both ranks must report the same counts;
-           walls labelled as two ranks on one card, not a multi-GPU figure
+           the footprint mode to convergence (20/20 within main's limits),
+           DGKS in the all-gather mode, lowsync=True and method="device"
+           (the stencil behind the wrapper) for P2_SHORT restarts; both
+           ranks must report the same counts; walls labelled as two ranks
+           on one card, not a multi-GPU figure
            (chiprun_out/sharded_p2/rank*.log, rank*.json)
+  sharded_ext_p1  extended=True with sharding= on a one-rank NCCL group,
+           each beside its unsharded solve: config 3 at full size (as
+           ext_conv) through the gathering wrapper (stencil5_df on the
+           full grid) and the README matrix in float64 words at tol=1e-28
+           (as ext_dd) through the sharded DIA operator; Q, Q_lo, R, R_lo,
+           matvecs, restarts and host reads bitwise the unsharded solve's,
+           config 3's 6,387 / 213 repeated; three df_sums a Krylov step
+           (a df_rank_sum launch each); collectives, bytes and df.cu
+           launches a step, both walls; the host microseconds of df_sum
+           and its parts and of the wrapper's matvec_df (comm_us); a
+           3-restart profile (chiprun_out/profile_sharded_ext.txt)
+  sharded_ext_p2  two processes sharing cuda:0 through gloo, each
+           `chip_smoke.py --sharded-ext-rank`: laplacian_1d(100) in float32
+           words at tol=1e-12 to convergence, residual below 1e-11 and the
+           same counts on the card as on the CPU at two ranks; config 3
+           for P2_SHORT restarts; both ranks' counts, R and config 3's H
+           equal (chiprun_out/sharded_ext_p2/)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
 launches on its main path, by phase for the stencil and the restart
@@ -1858,6 +1880,73 @@ def _df_windows(torch, dtype, gen):
     return out
 
 
+# df_rank_sum's shapes: k = 62 (a step's m + 2 at config 3's maxdim 60) at
+# 1, 2, 3, 4 and 8 ranks, and k = 1 (the step's {s2}) at the two the main
+# path runs (sharded_ext_p1, sharded_ext_p2).
+RANK_SUM_SHAPES = ((1, 62), (2, 62), (3, 62), (4, 62), (8, 62), (1, 1),
+                   (2, 1))
+
+
+def rank_sum_bytes(P, k, item, acc):
+    """df_rank_sum's bytes: the P k pairs read, the k pairs written, and
+    with acc its k pairs read and written."""
+    return (P * k * 2 + 2 * k + (4 * k if acc else 0)) * item
+
+
+def rank_sum_ops(P, k, acc):
+    """df_rank_sum's operations: P' - 1 df_adds a coefficient (P padded to
+    a power of two), and one more with acc."""
+    width = 1 << max(0, P - 1).bit_length()
+    return k * (width - 1 + (1 if acc else 0)) * DF_ADD
+
+
+def _rank_sum_cases(torch, dtype, gen):
+    """df_rank_sum against df_rank_sum_plain on the card, bitwise, on a
+    gathered (P, 2k) buffer (each rank's hi words, then its lo words, as
+    parallel/comm.py lays it out) at RANK_SUM_SHAPES, with and without acc;
+    the kernel's ms (a graph of 20 calls), the plain version's (CUDA
+    events) and the bound."""
+    from arnoldimethod_torch.ops import df
+
+    word = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+    out = []
+    for P, k in RANK_SUM_SHAPES:
+        scale = 2.0 ** torch.randint(-20, 20, (P, k), device="cuda",
+                                     generator=gen).to(dtype)
+        hi = torch.randn(P, k, dtype=dtype, device="cuda", generator=gen) * scale
+        parts = torch.cat((hi, hi * lo * torch.rand(
+            P, k, dtype=dtype, device="cuda", generator=gen)), dim=1)
+        ah = torch.randn(k, dtype=dtype, device="cuda", generator=gen)
+        a0 = (ah, ah * lo)
+        for acc in (False, True):
+            acc_k = (a0[0].clone(), a0[1].clone()) if acc else None
+            acc_p = (a0[0].clone(), a0[1].clone()) if acc else None
+            got = df.df_rank_sum(parts[:, :k], parts[:, k:], acc_k)
+            want = df.df_rank_sum_plain(parts[:, :k], parts[:, k:], acc_p)
+            torch.cuda.synchronize()
+            same = bitwise(zip(got, want)) and (
+                not acc or bitwise(zip(acc_k, acc_p)))
+            err = max((a.double() - b.double()).abs().max().item()
+                      for a, b in zip(got, want))
+            nbytes = rank_sum_bytes(P, k, item, acc)
+            bound_ms, bound_by = roofline(nbytes, rank_sum_ops(P, k, acc), word)
+            res = {"dtype": word, "P": P, "k": k, "acc": acc,
+                   "bitwise": same, "max_abs_err": err}
+            if not acc:
+                ms = graph_ms(lambda: df.df_rank_sum(parts[:, :k],
+                                                     parts[:, k:]))
+                res.update(
+                    ms=ms, plain_ms=median_ms(lambda: df.df_rank_sum_plain(
+                        parts[:, :k], parts[:, k:]), reps=10, warm=2),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    share_of_bound=bound_ms / ms, bytes=nbytes,
+                    library_ms=None)
+            out.append(res)
+    return out
+
+
 def _ptxas_functions(log):
     """Registers, stack frame and spills of each function in nvcc's
     -Xptxas -v output, by mangled name."""
@@ -1902,13 +1991,14 @@ def _dense_ptxas(log):
 def _df_ptxas(log):
     """Registers, stack frame and spills of each instantiation of csrc/df.cu
     (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
-    normalize_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>)
-    from nvcc's -Xptxas -v output."""
+    normalize_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>,
+    rank_sum_kernel<word>) from nvcc's -Xptxas -v output."""
     import re
 
     rows = []
     for name, info in _ptxas_functions(log).items():
-        m = re.search(r"(project|axpy|normalize|basis|stencil)_kernelI([fd])"
+        m = re.search(r"(project|axpy|normalize|basis|stencil|rank_sum)"
+                      r"_kernelI([fd])"
                       r"((?:L[ib]\d+E)*)E", name)
         if m:
             rows.append({"kernel": m.group(1),
@@ -2302,8 +2392,9 @@ def phase_df_kernel(torch):
     graph replays (`_axpy_replay`).  df_normalize at 65,536 and 1,048,576
     rows, aligned and one word off, in every decision case
     (`_normalize_forms`).  Then df_basis_change at rows 31, 46 and 61, new
-    and in place, and stencil5_df at 64^2 (`_df_windows`).
-    Last, ptxas' registers, stack and spills for each of the file's 69
+    and in place, and stencil5_df at 64^2 (`_df_windows`), and df_rank_sum
+    at RANK_SUM_SHAPES (`phase_rank_sum`).
+    Last, ptxas' registers, stack and spills for each of the file's 71
     instantiations (none may use local memory).  Each timed case of a
     redesigned kernel names the earlier kernel's time
     (`slower_than_earlier`) and, where set, its target (`meets_target`)."""
@@ -2366,13 +2457,14 @@ def phase_df_kernel(torch):
               case="df_windows", dtype=str(dtype).split(".")[-1],
               windows=windows)
         results[("windows", str(dtype).split(".")[-1])] = windows
+    rank_sums = phase_rank_sum(torch, gen)
     # ptxas: 10 df_project, 44 df_axpy (11 shapes (L, U), plain or fused),
-    # 2 df_normalize, 5 df_basis_change and 6 stencil5_df instantiations,
-    # none with local memory.
+    # 2 df_normalize, 5 df_basis_change, 6 stencil5_df and 2 df_rank_sum
+    # instantiations, none with local memory.
     ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
     want = {"project": 10, "axpy": 44, "normalize": 2, "basis": 5,
-            "stencil": 6}
+            "stencil": 6, "rank_sum": 2}
     counts = {k: sum(p["kernel"] == k for p in ptxas) for k in want}
     check("df_kernel", not built or (
               counts == want
@@ -2385,7 +2477,33 @@ def phase_df_kernel(torch):
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
         one_row_bound_ms=norm["bound_ms"])
+    shape["df_rank_sum"] = rank_sums
     return shape
+
+
+def phase_rank_sum(torch, gen):
+    """df_rank_sum (the sharded extended solve's sum over the ranks)
+    against its plain version at RANK_SUM_SHAPES in both words, with and
+    without acc, bitwise.  Returns the kernels-line numbers: the P = 2,
+    k = 62 float32 case's (sharded_ext_p2's shape), with the P = 1 case's
+    beside them (sharded_ext_p1's)."""
+    cases = [c for dtype in (torch.float32, torch.float64)
+             for c in _rank_sum_cases(torch, dtype, gen)]
+    check("df_kernel", all(c["bitwise"] for c in cases), case="df_rank_sum",
+          cases=cases)
+
+    def at(P, k):
+        return next(c for c in cases if (c["P"], c["k"], c["acc"],
+                                         c["dtype"]) == (P, k, False,
+                                                         "float32"))
+
+    main, one = at(2, 62), at(1, 62)
+    return dict(
+        {key: main[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        case="P = 2, k = 62, float32", one_rank_ms=one["ms"],
+        one_rank_bound_ms=one["bound_ms"], one_rank_plain_ms=one["plain_ms"])
 
 
 def phase_default_device(torch):
@@ -2675,17 +2793,12 @@ def phase_ext_conv(torch):
     import numpy as np
 
     from arnoldimethod_torch import driver, partial_schur
-    from arnoldimethod_torch.models.problems import convection_diffusion_2d
     from arnoldimethod_torch.ops import bsr, df, df32, stencil
     from arnoldimethod_torch.ops import df_expansion as tde
     from arnoldimethod_torch.ops.expansion import LOWSYNC
 
     nx = 256
-    op = convection_diffusion_2d(nx, peclet=4.0 * (nx + 1),
-                                 dtype=torch.float32, fmt="stencil",
-                                 device="cuda")
-    kw = dict(nev=10, which="LM", tol=1e-6, mindim=30, maxdim=60,
-              v1=np.random.default_rng(3).standard_normal(nx * nx))
+    op, kw = _config3(torch)
 
     def solve():
         t0 = time.perf_counter()
@@ -2735,8 +2848,12 @@ def phase_ext_conv(torch):
     # Every Gram-Schmidt pass that reads a norm takes it from its df_axpy
     # launch: the one-row df_project is left to the r2 of each step and the
     # start (18,188 one-row launches before the fusion, PERF.md §5).
+    # Every double-word kernel but the sum over the ranks, which the
+    # unsharded path never launches.
+    unsharded = {k: v for k, v in launches.items() if k != "df_rank_sum"}
     check("ext_conv", h.converged and h.nconverged >= 10 and pairs >= 1
-          and resid <= 1e-8 and all(v > 0 for v in launches.values())
+          and resid <= 1e-8 and all(v > 0 for v in unsharded.values())
+          and launches["df_rank_sum"] == 0
           and plain == 0 and stencil.KERNEL.launches == 0 and repeats
           and axpy_forms["norm"] > 0 and forms["one_row"] < 7000
           and not hasattr(df, "df_mul_by") and "df_mul_by" not in launches
@@ -2770,9 +2887,9 @@ def phase_ext_conv(torch):
                           "wall_s": 107.65})
     # The stepwise range (host decisions, one or two reads a step) swapped
     # in for one solve, then the range's solve once more.
-    def stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+    def stepwise(op, Vh, Vl, Hh, Hl, j0, j1, generator, comm=None):
         reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
-                                             generator)
+                                             generator, comm)
         return (Hh.cpu().numpy(), Hl.cpu().numpy()), reads
 
     real_range, walls = tde.df_expand_range, [wall]
@@ -2824,6 +2941,21 @@ def phase_ext_conv(torch):
           device_launches_per_step=per_step,
           dtoh_copies_per_step=prof["dtoh_copies"] / prof["mvproducts"])
     return launches, forms, axpy_forms
+
+
+def _config3(torch):
+    """Config 3's operator on the card (n = 65,536, beta = 2) and its
+    keywords but restarts and extended, from numpy seed 3's v1."""
+    import numpy as np
+
+    from arnoldimethod_torch.models.problems import convection_diffusion_2d
+
+    nx = 256
+    op = convection_diffusion_2d(nx, peclet=4.0 * (nx + 1),
+                                 dtype=torch.float32, fmt="stencil",
+                                 device="cuda")
+    return op, dict(nev=10, which="LM", tol=1e-6, mindim=30, maxdim=60,
+                    v1=np.random.default_rng(3).standard_normal(nx * nx))
 
 
 def _step_host_us(torch, op, reps=300):
@@ -3723,15 +3855,16 @@ def _probe_collectives(torch, comm):
     return out
 
 
-# sharded_p2's runs: (operator, gather mode, keywords).  Both DGKS runs go
-# to convergence; lowsync and method="device" run P2_SHORT restarts: at two
-# ranks on one card every collective stages through the host and each run
-# to convergence takes 68-87 s (PERF.md, PR 14), which would take the
-# script past half its time limit.
+# sharded_p2's runs: (operator, gather mode, keywords).  DGKS in the
+# footprint mode goes to convergence; the all-gather mode, lowsync and
+# method="device" run P2_SHORT restarts: at two ranks on one card every
+# collective stages through the host and each run to convergence takes
+# 68-109 s (PERF.md, PR 14; the all-gather mode converged in PR 14's runs
+# C, D and G), which would take the script past half its time limit.
 P2_SHORT = 5
 P2_RUNS = {
     "dgks_footprint": ("csr", "footprint", dict(method="host", restarts=400)),
-    "dgks_all": ("csr", "all", dict(method="host", restarts=400)),
+    "dgks_all": ("csr", "all", dict(method="host", restarts=P2_SHORT)),
     "lowsync_footprint": ("csr", "footprint", dict(
         method="host", lowsync=True, restarts=P2_SHORT)),
     "device": ("stencil", None, dict(method="device", restarts=P2_SHORT)),
@@ -3814,16 +3947,14 @@ def sharded_rank(torch, rank, world, init, out_dir):
             json.dump(result, f)
 
 
-def phase_sharded_p2(torch, timeout=900):
-    """Config 2 on two processes that share cuda:0 through gloo (NCCL
-    refuses two ranks on one device): the CSR matrix split over 2 ranks
-    with DGKS in both gather modes to convergence, lowsync=True, and
-    method="device" with the stencil through the gathering wrapper.  Each
-    run must meet config 2's limits on rank 0 and give both ranks the same
-    counts.  Returns the kernels' launches summed over the ranks."""
+def _two_ranks(phase, flag, subdir, timeout):
+    """Two processes on cuda:0 through gloo, each `chip_smoke.py FLAG RANK
+    2 file://... OUT` (logs and JSON in chiprun_out/SUBDIR/): every rank's
+    JSON and the seconds taken.  Fails the phase, with the logs' tails,
+    when a rank exits non-zero, hangs past `timeout` or writes no JSON."""
     world = 2
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out", "sharded_p2")
+                           "chiprun_out", subdir)
     os.makedirs(out_dir, exist_ok=True)
     for name in os.listdir(out_dir):
         os.unlink(os.path.join(out_dir, name))
@@ -3833,9 +3964,8 @@ def phase_sharded_p2(torch, timeout=900):
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
-         "--sharded-rank", str(r),
-         str(world), init, out_dir], stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(world)]
+         flag, str(r), str(world), init, out_dir], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
     try:
         rcs = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
                for p in procs]
@@ -3860,8 +3990,22 @@ def phase_sharded_p2(torch, timeout=900):
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.log")) as f:
                 tails.append(f.read()[-2000:])
-        check("sharded_p2", False, returncodes=rcs, seconds=wall,
+        check(phase, False, returncodes=rcs, seconds=wall,
               probe=[r.get("probe") for r in results], log_tails=tails)
+    return results, wall
+
+
+def phase_sharded_p2(torch, timeout=900):
+    """Config 2 on two processes that share cuda:0 through gloo (NCCL
+    refuses two ranks on one device): the CSR matrix split over 2 ranks
+    with DGKS in the footprint mode to convergence, and in the all-gather
+    mode, lowsync=True and method="device" (the stencil through the
+    gathering wrapper) for P2_SHORT restarts.  Each run must meet config
+    2's limits on rank 0 (or run its restarts) and give both ranks the
+    same counts.  Returns the kernels' launches summed over the ranks."""
+    results, wall = _two_ranks("sharded_p2", "--sharded-rank", "sharded_p2",
+                               timeout)
+    world = len(results)
     probe = results[0]["probe"]
     ok = all(v is True for r in results for v in r["probe"].values())
     runs, launches = {}, dict.fromkeys(("stencil5", "dense_restart",
@@ -3902,6 +4046,275 @@ def phase_sharded_p2(torch, timeout=900):
     return launches
 
 
+def _ext_counts_zero():
+    """sharded counts and the double-word kernels' to 0."""
+    from arnoldimethod_torch.ops import df, df32
+
+    _sharded_counts_zero()
+    df.KERNEL.launches = dict.fromkeys(df.KERNEL.launches, 0)
+    df32.PLAIN_ON_CARD = 0
+
+
+def _ext_counts():
+    from arnoldimethod_torch.ops import df, df32
+
+    return dict(_sharded_counts(), df_launches=dict(df.KERNEL.launches),
+                plain_df_calls_on_card=df32.PLAIN_ON_CARD)
+
+
+def _digest(a):
+    """A short hash of an array's bytes, to compare ranks' results."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def _ext_comm_us(torch, comm, sop, k=62, calls=300, warm=300):
+    """Host microseconds a call of what a sharded extended step adds, back
+    to back on CUDA tensors, and the time until the device has finished
+    them too: df_sum of a step's {r2, h1} (k pairs), its parts (the
+    concatenation, the all_gather_into_tensor alone, df_rank_sum alone),
+    and the wrapper's matvec_df (the gather of both words, stencil5_df on
+    the full grid) beside the unsharded operator's; a torch add_ for
+    scale."""
+    import torch.distributed as dist
+
+    from arnoldimethod_torch.ops import df
+
+    r2 = (torch.ones((), device="cuda"), torch.zeros((), device="cuda"))
+    h1 = (torch.ones(k - 1, device="cuda"), torch.zeros(k - 1, device="cuda"))
+    send = torch.zeros(2 * k, device="cuda")
+    buf = torch.zeros(comm.size * 2 * k, device="cuda")
+    parts = buf.view(comm.size, 2 * k)
+    xh = torch.ones(comm.n_local, device="cuda")
+    xl = torch.zeros_like(xh)
+    out = {}
+    for name, fn in (
+            ("torch_add_", lambda: send.add_(1.0)),
+            ("df_sum", lambda: comm.df_sum([r2, h1])),
+            ("cat", lambda: torch.cat([r2[0].reshape(-1), h1[0], r2[1].reshape(-1),
+                                       h1[1]])),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                buf, send, group=comm.group)),
+            ("df_rank_sum", lambda: df.df_rank_sum(parts[:, :k], parts[:, k:])),
+            ("matvec_df_sharded", lambda: sop.matvec_df(xh, xl)),
+            ("matvec_df_unsharded", lambda: sop.op.matvec_df(xh, xl))):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        out[name] = {"host_us": 1e6 * host / calls, "done_us": 1e6 * done / calls}
+    return out
+
+
+def phase_sharded_ext_p1(torch):
+    """extended=True with sharding= on a one-rank NCCL group, each beside
+    its unsharded solve in this call: (a) config 3 at full size (as
+    `ext_conv`, restarts=1000, seed 3's v1) through the gathering wrapper
+    (stencil5_df on the full grid), (b) the README matrix in float64 words
+    at tol=1e-28 (as `ext_dd`) through the sharded DIA operator.  Q (and
+    Q_lo), R (and R_lo), matvecs, restarts and host reads must equal the
+    unsharded solve's bit for bit; config 3 must repeat ext_conv's 6,387
+    matvecs and 213 restarts.  Each sharded solve is driven with the counts
+    at 0 just before it and read just after.  Returns df_rank_sum's
+    launches over the two."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from arnoldimethod_torch.models.problems import laplacian_1d
+    from arnoldimethod_torch.parallel import (
+        basis_sharding,
+        make_mesh,
+        shard_operator,
+    )
+
+    conv, conv_kw = _config3(torch)
+    ways = {
+        "config3": (conv, dict(conv_kw, restarts=1000, extended=True)),
+        "readme_dd": (laplacian_1d(100, dtype=torch.float64, device="cuda"),
+                      dict(nev=10, which="SR", tol=1e-28, extended=True,
+                           v1=np.random.default_rng(11).standard_normal(100))),
+    }
+    out, ok, launches = {}, True, 0
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        sharding = basis_sharding(make_mesh())
+        for way, (op, kw) in ways.items():
+            d0, h0, wall0 = _timed_solve(torch, op, **kw)
+            sop = shard_operator(op, sharding.mesh)
+            _ext_counts_zero()
+            d1, h1, wall1 = _timed_solve(torch, sop, sharding=sharding, **kw)
+            counts = _ext_counts()
+            pairs = [(d1.Q.to_local(), d0.Q)]
+            same = np.array_equal(d1.R, d0.R) and np.array_equal(
+                np.signbit(d1.R), np.signbit(d0.R))
+            if hasattr(d0, "Q_lo"):
+                pairs.append((d1.Q_lo.to_local(), d0.Q_lo))
+                same = same and np.array_equal(d1.R_lo, d0.R_lo)
+            same = (same and bitwise(pairs)
+                    and (h1.mvproducts, h1.restarts, h1.host_syncs)
+                    == (h0.mvproducts, h0.restarts, h0.host_syncs))
+            steps = h1.mvproducts
+            dfl = counts["df_launches"]
+            launches += dfl["df_rank_sum"]
+            coll = counts["collectives"]
+            # Three sums a Krylov step and the start's; one all-reduce, the
+            # single-word start's norm.
+            sums_ok = (coll["df_sum"]["calls"] >= 3 * steps
+                       and coll["all_reduce"]["calls"] == 1
+                       and dfl["df_rank_sum"] == coll["df_sum"]["calls"])
+            counts_ok = (way != "config3"
+                         or (h1.mvproducts, h1.restarts) == (6387, 213))
+            ok = ok and same and sums_ok and counts_ok and h1.converged
+            out[way] = dict(
+                operator=type(sop).__name__, bitwise_q_r_counts=same,
+                mvproducts=h1.mvproducts, restarts=h1.restarts,
+                nconverged=h1.nconverged, host_syncs=h1.host_syncs,
+                host_reads_per_step=h1.host_syncs / steps,
+                collectives=coll,
+                collectives_per_step=_per_step(coll, steps),
+                df_launches=dfl,
+                df_launches_per_step={k: v / steps for k, v in dfl.items()},
+                all_df_launches_per_step=sum(dfl.values()) / steps,
+                plain_df_calls_on_card=counts["plain_df_calls_on_card"],
+                stencil_launches=counts["launches"]["stencil5"],
+                wall_s=wall1, unsharded_wall_s=wall0,
+                sharded_over_unsharded_wall=wall1 / wall0)
+            del d0, d1
+        sop = shard_operator(conv, sharding.mesh)
+        comm_us = _ext_comm_us(torch, sop.comm, sop)
+        # 3 restarts of the sharded config 3 under the profiler.
+        _profile(torch, "sharded_ext_p1_profile", sop, "(anonymous namespace)",
+                 "profile_sharded_ext.txt", label="df_kernels",
+                 parts={"df_rank_sum": "rank_sum_kernel",
+                        "stencil5_df": "stencil_kernel", "nccl": "nccl"},
+                 restarts=3, sharding=sharding, extended=True, **conv_kw)
+    finally:
+        dist.destroy_process_group()
+    check("sharded_ext_p1", ok, world_size=1, backend="nccl",
+          q_type="DTensor Shard(0)", ways=out, df_rank_sum_launches=launches,
+          comm_us=comm_us,
+          prediction={"wall_ratio": [1.5, 2.5], "source": "PERF.md §6, PR 15"})
+    return launches
+
+
+def sharded_ext_rank(torch, rank, world, init, out_dir):
+    """`--sharded-ext-rank RANK WORLD INIT OUT`: one rank of sharded_ext_p2
+    on cuda:0 through gloo.  laplacian_1d(100) in float32 words at
+    tol=1e-12 to convergence through the sharded DIA operator, on the card
+    and then on the CPU from the same v1; config 3 for P2_SHORT restarts on
+    the card with a sharded workspace.  Each run driven with the counts at
+    0; writes OUT/rank<RANK>.json."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from arnoldimethod_torch import ArnoldiWorkspace
+    from arnoldimethod_torch.models.problems import laplacian_1d
+    from arnoldimethod_torch.parallel import (
+        basis_sharding,
+        make_mesh,
+        row_comm,
+        shard_operator,
+    )
+
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world, timeout=timedelta(seconds=600))
+    result = {"rank": rank}
+    try:
+        sharding = basis_sharding(make_mesh())
+        v1 = np.random.default_rng(11).standard_normal(100)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            op = shard_operator(laplacian_1d(100, dtype=torch.float32,
+                                             device=dev), sharding.mesh)
+            dist.barrier()
+            _ext_counts_zero()
+            d, h, wall = _timed_solve(torch, op, sharding=sharding, nev=10,
+                                      which="SR", tol=1e-12, extended=True,
+                                      v1=v1)
+            counts = _ext_counts()
+            Q = row_comm(sharding, 100).gather_rows(d.Q.to_local()).cpu().numpy()
+            runs[f"readme_{dev}"] = dict(
+                operator=type(op).__name__, mvproducts=h.mvproducts,
+                restarts=h.restarts, nconverged=h.nconverged,
+                converged=h.converged, host_syncs=h.host_syncs, wall_s=wall,
+                R=_digest(d.R), Q=_digest(Q),
+                schur_residual=float(np.linalg.norm(
+                    _lap1d_dense(100) @ Q - Q @ d.R)),
+                collectives_per_step=_per_step(counts["collectives"],
+                                               h.mvproducts),
+                df_launches=counts["df_launches"])
+            print(dev, runs[f"readme_{dev}"], flush=True)
+        conv, conv_kw = _config3(torch)
+        n = conv.shape[0]
+        ws = ArnoldiWorkspace(n, conv_kw["maxdim"], dtype=torch.float32,
+                              device="cuda", sharding=sharding)
+        op = shard_operator(conv, sharding.mesh)
+        dist.barrier()
+        _ext_counts_zero()
+        d, h, wall = _timed_solve(torch, op, sharding=sharding, workspace=ws,
+                                  restarts=P2_SHORT, extended=True, **conv_kw)
+        counts = _ext_counts()
+        runs["config3"] = dict(
+            operator=type(op).__name__, mvproducts=h.mvproducts,
+            restarts=h.restarts, nconverged=h.nconverged,
+            host_syncs=h.host_syncs, wall_s=wall, H=_digest(ws.H),
+            R=_digest(d.R), collectives_per_step=_per_step(
+                counts["collectives"], h.mvproducts),
+            df_launches=counts["df_launches"],
+            stencil_df_launches=counts["df_launches"]["stencil5_df"])
+        print("config3", runs["config3"], flush=True)
+        result["runs"] = runs
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+
+
+def phase_sharded_ext_p2(torch, timeout=300):
+    """extended=True with sharding= on two processes sharing cuda:0 through
+    gloo (`sharded_ext_rank`): laplacian_1d(100) in float32 words to
+    convergence, residual below 1e-11 in host float64 and the same counts
+    on the card as on the CPU at two ranks; config 3 for P2_SHORT
+    restarts.  Both ranks must agree on every count, R and config 3's H.
+    Returns df_rank_sum's launches on the card, summed over the ranks."""
+    results, wall = _two_ranks("sharded_ext_p2", "--sharded-ext-rank",
+                               "sharded_ext_p2", timeout)
+    keys = ("mvproducts", "restarts", "nconverged", "host_syncs", "R")
+    r0, r1 = (r.get("runs", {}) for r in results)
+    agree = bool(r0) and all(r0[run][k] == r1[run][k]
+                             for run in r0 for k in keys)
+    agree = agree and r0["config3"]["H"] == r1["config3"]["H"]
+    card, cpu = r0["readme_cuda"], r0["readme_cpu"]
+    ok = (agree and card["converged"] and card["schur_residual"] < 1e-11
+          and (card["mvproducts"], card["restarts"])
+          == (cpu["mvproducts"], cpu["restarts"])
+          and r0["config3"]["restarts"] == P2_SHORT)
+    launches = sum(r["runs"][run]["df_launches"]["df_rank_sum"]
+                   for r in results for run in ("readme_cuda", "config3"))
+    check("sharded_ext_p2", ok, world_size=2, backend="gloo (CUDA tensors)",
+          device="cuda:0 shared by both ranks", seconds=wall,
+          ranks_agree=agree, runs=r0,
+          walls_s_by_rank={run: [r["runs"][run]["wall_s"] for r in results]
+                           for run in r0},
+          restarts_cut_to={"config3": P2_SHORT}, wall_label=SHARDED_LABEL,
+          df_rank_sum_launches=launches)
+    return launches
+
+
 def device_only(torch, card):
     """--device: the roofline, the dense restart kernels and the device
     method's two solves alone."""
@@ -3919,9 +4332,11 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import arnoldimethod_torch  # noqa: F401  (fails outside the repository)
 
-    if sys.argv[1:2] == ["--sharded-rank"]:
+    ranks = {"--sharded-rank": sharded_rank,
+             "--sharded-ext-rank": sharded_ext_rank}
+    if sys.argv[1:2] and sys.argv[1] in ranks:
         rank, world, init, out_dir = sys.argv[2:6]
-        sharded_rank(torch, int(rank), int(world), init, out_dir)
+        ranks[sys.argv[1]](torch, int(rank), int(world), init, out_dir)
         return
     if sys.argv[1:] == ["--comm-costs"]:
         comm_costs(torch)
@@ -3931,6 +4346,13 @@ def main():
     if sys.argv[1:] == ["--sharded"]:
         phase_sharded_p1(torch)
         phase_sharded_p2(torch)
+        phase_sharded_ext_p1(torch)
+        phase_sharded_ext_p2(torch)
+        return
+    if sys.argv[1:] == ["--sharded-extended"]:
+        phase_rank_sum(torch, torch.Generator(device="cuda").manual_seed(0))
+        phase_sharded_ext_p1(torch)
+        phase_sharded_ext_p2(torch)
         return
     if sys.argv[1:] == ["--device"]:
         device_only(torch, card)
@@ -4008,6 +4430,8 @@ def main():
     # The row-sharded solver last: it starts process groups.
     p1_launches = phase_sharded_p1(torch)
     p2_launches = phase_sharded_p2(torch)
+    rank_sum_launches = {"sharded_ext_p1": phase_sharded_ext_p1(torch),
+                         "sharded_ext_p2": phase_sharded_ext_p2(torch)}
     by_phase = {k: {"device_main": device_launches[k],
                     "sharded_p1": p1_launches[k],
                     "sharded_p2": p2_launches[k]}
@@ -4081,6 +4505,16 @@ def main():
               "arnoldimethod_tpu/models/operators.py:395 "
               "Stencil5Operator.matvec_df" + xla, df_launches["stencil5_df"],
               df_shapes["stencil5_df"]),
+        # The sharded extended path's sum over the ranks: its launches are
+        # sharded_ext_p1's and sharded_ext_p2's (both ranks).
+        entry("df_rank_sum", df_src,
+              "arnoldimethod_tpu/ops/df32.py:147 df_sum's tree, which GSPMD "
+              "partitions into collectives on a sharded V" + xla,
+              sum(rank_sum_launches.values()), df_shapes["df_rank_sum"],
+              launches_by_phase=rank_sum_launches,
+              **{k: df_shapes["df_rank_sum"][k] for k in (
+                  "case", "one_rank_ms", "one_rank_bound_ms",
+                  "one_rank_plain_ms")}),
         # The numbers of the m = 80 float32 case (device_main's m).
         entry("dense_restart", "arnoldimethod_torch/csrc/dense_restart.cu",
               "arnoldimethod_tpu/fused.py:109-202 (the lax.while_loop body "

@@ -103,9 +103,11 @@ def test_fused_plain_form_float64_words(rows):
     assert oh.dtype == sh.dtype == torch.float64
 
 
-def _unfused_masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False):
-    """_masked_project as it was before the fusion: the sum of squares of
-    the result by a second df_project (one row)."""
+def _unfused_masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False,
+                            comm=None):
+    """_masked_project as it was before the fusion, unsharded: the sum of
+    squares of the result by a second df_project (one row)."""
+    assert comm is None
     ch, cl = df.df_project(Vh, Vl, wh, wl, rows, acc)
     out = df.df_axpy(wh, wl, ch, cl, Vh, Vl, rows)
     if not norm:
@@ -241,7 +243,8 @@ def test_launch_counts_split_by_form(monkeypatch):
         (sh, sl), out, (sh, sl), (v[:3], v[:3]), (v[:3], v[:3]), (H, H), 1,
         flags))
     assert K.launches == {"df_project": 0, "df_axpy": 3, "df_normalize": 2,
-                          "df_basis_change": 0, "stencil5_df": 0}
+                          "df_basis_change": 0, "stencil5_df": 0,
+                          "df_rank_sum": 0}
     assert K.axpy_forms == {"plain": 1, "norm": 2}
     assert [e for e, _ in seen] == ["df_axpy"] * 3 + ["df_normalize"] * 2
     # The one-sum form passes no second pass and no H; the step form

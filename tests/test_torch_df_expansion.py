@@ -786,7 +786,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 def test_launch_counts_start_at_zero_and_plain_does_not_count():
     assert df._DfKernel().launches == dict.fromkeys(
         ("df_project", "df_axpy", "df_normalize", "df_basis_change",
-         "stencil5_df"), 0)
+         "stencil5_df", "df_rank_sum"), 0)
     assert df._DfKernel().project_forms == {"one_row": 0, "full": 0}
     assert df._DfKernel().axpy_forms == {"plain": 0, "norm": 0}
     before = dict(df.KERNEL.launches)
@@ -795,5 +795,6 @@ def test_launch_counts_start_at_zero_and_plain_does_not_count():
     df.df_project(v[None], v[None], v, v, 1)
     df.df_normalize((v, v), (v[0], v[1]), (v.clone(), v.clone()))
     df.df_axpy(v, v, v, v, v[None], v[None], 1, norm=True)
+    df.df_rank_sum(v[None], v[None], (v.clone(), v.clone()))
     assert df.KERNEL.launches == before
     assert (df.KERNEL.project_forms, df.KERNEL.axpy_forms) == forms

@@ -8,8 +8,10 @@ thread, into new tensors and (the basis change) in place; df_normalize
 in both forms and every decision of its step form;
 df_axpy, plain and with its fused norm, under several launch plans (every
 fold, short runs and runs of a block, one block and many, the norm's last
-block with levels in device memory); df_project at its plan.  A copy of
-the source with one operand swapped must fail.
+block with levels in device memory); df_project at its plan; df_rank_sum
+(the sharded solve's sum over the ranks) at 1 to 256 ranks, with and
+without acc.  A copy of the source with one operand swapped must fail, in
+df_axpy and in df_rank_sum.
 
 This checks the kernels' indexing, staging and order of operations where
 there is no card; only chip_smoke.py shows that nvcc builds them and that
@@ -99,7 +101,8 @@ def _host_build(directory, cu):
             "df_project": [p, p, i, p, p, *[i] * 8, p, i, p, i, p, p, p, p,
                            p],
             "df_normalize": [p] * 10 + [i, p, p, p, p, i, p, p, i, i, p, p,
-                                        p, p]}
+                                        p, p],
+            "df_rank_sum": [p, p, i, i, i, p, p, p, p, p]}
     for name, args in sigs.items():
         for word in ("_f32", "_f64"):
             f = getattr(out, name + word)
@@ -124,14 +127,22 @@ AXPY_STEP = "df_add(ah, al, -th, -tl, ah, al);"
 MUTANT = "df_add(ah, al, -tl, -th, ah, al);"
 
 
+# One operand swapped in df_rank_sum's shuffle level: the hi and lo words
+# of the right operand.  Both mutations go into one build; each touches
+# only its own kernel.
+RANK_STEP = "df_add(vh, vl, uh, ul, vh, vl);"
+RANK_MUTANT = "df_add(vh, vl, ul, uh, vh, vl);"
+
+
 @pytest.fixture(scope="module")
 def mutant(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("the host build of df.cu needs g++")
     cu = CU.read_text()
-    assert cu.count(AXPY_STEP) == 1
+    assert cu.count(AXPY_STEP) == 1 and cu.count(RANK_STEP) == 1
     return _host_build(tmp_path_factory.mktemp("df_mutant"),
-                       cu.replace(AXPY_STEP, MUTANT))
+                       cu.replace(AXPY_STEP, MUTANT)
+                       .replace(RANK_STEP, RANK_MUTANT))
 
 
 INTS = {torch.float32: torch.int32, torch.float64: torch.int64}
@@ -420,3 +431,89 @@ def test_eta_literals_are_the_rounded_constant():
         lit = re.search(rf"struct Eta<{ctype}> {{ static constexpr {ctype} "
                         rf"value = (0x[0-9a-f.]+p-?\d+)f?; }}", text).group(1)
         assert float.fromhex(lit) == float(word(ETA))
+
+
+def _rank_sum_host(fn, parts, k, acc):
+    """One launch of the host-built df_rank_sum on the gathered (P, 2k)
+    buffer `parts` (each rank's k hi words, then its k lo words);
+    (sh, sl)."""
+    P = parts.shape[0]
+    oh = torch.full((k,), 7.0, dtype=parts.dtype)
+    ol = torch.full_like(oh, 7.0)
+    ah, al = acc if acc is not None else (None, None)
+    assert fn(parts.data_ptr(), parts[:, k:].data_ptr(), 2 * k, P, k,
+              oh.data_ptr(), ol.data_ptr(),
+              None if ah is None else ah.data_ptr(),
+              None if al is None else al.data_ptr(), None) == 0
+    return oh, ol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 8, 33, 256])
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_rank_sum_source_is_bitwise(lib, dtype, P, with_acc):
+    """df_rank_sum at k = 62 (a step's m + 2 at maxdim 60) on a gathered
+    buffer, against df_rank_sum_plain (df_sum along the ranks): the ranks
+    in shuffles alone (P <= 32, padded to a power of two) and folded in
+    registers first (33 and 256); acc updated as df_project's acc.  Partials
+    of mixed magnitude and sign, so the tree's order shows in the low
+    words."""
+    k = 62
+    rng = np.random.default_rng(P + 10 * with_acc)
+    scale = 2.0 ** rng.integers(-20, 20, size=(P, k))
+    hi = torch.from_numpy(rng.standard_normal((P, k)) * scale).to(dtype)
+    lo = (hi * 2.0 ** (-26 if dtype == torch.float32 else -55)
+          * torch.from_numpy(rng.uniform(-1, 1, (P, k))).to(dtype))
+    parts = torch.cat((hi, lo), dim=1).contiguous()
+    acc = _pair(rng, dtype, k) if with_acc else None
+    want_acc = None if acc is None else (acc[0].clone(), acc[1].clone())
+    want = df.df_rank_sum_plain(parts[:, :k], parts[:, k:], want_acc)
+    got_acc = None if acc is None else (acc[0].clone(), acc[1].clone())
+    got = _rank_sum_host(getattr(lib, "df_rank_sum" + _word(dtype)), parts,
+                         k, got_acc)
+    assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+    if with_acc:
+        assert _bitwise(got_acc[0], want_acc[0])
+        assert _bitwise(got_acc[1], want_acc[1])
+
+
+def test_rank_sum_plain_at_one_rank_is_the_partial():
+    """At one rank the sum is the partial and acc + sum is df_project's acc:
+    the one-rank sharded solve's bits are the unsharded ones."""
+    rng = np.random.default_rng(4)
+    Vh, Vl = _pair(rng, torch.float32, 7, 300)
+    wh, wl = _pair(rng, torch.float32, 300)
+    ah, al = _pair(rng, torch.float32, 7)
+    acc = (ah.clone(), al.clone())
+    want = df.df_project(Vh, Vl, wh, wl, 5, acc)
+    ch, cl = df.df_project(Vh, Vl, wh, wl, 5)
+    acc2 = (ah.clone(), al.clone())
+    got = df.df_rank_sum(ch[None], cl[None], acc2)
+    assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+    assert _bitwise(acc2[0], acc[0]) and _bitwise(acc2[1], acc[1])
+
+
+def test_rank_sum_source_refuses_bad_launches(lib):
+    x = torch.zeros(4, 8)
+    fn = lib.df_rank_sum_f32
+    good = dict(ld=8, P=4, k=4)
+
+    def launch(ld, P, k, acc_h=None):
+        return fn(x.data_ptr(), x.data_ptr(), ld, P, k, x.data_ptr(),
+                  x.data_ptr(), acc_h, None, None)
+
+    assert launch(**good) == 0
+    for bad in ({"P": 0}, {"P": 257}, {"k": 0}, {"ld": 0},
+                {"acc_h": x.data_ptr()}):
+        assert launch(**{**good, **bad}) != 0, bad
+
+
+def test_rank_sum_source_mutation_fails(mutant):
+    """The swapped operand changes the sum: the comparison above sees it."""
+    k, P = 62, 4
+    rng = np.random.default_rng(9)
+    hi, lo = _pair(rng, torch.float32, P, k)
+    parts = torch.cat((hi, lo), dim=1).contiguous()
+    want = df.df_rank_sum_plain(parts[:, :k], parts[:, k:])
+    got = _rank_sum_host(mutant.df_rank_sum_f32, parts, k, None)
+    assert not (_bitwise(got[0], want[0]) and _bitwise(got[1], want[1]))

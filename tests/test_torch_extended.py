@@ -298,10 +298,10 @@ def test_complex_bsr_runs_the_real_matvec_on_two_words(monkeypatch, with_imagina
     assert np.abs(y_plain.numpy() - y.numpy()).max() <= 1e-10
 
 
-def _stepwise_range(op, Vh, Vl, Hh, Hl, j0, j1, generator):
+def _stepwise_range(op, Vh, Vl, Hh, Hl, j0, j1, generator, comm=None):
     """df_expand_range's interface over the host-decided stepwise range."""
     reads = tde.df_expand_range_stepwise(op, Vh, Vl, Hh, Hl, j0, j1,
-                                         generator)
+                                         generator, comm)
     return (Hh.numpy().copy(), Hl.numpy().copy()), reads
 
 

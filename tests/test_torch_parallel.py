@@ -22,11 +22,6 @@ the comm layer's counters.
 """
 
 import functools
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +40,6 @@ from arnoldimethod_torch.models import problems as tp
 
 torch.set_num_threads(2)
 
-WORKER = Path(W.__file__)
 N = 256
 
 
@@ -86,28 +80,7 @@ def _inputs(world):
 
 def _run_job(world, tmp):
     np.savez(tmp / "inputs.npz", **_inputs(world))
-    init = f"file://{tmp / 'rendezvous'}"
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world), init, str(tmp)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{out[-4000:]}"
-    ranks = []
-    for r in range(world):
-        with open(tmp / f"rank{r}.pkl", "rb") as f:
-            ranks.append(pickle.load(f))
-    return ranks
+    return W.spawn(world, tmp)
 
 
 class Job:
@@ -388,8 +361,9 @@ def test_sharded_checkpoint_loads_in_jax(job):
 
 def test_sharded_refusals(job):
     for r in job.case("errors"):
-        assert r["extended"][0] == "NotImplementedError"
-        assert "item 14" in r["extended"][1]
+        # extended=True with sharding= runs since the double-word sum over
+        # the ranks (tests/test_torch_parallel_extended.py holds it).
+        assert r["extended"]["converged"] and r["extended"]["nconverged"] >= 2
         assert r["not_a_descriptor"][0] == "TypeError"
         assert "basis_sharding" in r["not_a_descriptor"][1]
         assert r["vector_descriptor"][0] == "ValueError"
@@ -419,5 +393,5 @@ def test_one_rank_refusals(job1):
     r = job1.case("errors")[0]
     assert r["footprint_one_rank"][0] == "ValueError"
     assert "2 devices" in r["footprint_one_rank"][1]
-    assert r["extended"][0] == "NotImplementedError"
+    assert r["extended"]["converged"] and r["extended"]["nconverged"] >= 2
     assert r["pod_mesh"] == (("rows",), 1)

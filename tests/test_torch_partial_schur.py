@@ -239,9 +239,10 @@ def test_q_rows_is_not_the_workspace():
         # parallel.basis_sharding(mesh) and refuses anything else.
         (dict(method="device", sharding=object()), TypeError,
          "basis_sharding"),
-        # extended=True is ported; its sharded path is not.
-        (dict(extended=True, sharding=object()), NotImplementedError,
-         "ROADMAP.md queue 1, item 14"),
+        # extended=True takes it too (tests/test_torch_parallel_extended.py)
+        # and refuses the same.
+        (dict(extended=True, sharding=object()), TypeError,
+         "basis_sharding"),
         (dict(sharding=object()), TypeError, "basis_sharding"),
     ],
     ids=["device", "extended", "sharding"],

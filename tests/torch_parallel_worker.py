@@ -1,19 +1,22 @@
-"""One rank of a sharded test job of tests/test_torch_parallel.py.
+"""One rank of a sharded test job of tests/test_torch_parallel.py and
+tests/test_torch_parallel_extended.py.
 
-    python tests/torch_parallel_worker.py RANK WORLD INIT_METHOD WORKDIR
+    python tests/torch_parallel_worker.py RANK WORLD INIT_METHOD WORKDIR [GROUP]
 
 Every rank of a job runs this script: it joins a gloo process group on the
 CPU (`init_method`, a file:// URL under WORKDIR), reads the job's inputs
-from WORKDIR/inputs.npz, runs every case of CASES on the `rows` mesh and
-pickles its results to WORKDIR/rank<RANK>.pkl.  A case that raises leaves
-its traceback under "error".  Only the port is imported (no JAX): the test
-holds these results to the JAX package's.
+from WORKDIR/inputs.npz, runs every case of GROUPS[GROUP] ("main" by
+default, CASES; "extended", EXT_CASES) on the `rows` mesh and pickles its
+results to WORKDIR/rank<RANK>.pkl.  A case that raises leaves its
+traceback under "error".  Only the port is imported (no JAX): the tests
+hold these results to the JAX package's.  `spawn` starts a job.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import subprocess
 import sys
 import time
 import traceback
@@ -32,8 +35,10 @@ from arnoldimethod_torch.convert import operator_from_arrays  # noqa: E402
 from arnoldimethod_torch.models import problems as tp  # noqa: E402
 from arnoldimethod_torch.models.operators import (  # noqa: E402
     CsrOperator,
+    DiaOperator,
     ShardedCsrOperator,
 )
+from arnoldimethod_torch.ops import df_expansion as tde  # noqa: E402
 from arnoldimethod_torch.ops import expansion as texp  # noqa: E402
 from arnoldimethod_torch.parallel import (  # noqa: E402
     COLLECTIVES,
@@ -255,13 +260,15 @@ def _message(fn):
 
 
 def case_errors(ctx):
-    """What the sharded entry points refuse, as (type, message)."""
+    """What the sharded entry points refuse, as (type, message); and what
+    they once refused and now run, as a solve's summary."""
     mesh = ctx.mesh
     sh = basis_sharding(mesh)
     op = tp.laplacian_1d(64)
     out = dict(
-        extended=_message(lambda: tam.partial_schur(
-            shard_operator(op, mesh), nev=2, sharding=sh, extended=True)),
+        extended=_summary(*tam.partial_schur(
+            shard_operator(tp.laplacian_1d(64, dtype=torch.float32), mesh),
+            nev=2, sharding=sh, extended=True)),
         not_a_descriptor=_message(lambda: tam.partial_schur(
             op, nev=2, sharding=object())),
         vector_descriptor=_message(lambda: tam.partial_schur(
@@ -291,13 +298,214 @@ CASES = {
 }
 
 
+# -- extended=True ------------------------------------------------------------
+
+# The extended solves every extended job runs: name -> (operator builder,
+# keywords), as SOLVES.  laplacian_1d(256) in float32 words is JAX's own
+# sharded extended case (tests/test_extended.py), config 3's operator at
+# 16^2 the size where both packages take the same count (F3), through the
+# gathering wrapper (stencil5_df on the full grid); laplacian_1d(40) in
+# float64 words the double-double case.
+EXT_SOLVES = {
+    "ext_lap256": (lambda inp: tp.laplacian_1d(256, dtype=torch.float32),
+                   dict(v1="v1_256", nev=4, which="SR", tol=1e-10)),
+    "ext_conv16": (lambda inp: tp.convection_diffusion_2d(
+                       16, peclet=68.0, dtype=torch.float32, fmt="stencil"),
+                   dict(v1="v1_conv", nev=10, which="LM", tol=1e-6,
+                        mindim=30, maxdim=60, restarts=1000)),
+    "ext_dd40": (lambda inp: tp.laplacian_1d(40, dtype=torch.float64),
+                 dict(v1="v1_40", nev=4, which="SR", tol=1e-24)),
+}
+
+
+def _ext_summary(d, h):
+    out = dict(_summary(d, h), host_syncs=h.host_syncs)
+    if hasattr(d, "R_lo"):
+        out["R_lo"] = np.asarray(d.R_lo)
+    return out
+
+
+def ext_solve_case(ctx, name):
+    """A sharded extended solve: its summary, the operator it ran, the
+    collectives it made, Q (and Q_lo) whole; at one rank also the
+    unsharded solve's, for the bitwise check."""
+    build, kw = EXT_SOLVES[name]
+    kw = dict(kw, v1=ctx.inputs[kw["v1"]], extended=True)
+    op = build(ctx.inputs)
+    sharded = shard_operator(op, ctx.mesh)
+    COLLECTIVES.reset()
+    d, h = tam.partial_schur(sharded, sharding=basis_sharding(ctx.mesh), **kw)
+    out = _ext_summary(d, h)
+    out["collectives"] = COLLECTIVES.snapshot()
+    out["operator"] = type(sharded).__name__
+    out["q_placements"] = [(type(p).__name__, getattr(p, "dim", None))
+                           for p in d.Q.placements]
+    out["Q"] = d.Q.full_tensor().numpy()
+    out["Q_local"] = d.Q.to_local().numpy()
+    if hasattr(d, "Q_lo"):
+        out["Q_lo"] = d.Q_lo.full_tensor().numpy()
+        out["Q_lo_local"] = d.Q_lo.to_local().numpy()
+    if name == "ext_lap256":
+        vals, X = tam.partial_eigen(d)
+        out["eigen_values"] = np.asarray(vals)
+        out["eigen_type"] = type(X).__name__
+        out["eigen_vectors"] = X.full_tensor().numpy()
+    if ctx.world == 1:
+        d0, h0 = tam.partial_schur(op, **kw)
+        out["unsharded"] = _ext_summary(d0, h0)
+        out["unsharded"]["Q"] = d0.Q.numpy()
+        if hasattr(d0, "Q_lo"):
+            out["unsharded"]["Q_lo"] = d0.Q_lo.numpy()
+    return out
+
+
+def _ext_start(ctx, op, v1, m, dtype):
+    """(V, Vl, Hh, Hl) of a sharded double-word basis of m + 1 rows whose
+    first row is v1 / ||v1||, as partial_schur starts it."""
+    comm = row_comm(basis_sharding(ctx.mesh), op.shape[0])
+    V = torch.zeros((m + 1, comm.n_local), dtype=dtype)
+    Vl = torch.zeros_like(V)
+    H = torch.zeros((m + 1, m), dtype=dtype)
+    texp.set_initial_vector(V, torch.from_numpy(v1), comm)
+    tde.df_set_initial_vector(V, Vl, V[0], comm)
+    return comm, V, Vl, H, H.clone()
+
+
+def case_ext_stepwise(ctx):
+    """The sharded df_expand_range against df_expand_range_stepwise from
+    the same start and the same generator seed: laplacian_1d(256) and
+    config 3's stencil in float32 words, and a diagonal operator whose
+    start spans two eigenvectors (a breakdown at step 2, finished on the
+    breakdown path with a random row).  Both results and the host reads."""
+    n = 256
+    diag = DiaOperator(torch.arange(1.0, n + 1.0)[None], (0,), (n, n))
+    assert diag.dtype == torch.float32
+    two = np.zeros(n)
+    two[[3, n - 5]] = 1.0
+    ops = {"lap256": (tp.laplacian_1d(n, dtype=torch.float32),
+                      ctx.inputs["v1_256"], 20),
+           "conv16": (EXT_SOLVES["ext_conv16"][0](ctx.inputs),
+                      ctx.inputs["v1_conv"], 30),
+           "breakdown": (diag, two, 8)}
+    out = {}
+    for name, (op, v1, m) in ops.items():
+        sop = shard_operator(op, ctx.mesh)
+        res = {}
+        for way, expand in (("range", tde.df_expand_range),
+                            ("stepwise", tde.df_expand_range_stepwise)):
+            comm, V, Vl, Hh, Hl = _ext_start(ctx, op, v1, m, torch.float32)
+            gen = torch.Generator().manual_seed(5)
+            got = expand(sop, V, Vl, Hh, Hl, 0, m, gen, comm)
+            reads = got[1] if way == "range" else got
+            res[way] = dict(V=V.numpy(), Vl=Vl.numpy(), Hh=Hh.numpy(),
+                            Hl=Hl.numpy(), reads=reads)
+        out[name] = res
+    return out
+
+
+def case_ext_budget(ctx):
+    """The collectives of each extended Krylov step on the sharded DIA
+    operator at n = 256, m = 20 (steps 4 to 19), and of the basis change."""
+    n, m = 256, 20
+    op = tp.laplacian_1d(n, dtype=torch.float32)
+    sop = shard_operator(op, ctx.mesh)
+    comm, V, Vl, Hh, Hl = _ext_start(ctx, op, ctx.inputs["v1_256"], m,
+                                     torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    tde.df_expand_range(sop, V, Vl, Hh, Hl, 0, 4, gen, comm)
+    steps = []
+    for j in range(4, m):
+        COLLECTIVES.reset()
+        tde.df_expand_range(sop, V, Vl, Hh, Hl, j, j + 1, gen, comm)
+        steps.append(COLLECTIVES.snapshot())
+    COLLECTIVES.reset()
+    eye = torch.eye(m + 1)
+    tde.df_apply_basis_change(V, Vl, eye, torch.zeros_like(eye))
+    return dict(steps=steps, basis=COLLECTIVES.snapshot(), n=n, m=m)
+
+
+def case_ext_checkpoint(ctx):
+    """A sharded extended solve saved (V and Vlo gathered, rank 0 writes),
+    every rank's gathered Vlo beside it, then loaded on every rank with
+    its sharding and warm-started, extended, to more eigenvalues.  At two
+    ranks only (None elsewhere): a cut low word needs P > 1."""
+    if ctx.world != 2:
+        return None
+    path = ctx.workdir / f"ext_ckpt_{ctx.world}.npz"
+    sh = basis_sharding(ctx.mesh)
+    op = shard_operator(tp.laplacian_1d(256, dtype=torch.float32), ctx.mesh)
+    ws = tam.ArnoldiWorkspace(256, 20, dtype=torch.float32, sharding=sh)
+    kw = dict(which="SR", tol=1e-10, extended=True)
+    d, h = tam.partial_schur(op, workspace=ws, v1=ctx.inputs["v1_256"], nev=3,
+                             sharding=sh, **kw)
+    ws.save(path)
+    vlo = ws.comm.gather_rows(ws.Vlo.T).T.numpy()
+    dist.barrier()
+    ws2 = tam.ArnoldiWorkspace.load(path, sharding=sh)
+    local = tuple(ws2.Vlo.shape)
+    d2, h2 = tam.partial_schur(op, workspace=ws2, start_from=h.nconverged,
+                               nev=6, **kw)
+    return dict(first=_ext_summary(d, h), warm=_ext_summary(d2, h2),
+                path=str(path), vlo=vlo, local_vlo=local)
+
+
+EXT_CASES = {
+    **{name: (lambda ctx, name=name: ext_solve_case(ctx, name))
+       for name in EXT_SOLVES},
+    "ext_stepwise": case_ext_stepwise,
+    "ext_budget": case_ext_budget,
+    "ext_checkpoint": case_ext_checkpoint,
+}
+
+GROUPS = {"main": CASES, "extended": EXT_CASES}
+
+
+def start(world, workdir, group="main"):
+    """Start a job of `world` ranks of this script on the inputs in
+    WORKDIR/inputs.npz (a file:// rendezvous under it, so parallel test
+    workers never race for a port); returns its processes."""
+    init = f"file://{workdir / 'rendezvous'}"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world), init, str(workdir),
+         group], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(world)]
+
+
+def finish(procs, workdir, timeout=300):
+    """Wait for a started job; every rank's results, in rank order.  Fails
+    with a rank's output if one exits non-zero."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (
+            f"rank {r} of {len(procs)} failed:\n{out[-4000:]}")
+    ranks = []
+    for r in range(len(procs)):
+        with open(workdir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def spawn(world, workdir, group="main"):
+    """Run a job (`start`, then `finish`)."""
+    return finish(start(world, workdir, group), workdir)
+
+
 class Context:
     def __init__(self, rank, world, mesh, inputs, workdir):
         self.rank, self.world, self.mesh = rank, world, mesh
         self.inputs, self.workdir = inputs, workdir
 
 
-def main(rank, world, init_method, workdir):
+def main(rank, world, init_method, workdir, group="main"):
     workdir = Path(workdir)
     torch.set_num_threads(1)
     _device.DEFAULT = "cpu"
@@ -308,7 +516,7 @@ def main(rank, world, init_method, workdir):
             inputs = {k: f[k] for k in f.files}
         ctx = Context(rank, world, make_mesh(), inputs, workdir)
         results, seconds = {}, {}
-        for name, case in CASES.items():
+        for name, case in GROUPS[group].items():
             t0 = time.perf_counter()
             try:
                 results[name] = case(ctx)
@@ -324,4 +532,5 @@ def main(rank, world, init_method, workdir):
 
 if __name__ == "__main__":
     os.environ.setdefault("OMP_NUM_THREADS", "1")
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         *sys.argv[5:6])
