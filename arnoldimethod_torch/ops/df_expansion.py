@@ -83,10 +83,21 @@ def _global_n(Vh, comm):
     return Vh.shape[1] if comm is None else comm.n
 
 
-def _summed(parts, comm, acc=None):
-    """The (hi, lo) pairs `parts` summed over the ranks (acc <- acc + sum
-    with acc), or the pairs themselves unsharded."""
-    return parts if comm is None else comm.df_sum(parts, acc)
+def _summed(s, comm):
+    """A 0-dim pair summed over the ranks, or itself unsharded."""
+    if comm is None:
+        return s
+    sh, sl = comm.df_sum([s])
+    return sh[0], sl[0]
+
+
+def _summed_with(s, h, comm):
+    """A 0-dim pair s and a vector pair h summed over the ranks in one
+    df_sum, or themselves unsharded."""
+    if comm is None:
+        return s, h
+    sh, sl = comm.df_sum([s, h])
+    return (sh[0], sl[0]), (sh[1:], sl[1:])
 
 
 def _sumsq(wh, wl):
@@ -101,8 +112,7 @@ def _project(Vh, Vl, wh, wl, rows, acc=None, comm=None):
     ranks; with acc, acc <- acc + h as well."""
     if comm is None:
         return df.df_project(Vh, Vl, wh, wl, rows, acc)
-    (h,) = comm.df_sum([df.df_project(Vh, Vl, wh, wl, rows)], acc)
-    return h
+    return comm.df_sum([df.df_project(Vh, Vl, wh, wl, rows)], acc)
 
 
 def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False, comm=None):
@@ -114,8 +124,7 @@ def _masked_project(Vh, Vl, wh, wl, rows, acc=None, norm=False, comm=None):
     out = df.df_axpy(wh, wl, ch, cl, Vh, Vl, rows, norm)
     if not norm:
         return (ch, cl), out
-    w, (s,) = out[0], _summed([out[1]], comm)
-    return (ch, cl), w, s
+    return (ch, cl), out[0], _summed(out[1], comm)
 
 
 def _random_unit(generator, Vh, Vl, rows, out, comm=None):
@@ -152,12 +161,12 @@ def _step(op, Vh, Vl, Hh, Hl, j, flags, comm=None):
     wh, wl = _matvec_df(op, Vh[j], Vl[j])
     r2 = _sumsq(wh, wl)
     h1 = df.df_project(Vh, Vl, wh, wl, rows)
-    r2, h1 = _summed([r2, h1], comm)
+    r2, h1 = _summed_with(r2, h1, comm)
     w1, s1 = df.df_axpy(wh, wl, *h1, Vh, Vl, rows, True)
     c = df.df_project(Vh, Vl, *w1, rows)
-    s1, c = _summed([s1, c], comm)
+    s1, c = _summed_with(s1, c, comm)
     w2, s2 = df.df_axpy(*w1, *c, Vh, Vl, rows, True)
-    (s2,) = _summed([s2], comm)
+    s2 = _summed(s2, comm)
     df.df_normalize(w1, s1, (Vh[rows], Vl[rows]),
                     df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags))
 
@@ -214,7 +223,7 @@ def _dgks(Vh, Vl, wh, wl, rows, comm=None):
     Returns (w, its device sum of squares, (hh, hl), the host double-word
     norm of w, ref, reads): ref the hi word of the norm before the last
     pass.  Sharded, each sum is summed over the ranks on its own."""
-    (r2,) = _summed([_sumsq(wh, wl)], comm)
+    r2 = _summed(_sumsq(wh, wl), comm)
     (hh, hl), w, s = _masked_project(Vh, Vl, wh, wl, rows, norm=True,
                                      comm=comm)
     host = _host(*r2, *s)
@@ -283,7 +292,7 @@ def df_set_initial_vector(Vh, Vl, v, comm=None):
     rank's rows when sharded); no host read."""
     vh = v.to(dtype=Vh.dtype, device=Vh.device, copy=True)
     vl = torch.zeros_like(vh)
-    (s,) = _summed([_sumsq(vh, vl)], comm)
+    s = _summed(_sumsq(vh, vl), comm)
     df.df_normalize((vh, vl), s, (Vh[0], Vl[0]))
 
 

@@ -112,9 +112,9 @@ class RowComm:
         seen as (P, 2k): each rank's k hi words, then its k lo), then one
         df_rank_sum (df32.df_sum's tree along the ranks; at one rank the
         partials themselves).  Every rank sums the same gathered bits, so
-        every rank gets the same sums.  Returns the summed pairs, shaped as
-        `parts`.  With acc, a pair of k words (k the parts' total length),
-        also acc <- acc + sum in place.  Not dist.all_reduce: its sum is
+        every rank gets the same sums.  Returns the k summed words flat,
+        (sh, sl), the parts' in order.  With acc, a pair of k words, also
+        acc <- acc + sum in place.  Not dist.all_reduce: its sum is
         single-word and its order the library's."""
         send = torch.cat([p[w].reshape(-1) for w in (0, 1) for p in parts])
         k = send.numel() // 2
@@ -122,14 +122,7 @@ class RowComm:
         dist.all_gather_into_tensor(buf, send, group=self.group)
         COLLECTIVES.add("df_sum", _bytes(buf) - _bytes(send))
         buf = buf.view(self.size, 2 * k)
-        sh, sl = df.df_rank_sum(buf[:, :k], buf[:, k:], acc)
-        out, at = [], 0
-        for h, _ in parts:
-            c = h.numel()
-            out.append((sh[at:at + c].reshape(h.shape),
-                        sl[at:at + c].reshape(h.shape)))
-            at += c
-        return out
+        return df.df_rank_sum(buf[:, :k], buf[:, k:], acc)
 
     def gather_rows(self, x):
         """The global (n, ...) tensor from every rank's (n_local, ...)

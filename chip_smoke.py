@@ -12,8 +12,6 @@
     python3 chip_smoke.py --dense-restart # the dense_restart_kernel phase only
     python3 chip_smoke.py --extended      # df_kernel and the extended solves
     python3 chip_smoke.py --sharded       # the four sharded phases only
-    python3 chip_smoke.py --sharded-extended  # df_rank_sum, sharded_ext_p1
-                                              # and sharded_ext_p2 only
     python3 chip_smoke.py --comm-costs    # the collectives' host cost only
 
 Phases, each printed as one JSON line:
@@ -218,11 +216,11 @@ Phases, each printed as one JSON line:
            ranks on one device), each `chip_smoke.py --sharded-rank`: a
            probe of every collective the comm layer makes on CUDA tensors,
            then config 2's CSR matrix split over the two ranks with DGKS in
-           the footprint mode to convergence (20/20 within main's limits),
-           DGKS in the all-gather mode, lowsync=True and method="device"
-           (the stencil behind the wrapper) for P2_SHORT restarts; both
-           ranks must report the same counts; walls labelled as two ranks
-           on one card, not a multi-GPU figure
+           both gather modes to convergence (20/20 within main's limits),
+           lowsync=True and method="device" (the stencil behind the
+           wrapper) for P2_SHORT restarts; both ranks must report the same
+           counts; walls labelled as two ranks on one card, not a
+           multi-GPU figure
            (chiprun_out/sharded_p2/rank*.log, rank*.json)
   sharded_ext_p1  extended=True with sharding= on a one-rank NCCL group,
            each beside its unsharded solve: config 3 at full size (as
@@ -3855,16 +3853,15 @@ def _probe_collectives(torch, comm):
     return out
 
 
-# sharded_p2's runs: (operator, gather mode, keywords).  DGKS in the
-# footprint mode goes to convergence; the all-gather mode, lowsync and
-# method="device" run P2_SHORT restarts: at two ranks on one card every
-# collective stages through the host and each run to convergence takes
-# 68-109 s (PERF.md, PR 14; the all-gather mode converged in PR 14's runs
-# C, D and G), which would take the script past half its time limit.
+# sharded_p2's runs: (operator, gather mode, keywords).  Both DGKS runs go
+# to convergence; lowsync and method="device" run P2_SHORT restarts: at two
+# ranks on one card every collective stages through the host and each run
+# to convergence takes 68-87 s (PERF.md, PR 14), which would take the
+# script past half its time limit.
 P2_SHORT = 5
 P2_RUNS = {
     "dgks_footprint": ("csr", "footprint", dict(method="host", restarts=400)),
-    "dgks_all": ("csr", "all", dict(method="host", restarts=P2_SHORT)),
+    "dgks_all": ("csr", "all", dict(method="host", restarts=400)),
     "lowsync_footprint": ("csr", "footprint", dict(
         method="host", lowsync=True, restarts=P2_SHORT)),
     "device": ("stencil", None, dict(method="device", restarts=P2_SHORT)),
@@ -3998,11 +3995,11 @@ def _two_ranks(phase, flag, subdir, timeout):
 def phase_sharded_p2(torch, timeout=900):
     """Config 2 on two processes that share cuda:0 through gloo (NCCL
     refuses two ranks on one device): the CSR matrix split over 2 ranks
-    with DGKS in the footprint mode to convergence, and in the all-gather
-    mode, lowsync=True and method="device" (the stencil through the
-    gathering wrapper) for P2_SHORT restarts.  Each run must meet config
-    2's limits on rank 0 (or run its restarts) and give both ranks the
-    same counts.  Returns the kernels' launches summed over the ranks."""
+    with DGKS in both gather modes to convergence, and lowsync=True and
+    method="device" (the stencil through the gathering wrapper) for
+    P2_SHORT restarts.  Each run must meet config 2's limits on rank 0 (or
+    run its restarts) and give both ranks the same counts.  Returns the
+    kernels' launches summed over the ranks."""
     results, wall = _two_ranks("sharded_p2", "--sharded-rank", "sharded_p2",
                                timeout)
     world = len(results)
@@ -4167,9 +4164,12 @@ def phase_sharded_ext_p1(torch):
             dfl = counts["df_launches"]
             launches += dfl["df_rank_sum"]
             coll = counts["collectives"]
-            # Three sums a Krylov step and the start's; one all-reduce, the
-            # single-word start's norm.
-            sums_ok = (coll["df_sum"]["calls"] >= 3 * steps
+            # Three sums a Krylov step run (those a breakdown discards too),
+            # three a breakdown's random row, and the start's one; one
+            # all-reduce, the single-word start's norm.
+            sums = 3 * (steps + counts["discarded_matvecs"]
+                        + counts["rollbacks"]) + 1
+            sums_ok = (coll["df_sum"]["calls"] == sums
                        and coll["all_reduce"]["calls"] == 1
                        and dfl["df_rank_sum"] == coll["df_sum"]["calls"])
             counts_ok = (way != "config3"
@@ -4346,11 +4346,6 @@ def main():
     if sys.argv[1:] == ["--sharded"]:
         phase_sharded_p1(torch)
         phase_sharded_p2(torch)
-        phase_sharded_ext_p1(torch)
-        phase_sharded_ext_p2(torch)
-        return
-    if sys.argv[1:] == ["--sharded-extended"]:
-        phase_rank_sum(torch, torch.Generator(device="cuda").manual_seed(0))
         phase_sharded_ext_p1(torch)
         phase_sharded_ext_p2(torch)
         return
