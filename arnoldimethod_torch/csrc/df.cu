@@ -4,11 +4,14 @@
 //
 //   df_project       c[j] = sum_i V[j, i] * w[i] for rows j < rows, zero
 //                    beyond; optionally acc[j] <- acc[j] + c[j]
-//   df_axpy          out = w - sum_{j < rows} h_j * V[j], j in order
+//   df_axpy          out = w - sum_{j < rows} h_j * V[j], j in order; in
+//                    its gathered form h is a row-sharded solve's sum over
+//                    the ranks, folded from the gathered partials
 //   df_normalize     out = w / ||w|| for the norm of a double-word sum of
 //                    squares on the card; in its step form it also makes
 //                    the DGKS step's two decisions (second pass, breakdown)
-//                    and writes the step's H column and breakdown flag
+//                    and writes the step's H column and breakdown flag; the
+//                    second pass's sum may come as gathered partials
 //   df_basis_change  out[i] = sum_j Q[j, i] * V[j], j in order, i < rows
 //   stencil5_df      the Dirichlet 5-point stencil on a double-word vector
 //   df_rank_sum      sum[i] = the double-word sum over the ranks of a
@@ -109,17 +112,23 @@
 //     its hi word's split; the coefficients' splits come from the host;
 //     every load is issued before the arithmetic.  Missing neighbours are
 //     (0, 0) and still go through the arithmetic.
-//   - df_rank_sum (ops/df.py df_rank_sum): the sharded solve's sums over
-//     the ranks.  Each rank all-gathers every rank's partial pairs
-//     (parallel/comm.py), then runs this on the same bits, so every rank
-//     gets the same sums and df_normalize's decisions agree without a
-//     broadcast.  The order is df_sum's rule along the rank axis (a local
-//     tree and then a rank tree differ from one tree over the global index
-//     in low words; they agree at one rank).  A warp a coefficient: lane l
-//     folds ranks l, l + 32, ... in registers (the top bits first), then
-//     the warp's shuffles halve the rest, as df_project's last levels do,
-//     so up to 256 ranks need no local memory.  It moves P k pairs and
-//     does P k adds; at a step's k <= maxdim + 2 it is bound by its launch.
+//   - The sums over the ranks of a sharded solve (rank_fold).  Each rank
+//     all-gathers every rank's partial pairs (parallel/comm.py), then folds
+//     the same bits, so every rank gets the same sums and df_normalize's
+//     decisions agree without a broadcast.  The order is df_sum's rule
+//     along the rank axis (a local tree and then a rank tree differ from
+//     one tree over the global index in low words; they agree at one
+//     rank).  A group of min(P', 32) lanes a coefficient: lane q folds
+//     ranks q, q + lanes, ... in registers (the top bits first), then the
+//     group's shuffles halve the rest, as df_project's last levels do, so
+//     up to 256 ranks need no local memory.  The work is P k pairs read and
+//     P k adds: at a step's k <= maxdim + 2 a launch of its own costs more
+//     than the work, so a Krylov step folds each sum in the prologue of the
+//     kernel that consumes it: df_axpy's gathered form (every block folds
+//     its rows' coefficients before it splits them; block 0 writes the
+//     whole record for df_normalize) and df_normalize's step form (every
+//     block folds s2).  df_rank_sum (ops/df.py) is the fold alone, a warp a
+//     coefficient, for the sums outside a step.
 // The C entries launch on the caller's stream, never synchronise, and
 // return cudaGetLastError() (or a refusal code) so the wrapper can raise.
 
@@ -788,6 +797,84 @@ int basis_change(const void* Vh, const void* Vl, const void* Qh,
   return int(cudaErrorInvalidValue);
 }
 
+// -- the sum over the ranks ------------------------------------------------
+
+constexpr int kRankFold = 8;      // the most ranks a lane folds in registers
+constexpr int64_t kMaxRanks = 32 * kRankFold;
+
+// A row-sharded solve's gathered partials of one sum (parallel/comm.py):
+// rank r's pair of coefficient i at (hi, lo)[r ld + i], `ranks` ranks
+// (0: no such record), folded by `lanes` lanes, `fold` ranks a lane
+// (rank_plan).
+template <typename T>
+struct Gathered {
+  const T* hi;
+  const T* lo;
+  int64_t ld;
+  int ranks, lanes, fold;
+};
+
+// rank_fold's shape for P ranks in blocks of `threads`: P' = P padded to a
+// power of two, lanes = min(P', 32, threads) a coefficient, fold = P' /
+// lanes ranks a lane.  False where P is out of range or a lane would fold
+// more than kRankFold (only in blocks of fewer than 32 threads).
+bool rank_plan(int64_t P, int64_t threads, int& lanes, int& fold) {
+  if (P < 1 || P > kMaxRanks || threads < 1) return false;
+  int64_t width = 1;
+  while (width < P) width *= 2;
+  int64_t w = width < 32 ? width : 32;
+  if (w > threads) w = threads;
+  lanes = int(w);
+  fold = int(width / w);
+  return fold <= kRankFold;
+}
+
+// The sum of a lane's ranks t lanes + q, t < fold, by df32.df_sum's tree
+// over t (pairs t, t + fold/2, repeatedly), as the depth-first recursion
+// S(b, s) = S(b, 2s) + S(b + s, 2s) down to the leaves s = fold, slot b:
+// the same combines as halving the fold values level by level, with at most
+// log2(kRankFold) + 1 pairs live.  `fold` is a power of two at most
+// kRankFold; every index is a compile-time constant.
+template <int B, int S, typename T>
+__device__ __forceinline__ void fold_slots(const Gathered<T>& g, int64_t at,
+                                           int64_t stride, int q, bool active,
+                                           T& h, T& l) {
+  if (S >= kRankFold || S >= g.fold) {
+    const bool ok = active && B * g.lanes + q < g.ranks;
+    h = ok ? __ldg(g.hi + at + B * stride) : T(0);
+    l = ok ? __ldg(g.lo + at + B * stride) : T(0);
+  } else if constexpr (S < kRankFold) {
+    T bh, bl;
+    fold_slots<B, 2 * S>(g, at, stride, q, active, h, l);
+    fold_slots<B + S, 2 * S>(g, at, stride, q, active, bh, bl);
+    df_add(h, l, bh, bl, h, l);
+  }
+}
+
+// Coefficient i summed over the ranks' partials by df32.df_sum's tree
+// along the rank axis: P padded with (0, 0) pairs to P' = 2^p, rank r
+// paired with r + P'/2, repeatedly.  A group of g.lanes consecutive lanes
+// of a warp takes a coefficient: lane q of the group sums its ranks
+// t lanes + q, t < fold, in registers (the top bits, t, first:
+// fold_slots); then the group halves its lanes by shuffles, the lower lane
+// the left operand.  Which lanes split the tree changes no combine, so
+// every (lanes, fold) gives the same bits.  Every lane of the warp calls it
+// (the shuffles); a lane whose group has no coefficient passes active =
+// false (zeros).  The sum is in the group's first lane.
+template <typename T>
+__device__ __forceinline__ void rank_fold(const Gathered<T>& g, int64_t i,
+                                          bool active, T& vh, T& vl) {
+  const int q = int(threadIdx.x) % g.lanes;
+  fold_slots<0, 1>(g, int64_t(q) * g.ld + i, int64_t(g.lanes) * g.ld, q,
+                   active, vh, vl);
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  for (int half = g.lanes / 2; half >= 1; half /= 2) {
+    const T uh = __shfl_down_sync(mask, vh, half);
+    const T ul = __shfl_down_sync(mask, vl, half);
+    df_add(vh, vl, uh, ul, vh, vl);  // valid in lanes q < half
+  }
+}
+
 // -- df_axpy ---------------------------------------------------------------
 
 constexpr int kAxpyThreads = 256;   // the most threads a block
@@ -813,14 +900,22 @@ __device__ __forceinline__ void axpy_step(const SplitWord<T>& q, T vh, T vl,
 // elements into registers, all loads first, and sums them in order.  With
 // NORM the block then halves the squares of its results as df_project's
 // one row does (finish_row), the sum into sum[0], sum[1].
-template <typename T, int L, int U, bool NORM>
+// GATHER, the gathered form: h_j is coefficient h_off + j of a gathered
+// record of k coefficients; every block folds its rows' sums over the
+// ranks (rank_fold) before it splits them, the same bits in every block,
+// so no block waits on another; block 0 folds the whole record and writes
+// it to (fold_h, fold_l) when they are given.  A template parameter, so
+// that the other form's code (and its registers) is the fused form's.
+template <typename T, int L, int U, bool NORM, bool GATHER>
 __global__ void __launch_bounds__(kAxpyThreads)
 axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
             const T* __restrict__ hh, const T* __restrict__ hl,
             const T* __restrict__ Vh, const T* __restrict__ Vl, int64_t n,
-            int rows, int C, int stage, T* __restrict__ part_h,
-            T* __restrict__ part_l, unsigned* __restrict__ arrivals,
-            T* __restrict__ outh, T* __restrict__ outl, T* __restrict__ sum) {
+            int rows, int C, int stage, Gathered<T> g, int k, int h_off,
+            T* __restrict__ fold_h, T* __restrict__ fold_l,
+            T* __restrict__ part_h, T* __restrict__ part_l,
+            unsigned* __restrict__ arrivals, T* __restrict__ outh,
+            T* __restrict__ outl, T* __restrict__ sum) {
   constexpr int K = 1 << L;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -829,6 +924,27 @@ axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
   const int64_t step = int64_t(nt) * G;
   SplitWord<T>* rec = reinterpret_cast<SplitWord<T>*>(smem_raw);
 
+  // The gathered form folds first, before w's words are live: the fold's
+  // registers and the main loop's then never overlap (no local memory),
+  // and the loads of w still overlap the first rows of V.
+  if constexpr (GATHER) {
+    // nt / lanes coefficients a pass, one a group of lanes; the bounds are
+    // the block's, so every warp runs every pass (the shuffles).
+    const bool whole = blockIdx.x == 0 && fold_h != nullptr;
+    const int first = whole ? 0 : h_off, last = whole ? k : h_off + rows;
+    for (int c0 = first; c0 < last; c0 += nt / g.lanes) {
+      const int c = c0 + tid / g.lanes;
+      T vh, vl;
+      rank_fold(g, c, c < last, vh, vl);
+      if (tid % g.lanes == 0 && c < last) {
+        if (c >= h_off && c < h_off + rows) rec[c - h_off] = split_word(vh, vl);
+        if (whole) {
+          fold_h[c] = vh;
+          fold_l[c] = vl;
+        }
+      }
+    }
+  }
   T ah[K], al[K];
 #pragma unroll
   for (int h = 0; h < K; ++h) {
@@ -836,8 +952,10 @@ axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
     ah[h] = i < n ? __ldg(wh + i) : T(0);
     al[h] = i < n ? __ldg(wl + i) : T(0);
   }
-  for (int t = tid; t < rows; t += nt)
-    rec[t] = split_word(__ldg(hh + t), __ldg(hl + t));
+  if constexpr (!GATHER) {
+    for (int t = tid; t < rows; t += nt)
+      rec[t] = split_word(__ldg(hh + t), __ldg(hl + t));
+  }
   __syncthreads();
 
   for (int j0 = 0; j0 < rows; j0 += U) {
@@ -903,22 +1021,24 @@ axpy_kernel(const T* __restrict__ wh, const T* __restrict__ wl,
   }
 }
 
-// The (L, U) instantiated: 4 to 16 elements of each word a group, U K.
+// The (L, U) instantiated: 4 to 16 elements of each word a group, U K;
+// each plain or fused, in its own form or gathered.
 #define DF_AXPY_SHAPES(X)                                                      \
   X(0, 4) X(0, 8) X(0, 16) X(1, 2) X(1, 4) X(1, 8) X(2, 1) X(2, 2) X(2, 4)     \
   X(3, 1) X(3, 2)
 
-template <typename T, bool NORM>
+template <typename T, bool NORM, bool GATHER>
 int axpy_launch(int64_t L, int64_t U, unsigned G, unsigned threads,
                 size_t smem, cudaStream_t s, const T* wh, const T* wl,
                 const T* hh, const T* hl, const T* Vh, const T* Vl, int64_t n,
-                int rows, int C, int stage, T* ph, T* pl, unsigned* arrivals,
+                int rows, int C, int stage, Gathered<T> g, int k, int h_off,
+                T* fold_h, T* fold_l, T* ph, T* pl, unsigned* arrivals,
                 T* outh, T* outl, T* sum) {
 #define DF_AXPY_CASE(LL, UU)                                                   \
   if (L == LL && U == UU) {                                                    \
-    axpy_kernel<T, LL, UU, NORM><<<G, threads, smem, s>>>(                     \
-        wh, wl, hh, hl, Vh, Vl, n, rows, C, stage, ph, pl, arrivals, outh,     \
-        outl, sum);                                                            \
+    axpy_kernel<T, LL, UU, NORM, GATHER><<<G, threads, smem, s>>>(             \
+        wh, wl, hh, hl, Vh, Vl, n, rows, C, stage, g, k, h_off, fold_h,        \
+        fold_l, ph, pl, arrivals, outh, outl, sum);                            \
     return int(cudaGetLastError());                                            \
   }
   DF_AXPY_SHAPES(DF_AXPY_CASE)
@@ -928,13 +1048,18 @@ int axpy_launch(int64_t L, int64_t U, unsigned G, unsigned threads,
 
 // sum == nullptr: the plain form; else the fused norm, whose scratch
 // (part: 2 G C words, arrivals: one counter, zero) is df_project's.
+// ranks == 0: h is (hh, hl)[j]; else the gathered form: (hh, hl) rank 0's
+// hi and lo words of a gathered record of k coefficients, rank r's at
+// r ld further, h_j its coefficient h_off + j; the record folded into
+// (fold_h, fold_l), k words each, where they are given.
 template <typename T>
 int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
          const void* Vh, const void* Vl, int64_t n, int64_t rows,
          int64_t threads, int64_t C, int64_t G, int64_t L, int64_t U,
-         int64_t stage, void* part, int64_t part_words, void* arrivals,
-         int64_t arrival_slots, void* outh, void* outl, void* sum,
-         void* stream) {
+         int64_t stage, int64_t ld, int64_t ranks, int64_t k, int64_t h_off,
+         void* fold_h, void* fold_l, void* part, int64_t part_words,
+         void* arrivals, int64_t arrival_slots, void* outh, void* outl,
+         void* sum, void* stream) {
   auto pow2 = [](int64_t x) { return x >= 1 && (x & (x - 1)) == 0; };
   int64_t N = 1;
   while (N < n) N *= 2;
@@ -949,20 +1074,33 @@ int axpy(const void* wh, const void* wl, const void* hh, const void* hl,
       || (norm && (!pow2(stage) || stage > G * C || part_words < 2 * G * C
                    || arrival_slots < 1)))
     return int(cudaErrorInvalidValue);
+  Gathered<T> g{static_cast<const T*>(hh), static_cast<const T*>(hl), ld,
+                int(ranks), 1, 1};
+  if (ranks != 0
+      && (!rank_plan(ranks, threads, g.lanes, g.fold) || ld < 1 || k < 1
+          || k > INT32_MAX || h_off < 0 || h_off + rows > k
+          || (fold_h == nullptr) != (fold_l == nullptr)))
+    return int(cudaErrorInvalidValue);
   if (G > INT32_MAX) return int(cudaErrorInvalidConfiguration);
   T* ph = static_cast<T*>(part);
   T* pl = norm ? ph + G * C : nullptr;
-  auto go = [&](auto norm_tag) {
-    return axpy_launch<T, decltype(norm_tag)::value>(
+  auto go = [&](auto norm_tag, auto gather_tag) {
+    return axpy_launch<T, decltype(norm_tag)::value,
+                       decltype(gather_tag)::value>(
         L, U, unsigned(G), unsigned(threads), size_t(smem),
         static_cast<cudaStream_t>(stream), static_cast<const T*>(wh),
         static_cast<const T*>(wl), static_cast<const T*>(hh),
         static_cast<const T*>(hl), static_cast<const T*>(Vh),
-        static_cast<const T*>(Vl), n, int(rows), int(C), int(stage), ph, pl,
-        static_cast<unsigned*>(arrivals), static_cast<T*>(outh),
+        static_cast<const T*>(Vl), n, int(rows), int(C), int(stage), g,
+        int(k), int(h_off), static_cast<T*>(fold_h), static_cast<T*>(fold_l),
+        ph, pl, static_cast<unsigned*>(arrivals), static_cast<T*>(outh),
         static_cast<T*>(outl), static_cast<T*>(sum));
   };
-  return norm ? go(std::true_type{}) : go(std::false_type{});
+  if (ranks != 0)
+    return norm ? go(std::true_type{}, std::true_type{})
+                : go(std::false_type{}, std::true_type{});
+  return norm ? go(std::true_type{}, std::false_type{})
+              : go(std::false_type{}, std::false_type{});
 }
 
 // -- df_normalize ----------------------------------------------------------
@@ -1024,11 +1162,27 @@ __device__ __forceinline__ Decision<T> decide(const NormalizeArgs<T>& a) {
 // otherwise) one a step: out = w * (ih, il) (df32.df_mul), or w itself on
 // a breakdown.  Block 0 also writes the H column (df_add(h1, c) after a
 // second pass, df_project's acc order; the norm at row j + 1) and the
-// flag (1 for a breakdown).
+// flag (1 for a breakdown).  With s2.ranks > 0, s2 is a gathered record
+// of one coefficient: every block's first warp folds it over the ranks
+// (rank_fold) before the decision, the same bits in every block.
 template <typename T>
 __global__ void __launch_bounds__(256)
-normalize_kernel(NormalizeArgs<T> a, bool vec) {
+normalize_kernel(NormalizeArgs<T> a, Gathered<T> s2, bool vec) {
   constexpr int E = 16 / sizeof(T);
+  __shared__ T folded[2];
+  if (s2.ranks > 0) {
+    if (threadIdx.x < 32) {
+      T vh, vl;
+      rank_fold(s2, 0, true, vh, vl);
+      if (threadIdx.x == 0) {
+        folded[0] = vh;
+        folded[1] = vl;
+      }
+    }
+    __syncthreads();
+    a.s2h = folded;
+    a.s2l = folded + 1;
+  }
   const Decision<T> d = decide(a);
   if (blockIdx.x == 0 && a.Hh != nullptr) {
     for (int64_t i = threadIdx.x; i < a.m1; i += blockDim.x) {
@@ -1071,13 +1225,20 @@ normalize_kernel(NormalizeArgs<T> a, bool vec) {
   }
 }
 
+// s2_ranks == 0: s2 is a pair of words; else (s2h, s2l) are rank 0's hi
+// and lo words of a gathered record of one coefficient, rank r's at
+// r s2_ld further (the step form only).
 template <typename T>
-int normalize(NormalizeArgs<T> a, void* stream) {
+int normalize(NormalizeArgs<T> a, int64_t s2_ld, int64_t s2_ranks,
+              void* stream) {
   const bool step = a.r2h != nullptr;
+  Gathered<T> s2{a.s2h, a.s2l, s2_ld, int(s2_ranks), 1, 1};
   if (a.n < 1 || a.w1h == nullptr || a.s1h == nullptr || a.outh == nullptr
       || (step && (a.w2h == nullptr || a.s2h == nullptr || a.h1h == nullptr
                    || a.ch == nullptr || a.Hh == nullptr || a.flag == nullptr
-                   || a.m1 < 1 || a.ld < 1 || a.row < 1 || a.row >= a.m1)))
+                   || a.m1 < 1 || a.ld < 1 || a.row < 1 || a.row >= a.m1))
+      || (s2_ranks != 0 && (!step || s2_ld < 1
+                            || !rank_plan(s2_ranks, 32, s2.lanes, s2.fold))))
     return int(cudaErrorInvalidValue);
   if (!step) a.Hh = nullptr;
   constexpr int E = 16 / sizeof(T);
@@ -1089,68 +1250,42 @@ int normalize(NormalizeArgs<T> a, void* stream) {
   const int64_t blocks = ((vec ? (a.n + E - 1) / E : a.n) + 255) / 256;
   const unsigned grid = unsigned(blocks < 132 * 16 ? blocks : 132 * 16);
   normalize_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, vec);
+      a, s2, vec);
   return int(cudaGetLastError());
 }
 
 // -- df_rank_sum -----------------------------------------------------------
 
 constexpr int kRankSumWarps = 4;  // a block: 4 warps, a coefficient each
-constexpr int kRankFold = 8;      // the most ranks a lane folds in registers
-constexpr int64_t kMaxRanks = 32 * kRankFold;
 
-// Coefficient i < k summed over the P ranks' partials, rank r's pair at
-// (hi, lo)[r ld + i], by df32.df_sum's tree along the rank axis: P padded
-// with (0, 0) pairs to P' = 2^p, rank r paired with r + P'/2, repeatedly.
-// A warp takes a coefficient.  Lane l holds ranks t 32 + l for t < fold =
-// max(1, P'/32) and halves them in registers (the top bits, t, first);
-// then the warp halves its `lanes` = min(P', 32) values by shuffles, the
-// lower lane the left operand.  Lane 0 writes the sum and, with acc,
+// Coefficient i < k summed over the ranks (rank_fold, a warp a
+// coefficient: lanes = min(P', 32)).  Lane 0 writes the sum and, with acc,
 // acc <- acc + sum (df_project's order).
 template <typename T>
 __global__ void __launch_bounds__(32 * kRankSumWarps)
-rank_sum_kernel(const T* __restrict__ hi, const T* __restrict__ lo,
-                int64_t ld, int P, int lanes, int fold, int k,
-                T* __restrict__ outh, T* __restrict__ outl, T* acc_h,
-                T* acc_l) {
-  const int lane = threadIdx.x % 32;
+rank_sum_kernel(Gathered<T> g, int k, T* __restrict__ outh,
+                T* __restrict__ outl, T* acc_h, T* acc_l) {
   const int i = blockIdx.x * kRankSumWarps + threadIdx.x / 32;
   if (i >= k) return;  // the whole warp: i is the warp's
-  T h[kRankFold], l[kRankFold];
-#pragma unroll
-  for (int t = 0; t < kRankFold; ++t) {
-    const int r = t * 32 + lane;
-    const bool ok = t < fold && r < P;
-    h[t] = ok ? hi[int64_t(r) * ld + i] : T(0);
-    l[t] = ok ? lo[int64_t(r) * ld + i] : T(0);
-  }
-  halve_registers_first<kRankFold>(h, l, fold);
-  T vh = h[0], vl = l[0];
-  for (int half = lanes / 2; half >= 1; half /= 2) {
-    const T uh = __shfl_down_sync(0xffffffffu, vh, half);
-    const T ul = __shfl_down_sync(0xffffffffu, vl, half);
-    df_add(vh, vl, uh, ul, vh, vl);  // valid in lanes < half
-  }
-  if (lane == 0) project_out(i, vh, vl, outh, outl, acc_h, acc_l);
+  T vh, vl;
+  rank_fold(g, i, true, vh, vl);
+  if (threadIdx.x % 32 == 0) project_out(i, vh, vl, outh, outl, acc_h, acc_l);
 }
 
 template <typename T>
 int rank_sum(const void* hi, const void* lo, int64_t ld, int64_t P,
              int64_t k, void* outh, void* outl, void* acc_h, void* acc_l,
              void* stream) {
-  if (P < 1 || P > kMaxRanks || k < 1 || k > INT32_MAX || ld < 1
+  Gathered<T> g{static_cast<const T*>(hi), static_cast<const T*>(lo), ld,
+                int(P), 1, 1};
+  if (!rank_plan(P, 32, g.lanes, g.fold) || k < 1 || k > INT32_MAX || ld < 1
       || hi == nullptr || lo == nullptr || outh == nullptr || outl == nullptr
       || (acc_h == nullptr) != (acc_l == nullptr))
     return int(cudaErrorInvalidValue);
-  int64_t width = 1;
-  while (width < P) width *= 2;
-  const int lanes = int(width < 32 ? width : 32);
-  const int fold = int(width / lanes);
   const unsigned blocks = unsigned((k + kRankSumWarps - 1) / kRankSumWarps);
   rank_sum_kernel<T><<<blocks, 32 * kRankSumWarps, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(hi), static_cast<const T*>(lo), ld, int(P), lanes,
-      fold, int(k), static_cast<T*>(outh), static_cast<T*>(outl),
+      g, int(k), static_cast<T*>(outh), static_cast<T*>(outl),
       static_cast<T*>(acc_h), static_cast<T*>(acc_l));
   return int(cudaGetLastError());
 }
@@ -1308,12 +1443,14 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
       const void* wh, const void* wl, const void* hh, const void* hl,          \
       const void* Vh, const void* Vl, int64_t n, int64_t rows,                 \
       int64_t threads, int64_t C, int64_t G, int64_t L, int64_t U,             \
-      int64_t stage, void* part, int64_t part_words, void* arrivals,           \
-      int64_t arrival_slots, void* outh, void* outl, void* sum,                \
-      void* stream) {                                                          \
+      int64_t stage, int64_t ld, int64_t ranks, int64_t k, int64_t h_off,      \
+      void* fold_h, void* fold_l, void* part, int64_t part_words,              \
+      void* arrivals, int64_t arrival_slots, void* outh, void* outl,           \
+      void* sum, void* stream) {                                               \
     return axpy<T>(wh, wl, hh, hl, Vh, Vl, n, rows, threads, C, G, L, U,       \
-                   stage, part, part_words, arrivals, arrival_slots, outh,     \
-                   outl, sum, stream);                                         \
+                   stage, ld, ranks, k, h_off, fold_h, fold_l, part,           \
+                   part_words, arrivals, arrival_slots, outh, outl, sum,       \
+                   stream);                                                    \
   }                                                                            \
   extern "C" int df_normalize##SUFFIX(                                         \
       const void* w1h, const void* w1l, const void* s1h, const void* s1l,      \
@@ -1321,7 +1458,7 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
       const void* r2h, const void* r2l, int64_t n, const void* h1h,            \
       const void* h1l, const void* ch, const void* cl, int64_t m1, void* Hh,   \
       void* Hl, int64_t ld, int64_t row, void* flag, void* outh, void* outl,   \
-      void* stream) {                                                          \
+      int64_t s2_ld, int64_t s2_ranks, void* stream) {                         \
     using P = const T*;                                                        \
     return normalize<T>(                                                       \
         NormalizeArgs<T>{P(w1h), P(w1l), P(s1h), P(s1l), P(w2h), P(w2l),       \
@@ -1330,7 +1467,7 @@ int stencil(const void* xh, const void* xl, void* yh, void* yl, int64_t ny,
                          static_cast<T*>(Hl), static_cast<T*>(flag),           \
                          static_cast<T*>(outh), static_cast<T*>(outl), n, m1,  \
                          ld, row},                                             \
-        stream);                                                               \
+        s2_ld, s2_ranks, stream);                                              \
   }                                                                            \
   extern "C" int df_basis_change##SUFFIX(                                      \
       const void* Vh, const void* Vl, const void* Qh, const void* Ql,          \

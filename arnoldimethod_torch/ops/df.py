@@ -14,8 +14,14 @@
     stencil5_df      the Dirichlet 5-point stencil (center, west, east,
                      north, south) applied to a double-word vector
     df_rank_sum      the double-word sum over the ranks of a row-sharded
-                     solve of their gathered partials, by df32.df_sum's
-                     tree along the rank axis; optionally acc <- acc + sum
+                     solve of their gathered partials (a `Gathered`
+                     record), by df32.df_sum's tree along the rank axis;
+                     optionally acc <- acc + sum
+
+A row-sharded Krylov step folds its sums over the ranks inside the kernels
+that consume them: `df_axpy_gathered` takes its coefficients as a gathered
+record and also writes the record's sums; df_normalize's step form takes
+s2 as one.  df_rank_sum is the fold alone, for the sums outside a step.
 
 Every operand is a double-word pair of float32 or float64 words; every
 product and sum is the one `ops/df32.py` makes, in its order, so each
@@ -34,7 +40,8 @@ Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel, built with nvcc at first use, or raises.  Nothing
 falls back from the kernel to the plain version.  `KERNEL.launches` counts
 the launches of each kernel (`project_forms` and `axpy_forms` split
-df_project's and df_axpy's by form).
+df_project's and df_axpy's by form; `gathered` counts df_axpy's and
+df_normalize's launches in their gathered forms).
 """
 
 from __future__ import annotations
@@ -56,12 +63,15 @@ __all__ = [
     "AxpyPlan",
     "BasisPlan",
     "DgksStep",
+    "Gathered",
     "ProjectPlan",
     "StencilPlan",
     "axpy_plan",
     "basis_plan",
     "coefficient_words",
     "df_axpy",
+    "df_axpy_gathered",
+    "df_axpy_gathered_plain",
     "df_axpy_plain",
     "df_basis_change",
     "df_basis_change_plain",
@@ -125,8 +135,44 @@ _AXPY_SUM_PAIRS = 2048
 # plan keeps where it can: two on each of an H100's 132 SMs.
 _STENCIL_WARPS = 4
 _STENCIL_MIN_BLOCKS = 2 * 132
-# df_rank_sum (csrc/df.cu kMaxRanks): 32 lanes folding 8 ranks each.
+# The sums over the ranks (csrc/df.cu kMaxRanks, kRankFold): 32 lanes
+# folding 8 ranks each.
 _RANK_SUM_MAX_RANKS = 256
+_RANK_FOLD = 8
+
+
+class Gathered(NamedTuple):
+    """Every rank's partial sums of a row-sharded solve, gathered
+    (parallel.comm.RowComm.gather_partials): `buf` (P, 2k), rank r's k hi
+    words then its k lo words; `offsets` the first column of each part (a
+    scalar sum, then a vector of coefficients).  Their sums over the ranks
+    are df_rank_sum(hi, lo), or folded by the kernel that consumes them."""
+
+    buf: torch.Tensor
+    k: int
+    offsets: tuple
+
+    @property
+    def hi(self):
+        return self.buf[:, :self.k]
+
+    @property
+    def lo(self):
+        return self.buf[:, self.k:]
+
+
+def _check_ranks(P, threads=32):
+    """Raise ValueError unless csrc/df.cu's rank_fold takes P ranks in
+    blocks of `threads` (its rank_plan): P padded to a power of two P',
+    min(P', 32, threads) lanes a coefficient, at most 8 ranks a lane (P <=
+    256; fewer in blocks of fewer than 32 threads)."""
+    width = 1 << max(0, P - 1).bit_length()
+    if not 1 <= P <= _RANK_SUM_MAX_RANKS or width // min(width, 32,
+                                                         threads) > _RANK_FOLD:
+        raise ValueError(
+            f"a sum over {P} ranks in blocks of {threads} threads: the fold "
+            f"takes 1 to {_RANK_SUM_MAX_RANKS} ranks, at most {_RANK_FOLD} "
+            f"a lane")
 
 
 class ProjectPlan(NamedTuple):
@@ -296,6 +342,14 @@ def df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm=False):
     return out, (ch[0], cl[0])
 
 
+def df_axpy_gathered_plain(wh, wl, g, Vh, Vl, rows, norm=False):
+    """The plain version of df_axpy_gathered: df_rank_sum_plain of the
+    record, then df_axpy_plain with its last part as h."""
+    sh, sl = df_rank_sum_plain(g.hi, g.lo)
+    h = g.offsets[-1]
+    return df_axpy_plain(wh, wl, sh[h:], sl[h:], Vh, Vl, rows, norm), (sh, sl)
+
+
 def _scalar(v, like):
     """A 0-dim tensor of `like`'s dtype on the CPU (a host scalar)."""
     return torch.as_tensor(v, dtype=like.dtype, device="cpu")
@@ -304,11 +358,13 @@ def _scalar(v, like):
 class DgksStep(NamedTuple):
     """What df_normalize's step form takes beside w1 and its sum: the rest
     of a DGKS step j (ops/df_expansion.py) and where its results go.
-    Every pair is (hi, lo); every sum a pair of 0-dim tensors."""
+    Every pair is (hi, lo); every sum a pair of 0-dim tensors, s2 also a
+    `Gathered` record of one part (a sharded step's partials, summed over
+    the ranks inside the launch)."""
 
     r2: tuple     # the matvec's sum of squares
     w2: tuple     # the second Gram-Schmidt pass's result (n)
-    s2: tuple     # its sum of squares
+    s2: tuple     # its sum of squares, or its gathered partials
     h1: tuple     # the first pass's coefficients (m1)
     c: tuple      # the second pass's coefficients (m1)
     H: tuple      # the Hessenberg pair (m1, m): column j is written
@@ -324,7 +380,11 @@ def _eta_times(x):
 
 def df_normalize_plain(w, s, out, step=None):
     """The plain version of df_normalize: df32's ops on 0-dim tensors and
-    torch.where in place of the host's branches."""
+    torch.where in place of the host's branches; a gathered s2 first
+    summed by df_rank_sum_plain."""
+    if step is not None and isinstance(step.s2, Gathered):
+        sh, sl = df_rank_sum_plain(step.s2.hi, step.s2.lo)
+        step = step._replace(s2=(sh[0], sl[0]))
     nh, nl = df32.df_sqrt(*s)
     wh, wl = w
     if step is not None:
@@ -426,13 +486,16 @@ def _check(*tensors):
 class _DfKernel:
     """The built CUDA library of csrc/df.cu and the launch count of each of
     its kernels (`launches[name]`, one a launch); `project_forms` splits
-    df_project's launches by their plan's form (ProjectPlan.form) and
-    `axpy_forms` df_axpy's into the plain form and the fused norm."""
+    df_project's launches by their plan's form (ProjectPlan.form),
+    `axpy_forms` df_axpy's into the plain form and the fused norm, and
+    `gathered` counts df_axpy's and df_normalize's launches that fold a
+    gathered record (in `launches` too)."""
 
     def __init__(self):
         self.launches = dict.fromkeys(_NAMES, 0)
         self.project_forms = {"one_row": 0, "full": 0}
         self.axpy_forms = {"plain": 0, "norm": 0}
+        self.gathered = {"df_axpy": 0, "df_normalize": 0}
         self.build_log = ""
         self._lib = None
         self._scratch = {}
@@ -449,10 +512,10 @@ class _DfKernel:
             sigs = {
                 "df_project": [p, p, i, p, p, i, i, i, i, i, i, i, i, p, i, p,
                                i, p, p, p, p, p],
-                "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i,
-                            p, i, p, p, p, p],
+                "df_axpy": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                            i, i, p, p, p, i, p, i, p, p, p, p],
                 "df_normalize": [p] * 10 + [i, p, p, p, p, i, p, p, i, i, p,
-                                            p, p, p],
+                                            p, p, i, i, p],
                 "df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
                 "stencil5_df": [p, p, p, p, i, i, i, p, p],
                 "df_rank_sum": [p, p, i, i, i, p, p, p, p],
@@ -552,24 +615,54 @@ class _DfKernel:
                 or Vh.shape[1] != n or Vl.shape != Vh.shape
                 or wl.shape != wh.shape or hl.shape != hh.shape):
             raise ValueError("df_axpy: rows or shapes out of range")
-        item = wh.element_size()
-        # More rows than a launch stages go through launches in turn, each
-        # continuing the last one's result: the same chain, j in order.
-        r0 = 0
-        while rows - r0 > _AXPY_MAX_ROWS:
-            wh, wl = self._axpy_launch(
-                axpy_plan(n, _AXPY_MAX_ROWS, item), wh, wl, hh[r0:], hl[r0:],
-                Vh[r0:], Vl[r0:], _AXPY_MAX_ROWS)
-            r0 += _AXPY_MAX_ROWS
-        return self._axpy_launch(axpy_plan(n, rows - r0, item, norm), wh, wl,
-                                 hh[r0:], hl[r0:], Vh[r0:], Vl[r0:],
-                                 rows - r0, norm)
+        return self._axpy_chain(wh, wl, hh, hl, Vh, Vl, rows, norm)
 
-    def _axpy_launch(self, plan, wh, wl, hh, hl, Vh, Vl, rows, norm=False):
+    def axpy_gathered(self, wh, wl, g, Vh, Vl, rows, norm=False):
+        _check(wh, wl, Vh, Vl, g.buf)
+        n = wh.shape[0]
+        P, k, h = g.buf.shape[0], g.k, g.offsets[-1]
+        if (not 0 <= rows <= Vh.shape[0] or Vh.dim() != 2 or Vh.shape[1] != n
+                or Vl.shape != Vh.shape or wl.shape != wh.shape
+                or g.buf.shape != (P, 2 * k) or not 0 <= h <= k - rows):
+            raise ValueError("df_axpy: rows or shapes out of range")
+        folded = torch.empty(2, k, dtype=wh.dtype, device=wh.device)
+        out = self._axpy_chain(wh, wl, g.hi, g.lo, Vh, Vl, rows, norm,
+                               (g, h, folded))
+        return out, (folded[0], folded[1])
+
+    def _axpy_chain(self, wh, wl, hh, hl, Vh, Vl, rows, norm, gathered=None):
+        """df_axpy's launches over `rows` rows: more rows than a launch
+        stages go through launches in turn, each continuing the last one's
+        result (the same chain, j in order), each from its slice of h (its
+        coefficients of a gathered record); the first writes the folded
+        record."""
+        n, item = wh.shape[0], wh.element_size()
+        r0 = 0
+        while True:
+            last = rows - r0 <= _AXPY_MAX_ROWS
+            count = rows - r0 if last else _AXPY_MAX_ROWS
+            plan = axpy_plan(n, count, item, norm and last)
+            if gathered is None:
+                h, fold = (hh[r0:], hl[r0:]), None
+            else:
+                g, h0, folded = gathered
+                h, fold = (hh, hl), (g, h0 + r0, folded if r0 == 0 else None)
+            out = self._axpy_launch(plan, wh, wl, *h, Vh[r0:], Vl[r0:], count,
+                                    norm and last, fold)
+            if last:
+                return out
+            wh, wl = out
+            r0 += count
+
+    def _axpy_launch(self, plan, wh, wl, hh, hl, Vh, Vl, rows, norm=False,
+                     gathered=None):
         """df_axpy's launch over at most _AXPY_MAX_ROWS rows under `plan`
         (axpy_plan's, or another when measuring plans); the operands are
-        checked by `axpy`.  With norm, the sum is a pair of 0-dim tensors
-        on the card; its scratch is df_project's."""
+        checked by `axpy` or `axpy_gathered`.  With norm, the sum is a pair
+        of 0-dim tensors on the card; its scratch is df_project's.
+        `gathered`, (g, h_off, folded or None): h_j is coefficient h_off + j
+        of the gathered record g (hh, hl its hi and lo views), folded in the
+        launch; the whole record's sums into the (2, k) `folded`."""
         n = wh.shape[0]
         outh, outl = torch.empty_like(wh), torch.empty_like(wl)
         if norm:
@@ -579,18 +672,30 @@ class _DfKernel:
                        arrivals.numel(), s.data_ptr())
         else:
             scratch = (None, 0, None, 0, None)
+        if gathered is None:
+            fold = (0, 0, 0, 0, None, None)
+        else:
+            g, h_off, folded = gathered
+            _check_ranks(g.buf.shape[0], plan.T)
+            fold = (g.buf.stride(0), g.buf.shape[0], g.k, h_off,
+                    *((None, None) if folded is None else
+                      (folded[0].data_ptr(), folded[1].data_ptr())))
         self._launch("df_axpy", "df_axpy", wh, wh.data_ptr(), wl.data_ptr(),
                      hh.data_ptr(), hl.data_ptr(), Vh.data_ptr(),
                      Vl.data_ptr(), n, rows, plan.T, plan.C, plan.G, plan.L,
-                     plan.U, plan.stage,
+                     plan.U, plan.stage, *fold,
                      *scratch[:4], outh.data_ptr(), outl.data_ptr(),
                      scratch[4])
         self.axpy_forms["norm" if norm else "plain"] += 1
+        if gathered is not None:
+            self.gathered["df_axpy"] += 1
         return ((outh, outl), (s[0], s[1])) if norm else (outh, outl)
 
     def normalize(self, w, s, out, step=None):
         self._launch("df_normalize", "df_normalize", w[0],
                      *_normalize_args(w, s, out, step))
+        if step is not None and isinstance(step.s2, Gathered):
+            self.gathered["df_normalize"] += 1
         return out
 
     def basis_change(self, Vh, Vl, Qh, Ql, rows=None, out=None):
@@ -683,10 +788,12 @@ class _DfKernel:
 def _normalize_args(w, s, out, step=None):
     """df_normalize's C arguments but the stream, after checking the
     operands: every tensor of one word dtype and device, contiguous; the
-    step's shapes and column."""
+    step's shapes and column; a gathered s2's record of one part."""
     flat = [*w, *s, *out]
+    gathered = step is not None and isinstance(step.s2, Gathered)
     if step is not None:
-        flat += [*step.r2, *step.w2, *step.s2, *step.h1, *step.c, *step.H,
+        s2 = (step.s2.buf,) if gathered else step.s2
+        flat += [*step.r2, *step.w2, *s2, *step.h1, *step.c, *step.H,
                  step.flags]
     _check(*flat)
     n = w[0].numel()
@@ -697,22 +804,32 @@ def _normalize_args(w, s, out, step=None):
     ptrs = [t.data_ptr() for t in (*w, *s)]
     if step is None:
         return [*ptrs, *(None,) * 6, n, *(None,) * 4, 0, None, None, 0, 0,
-                None, out[0].data_ptr(), out[1].data_ptr()]
+                None, out[0].data_ptr(), out[1].data_ptr(), 0, 0]
     Hh, Hl = step.H
     m1, m = Hh.shape
+    if gathered:
+        g = step.s2
+        _check_ranks(g.buf.shape[0])
+        s2, s2_ld, ranks = (g.hi, g.lo), g.buf.stride(0), g.buf.shape[0]
+        if g.k != 1 or g.buf.shape[1] != 2:
+            raise ValueError("df_normalize: a gathered s2 is one sum")
+    else:
+        s2, s2_ld, ranks = step.s2, 0, 0
+        if any(t.dim() != 0 for t in s2):
+            raise ValueError("df_normalize: s2 must be two 0-dim words")
     if (any(t.shape != (n,) for t in step.w2)
-            or any(t.dim() != 0 for t in (*step.r2, *step.s2))
+            or any(t.dim() != 0 for t in step.r2)
             or any(t.shape != (m1,) for t in (*step.h1, *step.c))
             or Hl.shape != (m1, m) or step.flags.shape != (m,)
             or not 0 <= step.j < m or step.j + 1 >= m1):
         raise ValueError(f"df_normalize: a step j={step.j} of H "
                          f"{tuple(Hh.shape)} with w of {n}")
     col = step.j * Hh.element_size()
-    return [*ptrs, *(t.data_ptr() for t in (*step.w2, *step.s2, *step.r2)),
+    return [*ptrs, *(t.data_ptr() for t in (*step.w2, *s2, *step.r2)),
             n, *(t.data_ptr() for t in (*step.h1, *step.c)), m1,
             Hh.data_ptr() + col, Hl.data_ptr() + col, m, step.j + 1,
             step.flags.data_ptr() + col, out[0].data_ptr(),
-            out[1].data_ptr()]
+            out[1].data_ptr(), s2_ld, ranks]
 
 
 @functools.lru_cache(maxsize=64)
@@ -752,6 +869,17 @@ def df_axpy(wh, wl, hh, hl, Vh, Vl, rows, norm=False):
     return df_axpy_plain(wh, wl, hh, hl, Vh, Vl, rows, norm)
 
 
+def df_axpy_gathered(wh, wl, g, Vh, Vl, rows, norm=False):
+    """df_axpy with its coefficients h the last part of the gathered record
+    `g` (a `Gathered`: a row-sharded solve's partials), summed over the
+    ranks inside the launch: (df_axpy's result, (sh, sl)), the second the
+    record's k sums over the ranks, flat, the bits of df_rank_sum(g.hi,
+    g.lo), for the kernels after it."""
+    if _on_card(wh, "df_axpy"):
+        return KERNEL.axpy_gathered(wh, wl, g, Vh, Vl, rows, norm)
+    return df_axpy_gathered_plain(wh, wl, g, Vh, Vl, rows, norm)
+
+
 def df_normalize(w, s, out, step=None):
     """out <- w / ||w|| in double word, ||w|| = df_sqrt(s) from w's sum of
     squares s (two 0-dim words on w's device), into the pair `out`.  With
@@ -760,7 +888,8 @@ def df_normalize(w, s, out, step=None):
     column j) when ||w1|| < ETA ||r||, and the step breaks down when the
     norm is at most ETA times the norm before the last pass.  Then out is
     w unscaled, H[j+1, j] the norm all the same, flags[j] = 1.  Every
-    decision is the host version's, on the card."""
+    decision is the host version's, on the card.  The step's s2 may be a
+    `Gathered` record, summed over the ranks inside the launch."""
     if _on_card(w[0], "df_normalize"):
         return KERNEL.normalize(w, s, out, step)
     return df_normalize_plain(w, s, out, step)

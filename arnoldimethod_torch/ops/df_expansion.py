@@ -35,15 +35,20 @@ operator applied through `matvec_df(xh, xl) -> (yh, yl)`.  What differs:
 
 Sharded (`comm`, a `parallel.comm.RowComm`): V holds this rank's columns
 of the basis, and every sum over n is a local partial (df_project with no
-acc, df_axpy's fused norm) summed over the ranks by `comm.df_sum` (one
-gather and one df_rank_sum, which applies acc).  A Krylov step makes three
-such sums, batched by the vector they come from: {r2, h1} of the matvec's
-w, {s1, c} of w1, {s2}.  Every rank sums the same gathered bits, so the
-decisions df_normalize makes on the card agree on every rank.  A random
-row is drawn at the global length n and each rank keeps its rows.  At one
-rank the sums are the partials themselves: the arithmetic is the
-unsharded one, bit for bit.  With comm None the launches are those
-above.  The basis change needs no collective.
+acc, df_axpy's fused norm) and one gather of every rank's partials
+(`comm.gather_partials`).  A Krylov step makes three, batched by the
+vector they come from: {r2, h1} of the matvec's w, {s1, c} of w1, {s2};
+the kernel that consumes each folds it over the ranks in its prologue
+(`df.df_axpy_gathered`, which also writes the record's sums for
+df_normalize, and df_normalize's step form), so a sharded step makes the
+unsharded step's launches.  The sums outside a step take `comm.df_sum`
+(the gather and one df_rank_sum launch, which applies acc).  Every rank
+sums the same gathered bits, so the decisions df_normalize makes on the
+card agree on every rank.  A random row is drawn at the global length n
+and each rank keeps its rows.  At one rank the sums are the partials
+themselves: the arithmetic is the unsharded one, bit for bit.  With comm
+None the launches are those above.  The basis change needs no
+collective.
 """
 
 from __future__ import annotations
@@ -89,15 +94,6 @@ def _summed(s, comm):
         return s
     sh, sl = comm.df_sum([s])
     return sh[0], sl[0]
-
-
-def _summed_with(s, h, comm):
-    """A 0-dim pair s and a vector pair h summed over the ranks in one
-    df_sum, or themselves unsharded."""
-    if comm is None:
-        return s, h
-    sh, sl = comm.df_sum([s, h])
-    return (sh[0], sl[0]), (sh[1:], sl[1:])
 
 
 def _sumsq(wh, wl):
@@ -151,22 +147,33 @@ def _matvec_df(op, xh, xl):
     return df32.df_add(yh, torch.zeros_like(yh), yl, torch.zeros_like(yl))
 
 
+def _pass(w, s, h, Vh, Vl, rows, comm):
+    """A Gram-Schmidt pass w - h V[:rows] with its norm fused, h = V w and
+    s (a sum of squares beside it) this rank's partials when sharded:
+    ((w', its sum of squares), s, h), s and h summed over the ranks by
+    the pass's own launch (df_axpy_gathered) after one gather."""
+    if comm is None:
+        return df.df_axpy(*w, *h, Vh, Vl, rows, True), s, h
+    out, (sh, sl) = df.df_axpy_gathered(*w, comm.gather_partials([s, h]), Vh,
+                                        Vl, rows, True)
+    return out, (sh[0], sl[0]), (sh[1:], sl[1:])
+
+
 def _step(op, Vh, Vl, Hh, Hl, j, flags, comm=None):
     """Krylov step j with no host read: the matvec, its sum of squares,
     both Gram-Schmidt passes (each norm fused into its df_axpy), then
     df_normalize's step form, which decides, writes V[j+1], H's column j
     and flags[j].  Seven launches with a one-launch matvec_df; sharded,
-    three sums over the ranks besides."""
+    the same seven and three gathers (each sum folded by its consumer)."""
     rows = j + 1
     wh, wl = _matvec_df(op, Vh[j], Vl[j])
     r2 = _sumsq(wh, wl)
     h1 = df.df_project(Vh, Vl, wh, wl, rows)
-    r2, h1 = _summed_with(r2, h1, comm)
-    w1, s1 = df.df_axpy(wh, wl, *h1, Vh, Vl, rows, True)
+    (w1, s1), r2, h1 = _pass((wh, wl), r2, h1, Vh, Vl, rows, comm)
     c = df.df_project(Vh, Vl, *w1, rows)
-    s1, c = _summed_with(s1, c, comm)
-    w2, s2 = df.df_axpy(*w1, *c, Vh, Vl, rows, True)
-    s2 = _summed(s2, comm)
+    (w2, s2), s1, c = _pass(w1, s1, c, Vh, Vl, rows, comm)
+    if comm is not None:
+        s2 = comm.gather_partials([s2])
     df.df_normalize(w1, s1, (Vh[rows], Vl[rows]),
                     df.DgksStep(r2, w2, s2, h1, c, (Hh, Hl), j, flags))
 

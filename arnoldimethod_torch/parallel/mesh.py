@@ -13,10 +13,10 @@ then
 
 on every rank.  `d.Q` comes back as a DTensor placed Shard(0) on the mesh.
 The collectives are parallel/comm.py's: a banded (DIA) matvec exchanges a
-halo with ranks -1 and +1, a general sparse one (ShardedCsrOperator) the
-footprint of its columns or all of x, dense and ELL rows gather x, and any
-other operator runs whole on every rank behind a wrapper that gathers x
-and keeps this rank's rows of the result (JAX returns such an operator
+halo with the ranks its band reaches, a general sparse one
+(ShardedCsrOperator) the footprint of its columns or all of x, dense and
+ELL rows gather x, and any other operator runs whole on every rank behind
+a wrapper that gathers x and keeps this rank's rows of the result (JAX returns such an operator
 unchanged and lets its closures decide).
 """
 
@@ -147,10 +147,12 @@ class _RowsOf(RowShardedOperator):
 
 
 class _ShardedDia(_RowsOf):
-    """A DiaOperator's rows of this rank; the matvec takes max(-offset)
-    entries of rank - 1 and max(offset) of rank + 1 (the halo) and runs
-    DiaOperator's shifted multiply-adds on the rank's rows, in its order;
-    matvec_df the same with one halo exchange carrying both words."""
+    """A DiaOperator's rows of this rank; the matvec takes the max(-offset)
+    entries of x before the rank's rows and the max(offset) after them
+    (the halo, from whichever ranks own them: a band may be wider than a
+    rank's rows) and runs DiaOperator's shifted multiply-adds on the rank's
+    rows, in its order; matvec_df the same with one halo exchange carrying
+    both words."""
 
     def __init__(self, op, comm):
         super().__init__(op, comm)
@@ -158,11 +160,6 @@ class _ShardedDia(_RowsOf):
         self.diags = comm.local(op.diags.T).T.contiguous()
         self.lo = max(0, -min(self.offsets))
         self.hi = max(0, max(self.offsets))
-        if max(self.lo, self.hi) > comm.n_local:
-            raise ValueError(
-                f"the band ({self.lo} below, {self.hi} above the diagonal) "
-                f"is wider than a rank's {comm.n_local} rows"
-            )
 
     def matvec(self, x):
         n, lo = self.comm.n_local, self.lo

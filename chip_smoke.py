@@ -129,8 +129,14 @@ Phases, each printed as one JSON line:
            one eager call; df_basis_change at rows 31, 46, 61 (new tensors
            and in place) and stencil5_df at 64^2; df_rank_sum (the sharded
            extended path's sum over the ranks) at 1, 2, 3, 4 and 8 ranks
-           (k = 62) and k = 1, with and without acc; and ptxas' registers,
-           stack and spills of each of the 71 instantiations (no local
+           (k = 62) and k = 1, with and without acc; the gathered forms
+           (df_axpy_gathered, df_normalize's step form with a gathered s2)
+           at 1, 2, 3 and 8 ranks in both words, bitwise against
+           df_rank_sum followed by the form they replace and against
+           their plain versions, each timed beside that pair, and the
+           fold's prologue cost at 1, 2, 8, 64 and 256 ranks
+           (gathered_prologue); and ptxas' registers,
+           stack and spills of each of the 115 instantiations (no local
            memory).  The
            operations bound counts lane-instructions (each operand split
            once) over SMs x 128 (float32) or 64 (float64) a clock at the
@@ -219,7 +225,9 @@ Phases, each printed as one JSON line:
            both gather modes to convergence (20/20 within main's limits),
            lowsync=True and method="device" (the stencil behind the
            wrapper) for P2_SHORT restarts; both ranks must report the same
-           counts; walls labelled as two ranks on one card, not a
+           counts; then a DIA band wider than a rank's rows (+-150 at
+           n = 256, float64): the unsharded solve's counts and eigenvalues
+           on both ranks; walls labelled as two ranks on one card, not a
            multi-GPU figure
            (chiprun_out/sharded_p2/rank*.log, rank*.json)
   sharded_ext_p1  extended=True with sharding= on a one-rank NCCL group,
@@ -228,17 +236,25 @@ Phases, each printed as one JSON line:
            full grid) and the README matrix in float64 words at tol=1e-28
            (as ext_dd) through the sharded DIA operator; Q, Q_lo, R, R_lo,
            matvecs, restarts and host reads bitwise the unsharded solve's,
-           config 3's 6,387 / 213 repeated; three df_sums a Krylov step
-           (a df_rank_sum launch each); collectives, bytes and df.cu
-           launches a step, both walls; the host microseconds of df_sum
-           and its parts and of the wrapper's matvec_df (comm_us); a
-           3-restart profile (chiprun_out/profile_sharded_ext.txt)
+           config 3's 6,387 / 213 repeated; three gathers a Krylov step,
+           folded by its two gathered df_axpy and one gathered
+           df_normalize launches, df_rank_sum only outside a step (all
+           exact), every other df.cu launch the unsharded solve's (7 a
+           step); collectives, bytes and df.cu launches a step, both walls;
+           the host microseconds of df_sum and its parts and of the
+           wrapper's matvec_df (comm_us); one Krylov step in its gathered
+           form and in its df_rank_sum form (a launch a sum): the same
+           bits and each one's host microseconds (step_us); a 3-restart
+           profile (chiprun_out/profile_sharded_ext.txt)
   sharded_ext_p2  two processes sharing cuda:0 through gloo, each
            `chip_smoke.py --sharded-ext-rank`: laplacian_1d(100) in float32
            words at tol=1e-12 to convergence, residual below 1e-11 and the
            same counts on the card as on the CPU at two ranks; config 3
            for P2_SHORT restarts; both ranks' counts, R and config 3's H
-           equal (chiprun_out/sharded_ext_p2/)
+           equal; one Krylov step of config 3 in its gathered form and in
+           its df_rank_sum form, the same bits on both ranks; the wide DIA
+           band in float32 words with the unsharded solve's counts
+           (chiprun_out/sharded_ext_p2/)
 
 Then the card's nvidia-smi line, the kernel summary line (each kernel's
 launches on its main path, by phase for the stencil and the restart
@@ -1945,6 +1961,181 @@ def _rank_sum_cases(torch, dtype, gen):
     return out
 
 
+# The gathered forms' ranks at config 3's shapes (df_axpy_gathered and
+# df_normalize's step form against df_rank_sum and the form they replace),
+# and the ranks at which the fold's prologue is timed.
+GATHERED_RANKS = (1, 2, 3, 8)
+PROLOGUE_RANKS = (1, 2, 8, 64, 256)
+
+
+def _gathered_record(torch, dtype, gen, P, k, total=None):
+    """A gathered record of P ranks' partials of k coefficients, laid out
+    as parallel/comm.py's gather_partials lays it out: mixed magnitudes
+    and signs, or, with `total`, P positive parts of about total (a sum of
+    squares)."""
+    from arnoldimethod_torch.ops import df
+
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+    if total is None:
+        scale = 2.0 ** torch.randint(-20, 20, (P, k), device="cuda",
+                                     generator=gen).to(dtype)
+        hi = torch.randn(P, k, dtype=dtype, device="cuda", generator=gen) * scale
+    else:
+        hi = total / P * (1 + 0.01 * torch.rand(P, k, dtype=dtype,
+                                                device="cuda", generator=gen))
+    parts = torch.cat((hi, hi * lo * torch.rand(
+        P, k, dtype=dtype, device="cuda", generator=gen)), dim=1)
+    return df.Gathered(parts.contiguous(), k, (0, 1) if k > 1 else (0,))
+
+
+def gathered_axpy_bytes(n, rows, P, k, item):
+    """df_axpy_gathered's bytes: the fused form's, the record's P k pairs
+    read and its k sums written."""
+    return axpy_norm_bytes(n, rows, item) + rank_sum_bytes(P, k, item, False)
+
+
+def _gathered_cases(torch, dtype, gen):
+    """df_axpy's gathered form (fused norm, a step's {r2, h1} record of
+    k = 62 over a 61 x 65,536 basis, rows 60) and df_normalize's step form
+    with a gathered s2 (the second pass taken), at GATHERED_RANKS: each
+    bitwise against df_rank_sum followed by the form it replaces (both
+    kernels on the card) and against its plain version; ms of each (a
+    graph of 20 calls) beside the pair's, the bound, and the plain
+    version's ms (float32, P = 1 and 2)."""
+    from arnoldimethod_torch.ops import df
+
+    word = str(dtype).split(".")[-1]
+    item = torch.finfo(dtype).bits // 8
+    lo = 2.0 ** (-26 if dtype == torch.float32 else -55)
+    n, m1, rows = 1 << 16, 61, 60
+    k = m1 + 1
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    V, w, w2, h1, c = pair(m1, n), pair(n), pair(n), pair(m1), pair(m1)
+    r2, s1 = (tuple(torch.tensor(v * f, dtype=dtype, device="cuda")
+                    for f in (1.0, lo)) for v in (9.0, 2.25))
+    out = []
+    for P in GATHERED_RANKS:
+        g = _gathered_record(torch, dtype, gen, P, k)
+
+        def gathered():
+            (o, s), folded = df.df_axpy_gathered(*w, g, *V, rows, True)
+            return (*o, *s, *folded)
+
+        def replaced():
+            sh, sl = df.df_rank_sum(g.hi, g.lo)
+            o, s = df.df_axpy(*w, sh[1:], sl[1:], *V, rows, True)
+            return (*o, *s, sh, sl)
+
+        def plain():
+            (o, s), folded = df.df_axpy_gathered_plain(*w, g, *V, rows, True)
+            return (*o, *s, *folded)
+
+        got, want, ref = gathered(), replaced(), plain()
+        torch.cuda.synchronize()
+        nbytes = gathered_axpy_bytes(n, rows, P, k, item)
+        bound_ms, bound_by = roofline(
+            nbytes, df_ops("df_axpy_norm", n, rows) + rank_sum_ops(P, k, False),
+            word)
+        res = {"kernel": "df_axpy_gathered", "dtype": word, "P": P, "k": k,
+               "rows": rows, "n": n,
+               "bitwise": bitwise(zip(got, want)) and bitwise(zip(got, ref)),
+               "max_abs_err": max((a.double() - b.double()).abs().max().item()
+                                  for a, b in zip(got, ref)),
+               "ms": graph_ms(gathered), "replaced_ms": graph_ms(replaced),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        res["share_of_bound"] = bound_ms / res["ms"]
+        if dtype == torch.float32 and P <= 2:
+            res["plain_ms"] = median_ms(plain, reps=3, warm=1)
+        out.append(res)
+
+        s2 = _gathered_record(torch, dtype, gen, P, 1, total=1.44)
+        outs = [normalize_outputs(torch, w[0], m1) for _ in range(3)]
+
+        def normalize(s2_, o):
+            return normalize_call(df.df_normalize, (w, s1, (r2, w2, s2_, h1, c)),
+                                  o, rows - 1)
+
+        def normalize_replaced():
+            sh, sl = df.df_rank_sum(s2.hi, s2.lo)
+            return normalize((sh[0], sl[0]), outs[1])
+
+        got = normalize(s2, outs[0])
+        want = normalize_replaced()
+        ref = normalize_call(df.df_normalize_plain,
+                             (w, s1, (r2, w2, s2, h1, c)), outs[2], rows - 1)
+        torch.cuda.synchronize()
+        nbytes = normalize_bytes(n, m1, item) + (2 * P - 2) * item
+        bound_ms, bound_by = roofline(
+            nbytes, df_ops("df_normalize", n, m1=m1) + rank_sum_ops(P, 1, False),
+            word)
+        res = {"kernel": "df_normalize_gathered", "dtype": word, "P": P,
+               "n": n, "bitwise": bitwise(zip(got, want))
+               and bitwise(zip(got, ref)), "flag": float(got[4][rows - 1]),
+               "max_abs_err": max((a.double() - b.double()).abs().max().item()
+                                  for a, b in zip(got, ref)),
+               "ms": graph_ms(lambda: normalize(s2, outs[0])),
+               "replaced_ms": graph_ms(normalize_replaced),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        res["share_of_bound"] = bound_ms / res["ms"]
+        if dtype == torch.float32 and P <= 2:
+            res["plain_ms"] = median_ms(lambda: normalize_call(
+                df.df_normalize_plain, (w, s1, (r2, w2, s2, h1, c)), outs[2],
+                rows - 1), reps=3, warm=1)
+        out.append(res)
+    return out
+
+
+def _prologue_costs(torch, gen):
+    """What folding a record in its consumer's prologue costs a launch, in
+    float32 words at config 3's shapes: df_axpy's gathered form against
+    its fused form on the folded coefficients, and df_normalize with a
+    gathered s2 against the summed s2, at PROLOGUE_RANKS, each pair timed
+    in the order fused, gathered, gathered, fused (graphs of 20 calls); the
+    difference in microseconds."""
+    from arnoldimethod_torch.ops import df
+
+    dtype, lo = torch.float32, 2.0 ** -26
+    n, m1, rows = 1 << 16, 61, 60
+
+    def pair(*shape):
+        h = torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+        return h, torch.randn(*shape, dtype=dtype, device="cuda",
+                              generator=gen) * lo
+
+    V, w, w2, h1, c = pair(m1, n), pair(n), pair(n), pair(m1), pair(m1)
+    r2, s1 = (tuple(torch.tensor(v * f, dtype=dtype, device="cuda")
+                    for f in (1.0, lo)) for v in (9.0, 2.25))
+    outs = normalize_outputs(torch, w[0], m1)
+    out = []
+    for P in PROLOGUE_RANKS:
+        g = _gathered_record(torch, dtype, gen, P, m1 + 1)
+        sh, sl = df.df_rank_sum(g.hi, g.lo)
+        s2 = _gathered_record(torch, dtype, gen, P, 1, total=1.44)
+        s2h, s2l = df.df_rank_sum(s2.hi, s2.lo)
+        ways = {
+            "df_axpy": (
+                lambda: df.df_axpy(*w, sh[1:], sl[1:], *V, rows, True),
+                lambda: df.df_axpy_gathered(*w, g, *V, rows, True)),
+            "df_normalize": (
+                lambda: normalize_call(df.df_normalize, (w, s1, (
+                    r2, w2, (s2h[0], s2l[0]), h1, c)), outs, rows - 1),
+                lambda: normalize_call(df.df_normalize, (w, s1, (
+                    r2, w2, s2, h1, c)), outs, rows - 1)),
+        }
+        for name, (summed, gathered) in ways.items():
+            a1, b1, b2, a2 = (graph_ms(f) for f in (summed, gathered, gathered,
+                                                    summed))
+            out.append({"kernel": name, "P": P, "summed_ms": [a1, a2],
+                        "gathered_ms": [b1, b2],
+                        "prologue_us": 1e3 * ((b1 + b2) - (a1 + a2)) / 2})
+    return out
+
+
 def _ptxas_functions(log):
     """Registers, stack frame and spills of each function in nvcc's
     -Xptxas -v output, by mangled name."""
@@ -1988,7 +2179,7 @@ def _dense_ptxas(log):
 
 def _df_ptxas(log):
     """Registers, stack frame and spills of each instantiation of csrc/df.cu
-    (project_kernel<word, L>, axpy_kernel<word, L, U, norm>,
+    (project_kernel<word, L>, axpy_kernel<word, L, U, norm, gather>,
     normalize_kernel<word>, basis_kernel<word, R, C>, stencil_kernel<word, P>,
     rank_sum_kernel<word>) from nvcc's -Xptxas -v output."""
     import re
@@ -2392,7 +2583,7 @@ def phase_df_kernel(torch):
     (`_normalize_forms`).  Then df_basis_change at rows 31, 46 and 61, new
     and in place, and stencil5_df at 64^2 (`_df_windows`), and df_rank_sum
     at RANK_SUM_SHAPES (`phase_rank_sum`).
-    Last, ptxas' registers, stack and spills for each of the file's 71
+    Last, ptxas' registers, stack and spills for each of the file's 115
     instantiations (none may use local memory).  Each timed case of a
     redesigned kernel names the earlier kernel's time
     (`slower_than_earlier`) and, where set, its target (`meets_target`)."""
@@ -2456,12 +2647,12 @@ def phase_df_kernel(torch):
               windows=windows)
         results[("windows", str(dtype).split(".")[-1])] = windows
     rank_sums = phase_rank_sum(torch, gen)
-    # ptxas: 10 df_project, 44 df_axpy (11 shapes (L, U), plain or fused),
-    # 2 df_normalize, 5 df_basis_change, 6 stencil5_df and 2 df_rank_sum
-    # instantiations, none with local memory.
+    # ptxas: 10 df_project, 88 df_axpy (11 shapes (L, U), plain or fused,
+    # in its own form or gathered), 2 df_normalize, 5 df_basis_change, 6
+    # stencil5_df and 2 df_rank_sum instantiations, none with local memory.
     ptxas = _df_ptxas(df.KERNEL.build_log)
     built = bool(df.KERNEL.build_log)
-    want = {"project": 10, "axpy": 44, "normalize": 2, "basis": 5,
+    want = {"project": 10, "axpy": 88, "normalize": 2, "basis": 5,
             "stencil": 6, "rank_sum": 2}
     counts = {k: sum(p["kernel"] == k for p in ptxas) for k in want}
     check("df_kernel", not built or (
@@ -2475,7 +2666,7 @@ def phase_df_kernel(torch):
     shape["df_project"] = dict(
         shape["df_project"], one_row_ms=norm["ms"],
         one_row_bound_ms=norm["bound_ms"])
-    shape["df_rank_sum"] = rank_sums
+    shape.update(rank_sums)
     return shape
 
 
@@ -2489,19 +2680,43 @@ def phase_rank_sum(torch, gen):
              for c in _rank_sum_cases(torch, dtype, gen)]
     check("df_kernel", all(c["bitwise"] for c in cases), case="df_rank_sum",
           cases=cases)
+    gathered = [c for dtype in (torch.float32, torch.float64)
+                for c in _gathered_cases(torch, dtype, gen)]
+    check("df_kernel", all(c["bitwise"] for c in gathered)
+          and all(c["flag"] == 0.0 for c in gathered
+                  if c["kernel"] == "df_normalize_gathered"),
+          case="gathered_forms", cases=gathered)
+    prologue = _prologue_costs(torch, gen)
+    check("df_kernel", True, case="gathered_prologue", dtype="float32",
+          n=1 << 16, rows=60, costs=prologue)
 
     def at(P, k):
         return next(c for c in cases if (c["P"], c["k"], c["acc"],
                                          c["dtype"]) == (P, k, False,
                                                          "float32"))
 
-    main, one = at(2, 62), at(1, 62)
-    return dict(
-        {key: main[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")},
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        case="P = 2, k = 62, float32", one_rank_ms=one["ms"],
-        one_rank_bound_ms=one["bound_ms"], one_rank_plain_ms=one["plain_ms"])
+    def line(main, one, errs):
+        return dict(
+            {key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            max_abs_err=max(c["max_abs_err"] for c in errs),
+            case=f"P = 2, k = {main['k']}, float32", one_rank_ms=one["ms"],
+            one_rank_bound_ms=one["bound_ms"],
+            one_rank_plain_ms=one["plain_ms"])
+
+    def gathered_at(kernel, P):
+        return next(c for c in gathered if (c["kernel"], c["P"], c["dtype"])
+                    == (kernel, P, "float32"))
+
+    out = {"df_rank_sum": line(at(2, 62), at(1, 62), cases)}
+    for kernel in ("df_axpy_gathered", "df_normalize_gathered"):
+        main = gathered_at(kernel, 2)
+        out[kernel] = dict(
+            line(dict(main, k=main.get("k", 1)), gathered_at(kernel, 1),
+                 [c for c in gathered if c["kernel"] == kernel]),
+            replaced_ms=main["replaced_ms"],
+            one_rank_replaced_ms=gathered_at(kernel, 1)["replaced_ms"])
+    return out
 
 
 def phase_default_device(torch):
@@ -3938,6 +4153,9 @@ def sharded_rank(torch, rank, world, init, out_dir):
                                               "wall_s")}, flush=True)
             del d, Q, op
         result["runs"] = runs
+        dist.barrier()
+        result["wide_dia"] = _wide_dia_run(torch, sharding, extended=False)
+        print("wide_dia", result["wide_dia"], flush=True)
     finally:
         dist.destroy_process_group()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3998,7 +4216,9 @@ def phase_sharded_p2(torch, timeout=900):
     with DGKS in both gather modes to convergence, and lowsync=True and
     method="device" (the stencil through the gathering wrapper) for
     P2_SHORT restarts.  Each run must meet config 2's limits on rank 0 (or
-    run its restarts) and give both ranks the same counts.  Returns the
+    run its restarts) and give both ranks the same counts.  Then a DIA
+    band wider than a rank's rows (WIDE_BAND > n / 2, F8) in float64: the
+    unsharded solve's counts and eigenvalues on both ranks.  Returns the
     kernels' launches summed over the ranks."""
     results, wall = _two_ranks("sharded_p2", "--sharded-rank", "sharded_p2",
                                timeout)
@@ -4037,9 +4257,12 @@ def phase_sharded_p2(torch, timeout=900):
             launches_by_rank=[r["runs"][name]["launches"] for r in results],
             walls_s_by_rank=[r["runs"][name]["wall_s"] for r in results],
             wall_label=SHARDED_LABEL)
-    check("sharded_p2", ok, world_size=world, backend="gloo (CUDA tensors)",
-          device="cuda:0 shared by both ranks", probe=probe, seconds=wall,
-          runs=runs, launches=launches)
+    wide = [r.get("wide_dia") for r in results]
+    wide_ok = all(wide) and _wide_dia_ok(wide)
+    check("sharded_p2", ok and wide_ok, world_size=world,
+          backend="gloo (CUDA tensors)", device="cuda:0 shared by both ranks",
+          probe=probe, seconds=wall, runs=runs, launches=launches,
+          wide_dia=dict(wide[0] or {}, ok=wide_ok, wall_label=SHARDED_LABEL))
     return launches
 
 
@@ -4049,6 +4272,7 @@ def _ext_counts_zero():
 
     _sharded_counts_zero()
     df.KERNEL.launches = dict.fromkeys(df.KERNEL.launches, 0)
+    df.KERNEL.gathered = dict.fromkeys(df.KERNEL.gathered, 0)
     df32.PLAIN_ON_CARD = 0
 
 
@@ -4056,7 +4280,160 @@ def _ext_counts():
     from arnoldimethod_torch.ops import df, df32
 
     return dict(_sharded_counts(), df_launches=dict(df.KERNEL.launches),
+                gathered_launches=dict(df.KERNEL.gathered),
                 plain_df_calls_on_card=df32.PLAIN_ON_CARD)
+
+
+# A DIA band wider than a rank's rows at two ranks (F8): the 1-D Laplacian
+# with -1/4 at +-WIDE_BAND, n = WIDE_N (tests/torch_parallel_worker.py's
+# wide_band).
+WIDE_N, WIDE_BAND = 256, 150
+
+
+def wide_band(n, band, dtype):
+    """(diags, offsets) of that matrix: diags[d, i] = A[i, i + offsets[d]],
+    zero where out of range."""
+    import numpy as np
+
+    offsets = (-band, -1, 0, 1, band)
+    i = np.arange(n)
+    diags = np.zeros((len(offsets), n), dtype=dtype)
+    for d, (off, v) in enumerate(zip(offsets, (-0.25, -1.0, 2.0, -1.0,
+                                               -0.25))):
+        diags[d, (i + off >= 0) & (i + off < n)] = v
+    return diags, offsets
+
+
+def _wide_dia_run(torch, sharding, extended):
+    """The wide-band DIA solve on the card, sharded over `sharding`'s mesh
+    (driven with the counts at 0 just before it and read just after) and
+    unsharded, from one v1: float64 with the host method, or float32 words
+    with extended=True.  Counts, eigenvalues, the halo a matvec."""
+    import numpy as np
+
+    from arnoldimethod_torch.models.operators import DiaOperator
+    from arnoldimethod_torch.parallel import shard_operator
+
+    op = DiaOperator(*wide_band(WIDE_N, WIDE_BAND,
+                                np.float32 if extended else np.float64),
+                     (WIDE_N, WIDE_N), device="cuda")
+    kw = dict(nev=4, which="SR", tol=1e-12 if extended else 1e-8,
+              extended=extended,
+              v1=np.random.default_rng(5).standard_normal(WIDE_N))
+    sop = shard_operator(op, sharding.mesh)
+    _ext_counts_zero()
+    d, h, wall = _timed_solve(torch, sop, sharding=sharding, **kw)
+    counts = _ext_counts()
+    d0, h0, wall0 = _timed_solve(torch, op, **kw)
+    lam = np.sort(np.real(np.asarray(d.eigenvalues)))
+    lam0 = np.sort(np.real(np.asarray(d0.eigenvalues)))
+    return dict(operator=type(sop).__name__, n=WIDE_N, band=WIDE_BAND,
+                ranks=sop.comm.size, n_local=sop.comm.n_local,
+                extended=extended,
+                mvproducts=h.mvproducts, restarts=h.restarts,
+                converged=h.converged, nconverged=h.nconverged,
+                unsharded_mvproducts=h0.mvproducts,
+                unsharded_restarts=h0.restarts,
+                eigenvalues=[float(x) for x in lam],
+                eigenvalue_diff=float(np.abs(lam - lam0).max()),
+                collectives_per_step=_per_step(counts["collectives"],
+                                               h.mvproducts),
+                df_launches=counts["df_launches"],
+                gathered_launches=counts["gathered_launches"],
+                wall_s=wall, unsharded_wall_s=wall0)
+
+
+def _wide_dia_ok(runs):
+    """Every rank's wide-band run: converged with the unsharded solve's
+    counts and eigenvalues (to 1e-10), the ranks' counts and eigenvalues
+    equal, a halo a matvec on more than one rank."""
+    r0 = runs[0]
+    return all(
+        r["converged"] and r["nconverged"] >= 4
+        and (r["mvproducts"], r["restarts"])
+        == (r["unsharded_mvproducts"], r["unsharded_restarts"])
+        == (r0["mvproducts"], r0["restarts"])
+        and r["eigenvalues"] == r0["eigenvalues"]
+        and r["eigenvalue_diff"] <= 1e-10
+        and r["collectives_per_step"].get("halo", {}).get("calls", 0)
+        >= (r["ranks"] > 1) for r in runs)
+
+
+def _rank_sum_step(op, Vh, Vl, Hh, Hl, j, flags, comm):
+    """The sharded Krylov step with a launch of its own a sum: each sum over
+    the ranks one df_sum (a gather, then a df_rank_sum launch), then
+    df_axpy and df_normalize on the sums.  The reference the gathered step
+    (ops/df_expansion.py _step) must equal bit for bit."""
+    from arnoldimethod_torch.ops import df
+    from arnoldimethod_torch.ops import df_expansion as tde
+
+    rows = j + 1
+    wh, wl = tde._matvec_df(op, Vh[j], Vl[j])
+    sh, sl = comm.df_sum([tde._sumsq(wh, wl),
+                          df.df_project(Vh, Vl, wh, wl, rows)])
+    r2, h1 = (sh[0], sl[0]), (sh[1:], sl[1:])
+    w1, s1 = df.df_axpy(wh, wl, *h1, Vh, Vl, rows, True)
+    sh, sl = comm.df_sum([s1, df.df_project(Vh, Vl, *w1, rows)])
+    s1, c = (sh[0], sl[0]), (sh[1:], sl[1:])
+    w2, s2 = df.df_axpy(*w1, *c, Vh, Vl, rows, True)
+    sh, sl = comm.df_sum([s2])
+    df.df_normalize(w1, s1, (Vh[rows], Vl[rows]), df.DgksStep(
+        r2, w2, (sh[0], sl[0]), h1, c, (Hh, Hl), j, flags))
+
+
+def _ext_step_us(torch, op, comm, v1, m=60, j=30, calls=200):
+    """One sharded Krylov step of the extended range (ops/df_expansion.py
+    _step, the gathered forms) beside its df_rank_sum form
+    (`_rank_sum_step`) on one state: a basis of m + 1 rows in float32
+    words started from v1 (global) and expanded to step j.  Step j reads rows 0..j and writes row j + 1, H's
+    column j and flags[j], so each call repeats the same work.  Both ways'
+    outputs bitwise equal; the host microseconds of each call, `calls`
+    calls of each way in turn (the first way alternating): medians and
+    quartiles, and host_us_saved, the df_rank_sum form's median less the
+    gathered one's; at one rank also the unsharded step's on the whole
+    operator (op.op)."""
+    from arnoldimethod_torch.ops import df_expansion as tde
+
+    Vh = torch.zeros(m + 1, comm.n_local, device="cuda")
+    Vl = torch.zeros_like(Vh)
+    Hh, Hl = torch.zeros(m + 1, m, device="cuda"), torch.zeros(m + 1, m,
+                                                               device="cuda")
+    flags = torch.zeros(m, device="cuda")
+    tde.df_set_initial_vector(
+        Vh, Vl, comm.local(torch.as_tensor(v1, device="cuda")), comm)
+    tde.df_expand_range(op, Vh, Vl, Hh, Hl, 0, j,
+                        torch.Generator(device="cuda").manual_seed(0), comm)
+    ways = {"gathered": lambda: tde._step(op, Vh, Vl, Hh, Hl, j, flags, comm),
+            "rank_sum": lambda: _rank_sum_step(op, Vh, Vl, Hh, Hl, j, flags,
+                                               comm)}
+    if comm.size == 1 and hasattr(op, "op"):
+        ways["unsharded"] = lambda: tde._step(op.op, Vh, Vl, Hh, Hl, j, flags)
+    outputs = {}
+    for name, fn in ways.items():
+        fn()
+        torch.cuda.synchronize()
+        outputs[name] = [t.clone() for t in (Vh[j + 1], Vl[j + 1], Hh[:, j],
+                                             Hl[:, j], flags[j:j + 1])]
+    torch.cuda.synchronize()
+    times = {name: [] for name in ways}
+    for c in range(calls):
+        # The ways in turn, the first of them alternating.
+        for name in list(ways)[c % 2:] + list(ways)[:c % 2]:
+            t0 = time.perf_counter()
+            ways[name]()
+            times[name].append(1e6 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    us = {name: {"median": statistics.median(t),
+                 "quartiles": statistics.quantiles(t, n=4)[::2]}
+          for name, t in times.items()}
+    return dict(
+        bitwise=all(bitwise(zip(outputs["gathered"], o))
+                    for o in outputs.values()),
+        # H's column and the flag are the same on every rank (the row is
+        # each rank's own columns).
+        digest=_digest(torch.cat(outputs["gathered"][2:]).cpu().numpy()),
+        ranks=comm.size, j=j, m=m, calls=calls, host_us=us,
+        host_us_saved=us["rank_sum"]["median"] - us["gathered"]["median"])
 
 
 def _digest(a):
@@ -4073,6 +4450,7 @@ def _ext_comm_us(torch, comm, sop, k=62, calls=300, warm=300):
     to back on CUDA tensors, and the time until the device has finished
     them too: df_sum of a step's {r2, h1} (k pairs), its parts (the
     concatenation, the all_gather_into_tensor alone, df_rank_sum alone),
+    gather_partials (the gather a Krylov step makes in place of df_sum),
     and the wrapper's matvec_df (the gather of both words, stencil5_df on
     the full grid) beside the unsharded operator's; a torch add_ for
     scale."""
@@ -4091,6 +4469,7 @@ def _ext_comm_us(torch, comm, sop, k=62, calls=300, warm=300):
     for name, fn in (
             ("torch_add_", lambda: send.add_(1.0)),
             ("df_sum", lambda: comm.df_sum([r2, h1])),
+            ("gather_partials", lambda: comm.gather_partials([r2, h1])),
             ("cat", lambda: torch.cat([r2[0].reshape(-1), h1[0], r2[1].reshape(-1),
                                        h1[1]])),
             ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
@@ -4119,9 +4498,15 @@ def phase_sharded_ext_p1(torch):
     at tol=1e-28 (as `ext_dd`) through the sharded DIA operator.  Q (and
     Q_lo), R (and R_lo), matvecs, restarts and host reads must equal the
     unsharded solve's bit for bit; config 3 must repeat ext_conv's 6,387
-    matvecs and 213 restarts.  Each sharded solve is driven with the counts
-    at 0 just before it and read just after.  Returns df_rank_sum's
-    launches over the two."""
+    matvecs and 213 restarts.  Each solve is driven with the counts at 0
+    just before it and read just after: the sharded solve's three sums a
+    Krylov step are folded by its gathered df_axpy and df_normalize
+    launches (exact counts), df_rank_sum launches only for the sums outside
+    a step, and every other launch is the unsharded solve's (7 a step).
+    Then one Krylov step of config 3 in its gathered form and in its
+    df_rank_sum form (a df_rank_sum launch a sum): the same bits, and the
+    host time of each (`_ext_step_us`).  Returns the launches of df_rank_sum and of the
+    gathered df_axpy and df_normalize over the two solves."""
     import numpy as np
     import torch.distributed as dist
 
@@ -4139,14 +4524,17 @@ def phase_sharded_ext_p1(torch):
                       dict(nev=10, which="SR", tol=1e-28, extended=True,
                            v1=np.random.default_rng(11).standard_normal(100))),
     }
-    out, ok, launches = {}, True, 0
+    out, ok = {}, True
+    launches = dict.fromkeys(("df_rank_sum", "df_axpy", "df_normalize"), 0)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
                             rank=0, world_size=1)
     try:
         sharding = basis_sharding(make_mesh())
         for way, (op, kw) in ways.items():
+            _ext_counts_zero()
             d0, h0, wall0 = _timed_solve(torch, op, **kw)
+            base = _ext_counts()
             sop = shard_operator(op, sharding.mesh)
             _ext_counts_zero()
             d1, h1, wall1 = _timed_solve(torch, sop, sharding=sharding, **kw)
@@ -4161,20 +4549,32 @@ def phase_sharded_ext_p1(torch):
                     and (h1.mvproducts, h1.restarts, h1.host_syncs)
                     == (h0.mvproducts, h0.restarts, h0.host_syncs))
             steps = h1.mvproducts
-            dfl = counts["df_launches"]
-            launches += dfl["df_rank_sum"]
+            dfl, gath = counts["df_launches"], counts["gathered_launches"]
+            launches["df_rank_sum"] += dfl["df_rank_sum"]
+            for k, v in gath.items():
+                launches[k] += v
             coll = counts["collectives"]
             # Three sums a Krylov step run (those a breakdown discards too),
             # three a breakdown's random row, and the start's one; one
-            # all-reduce, the single-word start's norm.
-            sums = 3 * (steps + counts["discarded_matvecs"]
-                        + counts["rollbacks"]) + 1
+            # all-reduce, the single-word start's norm.  A step's three are
+            # folded by its df_axpy (two) and df_normalize (one) launches;
+            # the others take a df_rank_sum launch each.  Every other
+            # launch is the unsharded solve's: 7 a step.
+            run = steps + counts["discarded_matvecs"]
+            sums = 3 * (run + counts["rollbacks"]) + 1
             sums_ok = (coll["df_sum"]["calls"] == sums
                        and coll["all_reduce"]["calls"] == 1
-                       and dfl["df_rank_sum"] == coll["df_sum"]["calls"])
+                       and dfl["df_rank_sum"] == sums - 3 * run
+                       and gath == {"df_axpy": 2 * run, "df_normalize": run})
+            same_launches = (
+                {k: v for k, v in dfl.items() if k != "df_rank_sum"}
+                == {k: v for k, v in base["df_launches"].items()
+                    if k != "df_rank_sum"}
+                and base["df_launches"]["df_rank_sum"] == 0)
             counts_ok = (way != "config3"
                          or (h1.mvproducts, h1.restarts) == (6387, 213))
-            ok = ok and same and sums_ok and counts_ok and h1.converged
+            ok = (ok and same and sums_ok and same_launches and counts_ok
+                  and h1.converged)
             out[way] = dict(
                 operator=type(sop).__name__, bitwise_q_r_counts=same,
                 mvproducts=h1.mvproducts, restarts=h1.restarts,
@@ -4182,9 +4582,13 @@ def phase_sharded_ext_p1(torch):
                 host_reads_per_step=h1.host_syncs / steps,
                 collectives=coll,
                 collectives_per_step=_per_step(coll, steps),
-                df_launches=dfl,
+                df_launches=dfl, gathered_launches=gath,
+                unsharded_df_launches=base["df_launches"],
+                same_launches_as_unsharded=same_launches,
                 df_launches_per_step={k: v / steps for k, v in dfl.items()},
                 all_df_launches_per_step=sum(dfl.values()) / steps,
+                unsharded_df_launches_per_step=sum(
+                    base["df_launches"].values()) / steps,
                 plain_df_calls_on_card=counts["plain_df_calls_on_card"],
                 stencil_launches=counts["launches"]["stencil5"],
                 wall_s=wall1, unsharded_wall_s=wall0,
@@ -4192,6 +4596,8 @@ def phase_sharded_ext_p1(torch):
             del d0, d1
         sop = shard_operator(conv, sharding.mesh)
         comm_us = _ext_comm_us(torch, sop.comm, sop)
+        step_us = _ext_step_us(torch, sop, sop.comm, conv_kw["v1"])
+        ok = ok and step_us["bitwise"]
         # 3 restarts of the sharded config 3 under the profiler.
         _profile(torch, "sharded_ext_p1_profile", sop, "(anonymous namespace)",
                  "profile_sharded_ext.txt", label="df_kernels",
@@ -4201,9 +4607,11 @@ def phase_sharded_ext_p1(torch):
     finally:
         dist.destroy_process_group()
     check("sharded_ext_p1", ok, world_size=1, backend="nccl",
-          q_type="DTensor Shard(0)", ways=out, df_rank_sum_launches=launches,
-          comm_us=comm_us,
-          prediction={"wall_ratio": [1.5, 2.5], "source": "PERF.md §6, PR 15"})
+          q_type="DTensor Shard(0)", ways=out, launches=launches,
+          comm_us=comm_us, step_us=step_us,
+          prediction={"step_launches": 7, "df_rank_sum_launches": 1,
+                      "host_us_saved_a_step": 3 * 34,
+                      "source": "PERF.md §6"})
     return launches
 
 
@@ -4212,8 +4620,9 @@ def sharded_ext_rank(torch, rank, world, init, out_dir):
     on cuda:0 through gloo.  laplacian_1d(100) in float32 words at
     tol=1e-12 to convergence through the sharded DIA operator, on the card
     and then on the CPU from the same v1; config 3 for P2_SHORT restarts on
-    the card with a sharded workspace.  Each run driven with the counts at
-    0; writes OUT/rank<RANK>.json."""
+    the card with a sharded workspace; one Krylov step of config 3 both
+    ways (`_ext_step_us`); the wide-band DIA (`_wide_dia_run`).  Each run
+    driven with the counts at 0; writes OUT/rank<RANK>.json."""
     from datetime import timedelta
 
     import numpy as np
@@ -4256,7 +4665,8 @@ def sharded_ext_rank(torch, rank, world, init, out_dir):
                     _lap1d_dense(100) @ Q - Q @ d.R)),
                 collectives_per_step=_per_step(counts["collectives"],
                                                h.mvproducts),
-                df_launches=counts["df_launches"])
+                df_launches=counts["df_launches"],
+                gathered_launches=counts["gathered_launches"])
             print(dev, runs[f"readme_{dev}"], flush=True)
         conv, conv_kw = _config3(torch)
         n = conv.shape[0]
@@ -4275,9 +4685,17 @@ def sharded_ext_rank(torch, rank, world, init, out_dir):
             R=_digest(d.R), collectives_per_step=_per_step(
                 counts["collectives"], h.mvproducts),
             df_launches=counts["df_launches"],
+            gathered_launches=counts["gathered_launches"],
             stencil_df_launches=counts["df_launches"]["stencil5_df"])
         print("config3", runs["config3"], flush=True)
         result["runs"] = runs
+        dist.barrier()
+        result["step_us"] = _ext_step_us(torch, op, op.comm, conv_kw["v1"],
+                                         calls=60)
+        print("step_us", result["step_us"], flush=True)
+        dist.barrier()
+        result["wide_dia"] = _wide_dia_run(torch, sharding, extended=True)
+        print("wide_dia", result["wide_dia"], flush=True)
     finally:
         dist.destroy_process_group()
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4290,7 +4708,12 @@ def phase_sharded_ext_p2(torch, timeout=300):
     convergence, residual below 1e-11 in host float64 and the same counts
     on the card as on the CPU at two ranks; config 3 for P2_SHORT
     restarts.  Both ranks must agree on every count, R and config 3's H.
-    Returns df_rank_sum's launches on the card, summed over the ranks."""
+    Then one Krylov step of config 3 in its gathered form and in its
+    df_rank_sum form, the same bits on both ranks (`_ext_step_us`), and the
+    DIA band wider than a rank's rows (F8) in float32 words: the unsharded
+    solve's counts on both ranks.  Returns the launches on the card of
+    df_rank_sum and of the gathered df_axpy and df_normalize, summed over
+    the ranks."""
     results, wall = _two_ranks("sharded_ext_p2", "--sharded-ext-rank",
                                "sharded_ext_p2", timeout)
     keys = ("mvproducts", "restarts", "nconverged", "host_syncs", "R")
@@ -4303,15 +4726,27 @@ def phase_sharded_ext_p2(torch, timeout=300):
           and (card["mvproducts"], card["restarts"])
           == (cpu["mvproducts"], cpu["restarts"])
           and r0["config3"]["restarts"] == P2_SHORT)
-    launches = sum(r["runs"][run]["df_launches"]["df_rank_sum"]
-                   for r in results for run in ("readme_cuda", "config3"))
-    check("sharded_ext_p2", ok, world_size=2, backend="gloo (CUDA tensors)",
+    main_runs = ("readme_cuda", "config3")
+    launches = {"df_rank_sum": sum(
+        r["runs"][run]["df_launches"]["df_rank_sum"]
+        for r in results for run in main_runs)}
+    for k in ("df_axpy", "df_normalize"):
+        launches[k] = sum(r["runs"][run]["gathered_launches"][k]
+                          for r in results for run in main_runs)
+    steps = [r.get("step_us", {}) for r in results]
+    steps_ok = all(st.get("bitwise") for st in steps) and len(
+        {st.get("digest") for st in steps}) == 1
+    wide = [r.get("wide_dia") for r in results]
+    wide_ok = all(wide) and _wide_dia_ok(wide)
+    check("sharded_ext_p2", ok and steps_ok and wide_ok, world_size=2,
+          backend="gloo (CUDA tensors)",
           device="cuda:0 shared by both ranks", seconds=wall,
           ranks_agree=agree, runs=r0,
           walls_s_by_rank={run: [r["runs"][run]["wall_s"] for r in results]
                            for run in r0},
           restarts_cut_to={"config3": P2_SHORT}, wall_label=SHARDED_LABEL,
-          df_rank_sum_launches=launches)
+          launches=launches, step_us=steps, step_bitwise=steps_ok,
+          wide_dia=dict(wide[0] or {}, ok=wide_ok))
     return launches
 
 
@@ -4425,8 +4860,12 @@ def main():
     # The row-sharded solver last: it starts process groups.
     p1_launches = phase_sharded_p1(torch)
     p2_launches = phase_sharded_p2(torch)
-    rank_sum_launches = {"sharded_ext_p1": phase_sharded_ext_p1(torch),
-                         "sharded_ext_p2": phase_sharded_ext_p2(torch)}
+    ext_launches = {"sharded_ext_p1": phase_sharded_ext_p1(torch),
+                    "sharded_ext_p2": phase_sharded_ext_p2(torch)}
+
+    def ext_by_phase(kernel):
+        return {phase: got[kernel] for phase, got in ext_launches.items()}
+
     by_phase = {k: {"device_main": device_launches[k],
                     "sharded_p1": p1_launches[k],
                     "sharded_p2": p2_launches[k]}
@@ -4500,16 +4939,33 @@ def main():
               "arnoldimethod_tpu/models/operators.py:395 "
               "Stencil5Operator.matvec_df" + xla, df_launches["stencil5_df"],
               df_shapes["stencil5_df"]),
-        # The sharded extended path's sum over the ranks: its launches are
-        # sharded_ext_p1's and sharded_ext_p2's (both ranks).
+        # The sharded extended path's sums over the ranks: a Krylov step's
+        # are folded by the gathered df_axpy and df_normalize, the others by
+        # df_rank_sum; launches are sharded_ext_p1's and sharded_ext_p2's
+        # (both ranks).
         entry("df_rank_sum", df_src,
               "arnoldimethod_tpu/ops/df32.py:147 df_sum's tree, which GSPMD "
               "partitions into collectives on a sharded V" + xla,
-              sum(rank_sum_launches.values()), df_shapes["df_rank_sum"],
-              launches_by_phase=rank_sum_launches,
+              sum(ext_by_phase("df_rank_sum").values()),
+              df_shapes["df_rank_sum"],
+              launches_by_phase=ext_by_phase("df_rank_sum"),
               **{k: df_shapes["df_rank_sum"][k] for k in (
                   "case", "one_rank_ms", "one_rank_bound_ms",
                   "one_rank_plain_ms")}),
+        *(entry(name, df_src,
+                "arnoldimethod_tpu/ops/df32.py:147 df_sum's tree on a sharded "
+                "V (GSPMD's collectives), folded into " + form + xla,
+                sum(ext_by_phase(kernel).values()), df_shapes[name],
+                launches_by_phase=ext_by_phase(kernel),
+                **{k: df_shapes[name][k] for k in (
+                    "case", "one_rank_ms", "one_rank_bound_ms",
+                    "one_rank_plain_ms", "replaced_ms",
+                    "one_rank_replaced_ms")})
+          for name, kernel, form in (
+              ("df_axpy_gathered", "df_axpy",
+               "df_axpy's fused form (ops/df32.py:209)"),
+              ("df_normalize_gathered", "df_normalize",
+               "df_normalize's step form (ops/df_expansion.py:71)"))),
         # The numbers of the m = 80 float32 case (device_main's m).
         entry("dense_restart", "arnoldimethod_torch/csrc/dense_restart.cu",
               "arnoldimethod_tpu/fused.py:109-202 (the lax.while_loop body "

@@ -97,11 +97,12 @@ def _host_build(directory, cu):
     p, i = ctypes.c_void_p, ctypes.c_int64
     sigs = {"df_basis_change": [p, p, p, p, i, i, i, i, i, i, p, p, p],
             "stencil5_df": [p, p, p, p, i, i, i, p, p],
-            "df_axpy": [p, p, p, p, p, p, *[i] * 8, p, i, p, i, p, p, p, p],
+            "df_axpy": [p, p, p, p, p, p, *[i] * 12, p, p, p, i, p, i, p, p,
+                        p, p],
             "df_project": [p, p, i, p, p, *[i] * 8, p, i, p, i, p, p, p, p,
                            p],
             "df_normalize": [p] * 10 + [i, p, p, p, p, i, p, p, i, i, p, p,
-                                        p, p],
+                                        p, i, i, p],
             "df_rank_sum": [p, p, i, i, i, p, p, p, p, p]}
     for name, args in sigs.items():
         for word in ("_f32", "_f64"):
@@ -256,7 +257,8 @@ def _axpy_host(fn, plan, w, h, V, rows, norm):
     s = torch.full((2,), 7.0, dtype=wh.dtype)
     err = fn(wh.data_ptr(), wl.data_ptr(), hh.data_ptr(), hl.data_ptr(),
              Vh.data_ptr(), Vl.data_ptr(), wh.shape[0], rows, plan.T, plan.C,
-             plan.G, plan.L, plan.U, plan.stage, part.data_ptr(), part.numel(),
+             plan.G, plan.L, plan.U, plan.stage, 0, 0, 0, 0, None, None,
+             part.data_ptr(), part.numel(),
              arrivals.data_ptr(), 1, outh.data_ptr(), outl.data_ptr(),
              s.data_ptr() if norm else None, None)
     assert err == 0, plan
@@ -299,8 +301,9 @@ def test_axpy_source_refuses_bad_plans(lib):
     good = dict(T=64, C=8, G=1, L=0, U=8, rows=1)
 
     def launch(T, C, G, L, U, rows):
-        return fn(*[w.data_ptr()] * 6, 64, rows, T, C, G, L, U, 8, None, 0,
-                  None, 0, w.data_ptr(), w.data_ptr(), None, None)
+        return fn(*[w.data_ptr()] * 6, 64, rows, T, C, G, L, U, 8, 0, 0, 0,
+                  0, None, None, None, 0, None, 0, w.data_ptr(), w.data_ptr(),
+                  None, None)
 
     assert launch(**good) == 0
     for bad in ({"G": 2}, {"L": 1}, {"T": 512, "L": -3}, {"C": 3},
@@ -517,3 +520,209 @@ def test_rank_sum_source_mutation_fails(mutant):
     want = df.df_rank_sum_plain(parts[:, :k], parts[:, k:])
     got = _rank_sum_host(mutant.df_rank_sum_f32, parts, k, None)
     assert not (_bitwise(got[0], want[0]) and _bitwise(got[1], want[1]))
+
+
+# -- the gathered forms: the sums over the ranks folded by their consumer ----
+
+
+def _host_kernel(library, monkeypatch):
+    """ops/df.py's kernel wrapper (its checks, plans, chain of launches and
+    C arguments) over a host-built library: CPU tensors, no stream."""
+    K = df._DfKernel()
+
+    def launch(entry, count, like, *args):
+        assert getattr(library, entry + _word(like.dtype))(*args, None) == 0
+        K.launches[count] += 1
+
+    monkeypatch.setattr(K, "_launch", launch)
+    monkeypatch.setattr(K, "_stream_scratch", lambda like, words, slots: (
+        torch.full((max(words, 1),), 7.0, dtype=like.dtype),
+        torch.zeros(max(slots, 1), dtype=torch.int32)))
+    return K
+
+
+@pytest.fixture
+def host_kernel(lib, monkeypatch):
+    return _host_kernel(lib, monkeypatch)
+
+
+def _gathered(rng, dtype, P, m1):
+    """A gathered record of P ranks' partials of a scalar sum and an m1
+    vector (k = m1 + 1 coefficients), as RowComm.gather_partials lays it
+    out: mixed magnitudes and signs, so the tree's order shows in the low
+    words."""
+    k = m1 + 1
+    scale = 2.0 ** rng.integers(-20, 20, size=(P, k))
+    hi = torch.from_numpy(rng.standard_normal((P, k)) * scale).to(dtype)
+    lo = (hi * 2.0 ** (-26 if dtype == torch.float32 else -55)
+          * torch.from_numpy(rng.uniform(-1, 1, (P, k))).to(dtype))
+    return df.Gathered(torch.cat((hi, lo), dim=1).contiguous(), k, (0, 1))
+
+
+def _same(got, want):
+    return all(_bitwise(a.reshape(-1), b.reshape(-1))
+               for a, b in zip(got, want))
+
+
+def _axpy_gathered_case(K, dtype, P, n, rows, norm, seed):
+    """df_axpy's gathered form through the wrapper K against
+    df_rank_sum_plain followed by df_axpy_plain: the result (and its fused
+    sum) and the folded record, bit for bit."""
+    rng = np.random.default_rng(seed)
+    m1 = max(rows, 1)
+    w, V = _pair(rng, dtype, n), _pair(rng, dtype, m1, n)
+    g = _gathered(rng, dtype, P, m1)
+    sh, sl = df.df_rank_sum_plain(g.hi, g.lo)
+    want = df.df_axpy_plain(*w, sh[1:], sl[1:], *V, rows, norm)
+    got, folded = K.axpy_gathered(*w, g, *V, rows, norm)
+    flat = (lambda r: (*r[0], *r[1])) if norm else (lambda r: r)
+    return _same(flat(got), flat(want)) and _same(folded, (sh, sl))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 8, 33])
+@pytest.mark.parametrize("rows", [1, 61])
+@pytest.mark.parametrize("norm", [False, True])
+def test_axpy_gathered_source_is_bitwise(host_kernel, dtype, P, rows, norm):
+    """df_axpy with its coefficients a gathered record (a sharded step's
+    {r2, h1}), folded over the ranks in every block's prologue: bitwise
+    df_rank_sum_plain followed by df_axpy_plain, the result, its fused
+    sum and the whole record block 0 writes; one launch, counted as
+    gathered.  P <= 32 in shuffles alone (padded to a power of two), 33
+    folded in registers first."""
+    assert _axpy_gathered_case(host_kernel, dtype, P, 1000, rows, norm,
+                               P + 100 * rows + norm)
+    assert host_kernel.gathered == {"df_axpy": 1, "df_normalize": 0}
+    assert host_kernel.launches["df_axpy"] == 1
+    assert host_kernel.launches["df_rank_sum"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_axpy_gathered_source_chains_past_a_launch(host_kernel, dtype):
+    """More rows than a launch stages (_AXPY_MAX_ROWS): each launch folds
+    its slice of the record's coefficients, the first writes the record,
+    the last fuses the norm."""
+    rows = df._AXPY_MAX_ROWS + 44
+    assert _axpy_gathered_case(host_kernel, dtype, 3, 200, rows, True, 5)
+    assert host_kernel.gathered["df_axpy"] == 2
+    assert host_kernel.axpy_forms == {"plain": 1, "norm": 1}
+
+
+@pytest.mark.parametrize("P", [3, 33])
+def test_axpy_gathered_source_in_blocks_under_a_warp(host_kernel, P):
+    """n = 10 takes blocks of 16 threads: the fold's groups shrink to the
+    block (16 lanes, 33 ranks folded 4 a lane in registers), the same
+    bits; 256 ranks would need 16 a lane and are refused."""
+    assert df.axpy_plan(10, 4, 4, True).T == 16
+    assert _axpy_gathered_case(host_kernel, torch.float32, P, 10, 4, True, P)
+    with pytest.raises(ValueError, match="256 ranks in blocks of 16"):
+        _axpy_gathered_case(host_kernel, torch.float32, 256, 10, 4, True, 0)
+
+
+def test_axpy_gathered_source_refuses_bad_records(lib):
+    """A valid gathered launch of 64 elements, then each record field made
+    invalid: ranks past 256, no stride, a slice of coefficients past the
+    record, one folded word without the other."""
+    w = torch.zeros(256)
+    fn = lib.df_axpy_f32
+    good = dict(ld=8, ranks=4, k=4, h_off=1, fold_h=w.data_ptr(),
+                fold_l=w.data_ptr())
+
+    def launch(ld, ranks, k, h_off, fold_h, fold_l):
+        return fn(*[w.data_ptr()] * 6, 64, 3, 64, 8, 1, 0, 8, 8, ld, ranks,
+                  k, h_off, fold_h, fold_l, None, 0, None, 0, w.data_ptr(),
+                  w.data_ptr(), None, None)
+
+    assert launch(**good) == 0
+    for bad in ({"ranks": 257}, {"ranks": -1}, {"ld": 0}, {"k": 3},
+                {"h_off": 2}, {"fold_l": None}):
+        assert launch(**{**good, **bad}) != 0, bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 2, 3, 8, 33])
+@pytest.mark.parametrize("case", ["first", "second", "second_breakdown",
+                                  "zero"])
+def test_normalize_gathered_s2_source_is_bitwise(host_kernel, dtype, P, case):
+    """df_normalize's step form with s2 a gathered record of one sum,
+    folded by every block before its decision: the row, H's column j and
+    flags[j] bitwise df_rank_sum_plain followed by df_normalize_plain, in
+    every decision (a breakdown among them)."""
+    rng = np.random.default_rng(P + len(case))
+    n, m1, m, j = 1003, 7, 6, 3
+    (r2, s1, s2), (second, breakdown) = NORMALIZE_CASES[case]
+    w1, w2 = _pair(rng, dtype, n), _pair(rng, dtype, n)
+    if case == "zero":
+        for t in (*w1, *w2):
+            t.zero_()
+    h1, c = _pair(rng, dtype, m1), _pair(rng, dtype, m1)
+    # Rank 0 holds most of s2, the others small parts of either sign.
+    parts = np.full(P, s2 * 1e-3) * rng.uniform(-1, 1, P)
+    parts[0] = s2 - parts[1:].sum()
+    lo = 2.0 ** (-27 if dtype == torch.float32 else -56)
+    buf = torch.from_numpy(np.stack((parts, parts * lo), axis=1)).to(dtype)
+    g = df.Gathered(buf.contiguous(), 1, (0,))
+    sh, sl = df.df_rank_sum_plain(g.hi, g.lo)
+    outs = []
+    for kernel in (True, False):
+        out = (torch.full((n,), 7.0, dtype=dtype),
+               torch.full((n,), 7.0, dtype=dtype))
+        H = (torch.full((m1, m), 7.0, dtype=dtype),
+             torch.full((m1, m), 7.0, dtype=dtype))
+        flags = torch.full((m,), 7.0, dtype=dtype)
+        step = df.DgksStep(_sum(r2, dtype), w2, g if kernel else (sh[0], sl[0]),
+                           h1, c, H, j, flags)
+        if kernel:
+            host_kernel.normalize(w1, _sum(s1, dtype), out, step)
+        else:
+            df.df_normalize_plain(w1, _sum(s1, dtype), out, step)
+        outs.append((*out, *H, flags))
+    assert _same(outs[0], outs[1])
+    assert float(outs[0][4][j]) == float(breakdown)
+    assert host_kernel.gathered == {"df_axpy": 0, "df_normalize": 1}
+    # The plain version's gathered form is the same sum, then the same step.
+    out = tuple(torch.full((n,), 7.0, dtype=dtype) for _ in range(2))
+    H = tuple(torch.full((m1, m), 7.0, dtype=dtype) for _ in range(2))
+    flags = torch.full((m,), 7.0, dtype=dtype)
+    df.df_normalize_plain(w1, _sum(s1, dtype), out, df.DgksStep(
+        _sum(r2, dtype), w2, g, h1, c, H, j, flags))
+    assert _same((*out, *H, flags), outs[1])
+
+
+def test_normalize_gathered_s2_refusals(host_kernel):
+    """A gathered s2 is one sum of the step form."""
+    x = torch.zeros(8)
+    H = (torch.zeros(3, 2), torch.zeros(3, 2))
+    two = df.Gathered(torch.zeros(2, 4), 2, (0, 1))
+    with pytest.raises(ValueError, match="one sum"):
+        host_kernel.normalize((x, x), (x[0], x[0]), (x, x), df.DgksStep(
+            (x[0], x[0]), (x, x), two, (x[:3], x[:3]), (x[:3], x[:3]), H, 0,
+            x[:2]))
+
+
+def test_gathered_forms_source_mutation_fails(mutant, monkeypatch):
+    """rank_fold's swapped operand changes the folded record of df_axpy's
+    gathered form and df_normalize's decision from a gathered s2: the
+    comparisons above see it."""
+    K = _host_kernel(mutant, monkeypatch)
+    rng = np.random.default_rng(8)
+    w, V = _pair(rng, torch.float32, 300), _pair(rng, torch.float32, 7, 300)
+    g = _gathered(rng, torch.float32, 4, 7)
+    _, folded = K.axpy_gathered(*w, g, *V, 7, True)
+    assert not _same(folded, df.df_rank_sum_plain(g.hi, g.lo))
+    parts = torch.tensor([[9.0, 1e-7], [-7.5, 3e-8], [0.25, -1e-8],
+                          [1e-3, 2e-9]])
+    g = df.Gathered(parts, 1, (0,))
+    sh, sl = df.df_rank_sum_plain(g.hi, g.lo)
+    w1, w2 = _pair(rng, torch.float32, 64), _pair(rng, torch.float32, 64)
+    rows = []
+    for s2 in (g, (sh[0], sl[0])):
+        out = (torch.zeros(64), torch.zeros(64))
+        zeros = (torch.zeros(7), torch.zeros(7))
+        step = df.DgksStep(_sum(9.0, torch.float32), w2, s2, zeros, zeros,
+                           (torch.zeros(7, 6), torch.zeros(7, 6)), 3,
+                           torch.zeros(6))
+        (K.normalize if s2 is g else df.df_normalize_plain)(
+            w1, _sum(2.25, torch.float32), out, step)
+        rows.append(out)
+    assert not _same(rows[0], rows[1])

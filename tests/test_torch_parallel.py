@@ -33,10 +33,13 @@ import arnoldimethod_torch as tam
 import torch_parallel_worker as W
 from arnoldimethod_tpu.models import problems as jp
 from arnoldimethod_tpu.models.operators import CsrOperator as JCsr
+from arnoldimethod_tpu.models.operators import DiaOperator as JDia
 from arnoldimethod_tpu.models.operators import ShardedCsrOperator as JSharded
 from arnoldimethod_tpu.parallel import make_mesh as jax_mesh
+from arnoldimethod_tpu.parallel import shard_operator as jax_shard
 from arnoldimethod_torch import _device
 from arnoldimethod_torch.models import problems as tp
+from arnoldimethod_torch.models.operators import DiaOperator
 
 torch.set_num_threads(2)
 
@@ -69,6 +72,9 @@ def _inputs(world):
         x_256=np.linspace(-1, 1, N),
     )
     inp["dense_indptr"], inp["dense_indices"] = _dense_pattern()
+    rng16 = np.random.default_rng(16)
+    inp["dia16"], inp["x_16"] = (rng16.standard_normal((3, 16)),
+                                 rng16.standard_normal(16))
     _, indptr, indices, data = W.banded_csr(N)
     for mode in ("all", "footprint") if world > 1 else ("all",):
         sop = JSharded.build(indptr, indices, data, (N, N), jax_mesh(world),
@@ -133,6 +139,8 @@ def _reference(name):
             jop = JCsr(*W.powerlaw_csr(N, seed=2)[1:], (N, N))
         elif name == "lap2d":
             jop = jp.laplacian_2d(16, 16)
+        elif name == "wide_dia":
+            jop = JDia(*W.wide_band(N, 100), (N, N))
         else:
             jop = jp.laplacian_1d(N)
         dj, hj = jam.partial_schur(jop, **jkw)
@@ -212,6 +220,17 @@ def test_sharded_laplacian_2d_residual(job):
     A = _dense(tp.laplacian_2d(16, 16), N)
     Q, R = got[0]["Q"], got[0]["R"]
     assert np.linalg.norm(A @ Q - Q @ R) < 1e-6
+
+
+def test_sharded_wide_band_dia_solve(job):
+    """A DIA band of +-100 at N = 256, wider than a rank's 64 rows at 4
+    ranks (the halo reaches ranks +-2): JAX's single-device count, the
+    port's unsharded count, the eigenvalues to 1e-10 and the Schur
+    residual."""
+    got = _check_solve(job, "wide_dia")
+    A = _dense(DiaOperator(*W.wide_band(N, 100), (N, N)), N)
+    Q, R = got[0]["Q"], got[0]["R"]
+    assert np.linalg.norm(A @ Q - Q @ R) < 1e-8
 
 
 def test_q_is_a_dtensor_sharded_over_the_mesh(job):
@@ -332,6 +351,62 @@ def test_lowsync_fewer_all_reduces(job):
         dgks = sum(s["all_reduce"]["calls"] for s in r["steps"])
         assert r["lowsync"]["all_reduce"]["calls"] == 2 * len(r["steps"])
         assert r["lowsync"]["all_reduce"]["calls"] < dgks
+
+
+# -- the halo: any band (F8) --------------------------------------------------
+
+
+def _check_halo(job):
+    """Every rank's RowComm.halo of x = 1..16 equals the slice of the
+    zero-padded global x; one all_to_all_single when P > 1 and the halo is
+    not empty, receiving the halo's entries that lie in [0, n)."""
+    n, P = 16, job.world
+    nl = n // P
+    x = np.arange(1.0, n + 1.0)
+    got = job.case("halo")
+    for r, res in enumerate(got):
+        keys = [k for k in res if isinstance(k, tuple)]
+        assert {min(nl, n - 1), n - 1} <= {lo for lo, _ in keys}
+        for lo, hi in keys:
+            want = np.pad(x, (lo, hi))[r * nl:r * nl + nl + lo + hi]
+            assert np.array_equal(res[lo, hi]["y"], want), (r, lo, hi)
+            inside = (min(lo, r * nl) + min(hi, n - (r + 1) * nl)
+                      if P > 1 and lo + hi > 0 else 0)
+            halo = res[lo, hi]["collectives"]["halo"]
+            assert halo == {"calls": int(P > 1 and lo + hi > 0),
+                            "bytes": 8 * inside}, (r, lo, hi)
+        pairs = np.pad(x, (5, n - 1))[r * nl:r * nl + nl + 5 + n - 1]
+        assert np.array_equal(res["pairs"], np.stack((pairs, -pairs), axis=1))
+        assert res["refused"][0] == "ValueError"
+
+
+def test_halo_is_the_padded_slice(job):
+    _check_halo(job)
+
+
+def test_one_rank_halo_is_the_padded_slice(job1):
+    _check_halo(job1)
+
+
+def test_wide_band_dia_matvec_matches_jax(job):
+    """F8 at its size: offsets (-5, 0, 5) at n = 16 (a rank's 4 rows at 4
+    ranks): the sharded matvec and matvec_df are the unsharded ones bit
+    for bit (the same shifted products in the same order), and the matvec
+    equals JAX's on a mesh of as many CPU devices; one halo a matvec."""
+    inp = _inputs(1)
+    op = DiaOperator(inp["dia16"], (-5, 0, 5), (16, 16))
+    x = torch.from_numpy(inp["x_16"])
+    got = job.case("wide_matvec")
+    assert all(r["operator"] == "_ShardedDia" for r in got)
+    assert all(r["collectives"]["halo"]["calls"] == 1 for r in got)
+    y = np.concatenate([r["y"] for r in got])
+    assert np.array_equal(y, op.matvec(x).numpy())
+    yh, yl = op.matvec_df(x, x * 2.0 ** -60)
+    assert np.array_equal(np.concatenate([r["yh"] for r in got]), yh.numpy())
+    assert np.array_equal(np.concatenate([r["yl"] for r in got]), yl.numpy())
+    jop = jax_shard(JDia(inp["dia16"], (-5, 0, 5), (16, 16)), jax_mesh(job.world))
+    yj = np.asarray(jop.matvec(jnp.asarray(inp["x_16"])))
+    assert np.abs(y - yj).max() <= 1e-14 * np.abs(yj).max()
 
 
 # -- checkpoints, refusals ----------------------------------------------------

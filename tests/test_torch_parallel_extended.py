@@ -1,7 +1,9 @@
-"""extended=True with sharding= (the double-word sums over the ranks,
-`parallel.comm.RowComm.df_sum` and `ops.df.df_rank_sum`) on gloo process
-groups of 1, 2 and 4 CPU processes, against the unsharded port and the
-JAX package's single-device solves.
+"""extended=True with sharding= (the double-word sums over the ranks:
+`parallel.comm.RowComm.gather_partials`, folded by `ops.df.df_axpy_gathered`
+and df_normalize's step form inside a Krylov step, by `RowComm.df_sum` and
+`ops.df.df_rank_sum` elsewhere) on gloo process groups of 1, 2 and 4 CPU
+processes, against the unsharded port and the JAX package's single-device
+solves.
 
 Each world size is one job of tests/torch_parallel_worker.py's "extended"
 cases (the jobs of tests/test_torch_parallel.py run the others).  What the
@@ -36,6 +38,7 @@ import arnoldimethod_tpu as jam
 import arnoldimethod_torch as tam
 import torch_parallel_worker as W
 from arnoldimethod_tpu.models import problems as jp
+from arnoldimethod_tpu.models.operators import DiaOperator as JDia
 from arnoldimethod_torch import _device
 from arnoldimethod_torch.models import problems as tp
 
@@ -79,7 +82,8 @@ def _jax_counts(inp):
     cases from the same v1."""
     ops = {"ext_lap256": jp.laplacian_1d(N, dtype=np.float32),
            "ext_conv16": jp.convection_diffusion_2d(
-               16, peclet=68.0, dtype=np.float32, fmt="stencil")}
+               16, peclet=68.0, dtype=np.float32, fmt="stencil"),
+           "ext_wide": JDia(*W.wide_band(N, 100, np.float32), (N, N))}
     out = {}
     for name, jop in ops.items():
         kw = W.EXT_SOLVES[name][1]
@@ -194,16 +198,17 @@ def test_one_rank_sums_gather_and_launch(job1):
 # -- 2 and 4 ranks -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["ext_lap256", "ext_conv16"])
+@pytest.mark.parametrize("name", ["ext_lap256", "ext_conv16", "ext_wide"])
 def test_sharded_f32_words_take_jax_counts(job, job1, jax_counts, name):
     """Every rank: JAX's single-device count from the same v1, the same R
     bit for bit, Q placed Shard(0) over the mesh, and the Schur residual
-    below 1e-11 in float64."""
+    below 1e-11 in float64.  ext_wide's band of +-100 is wider than a
+    rank's 64 rows at 4 ranks (F8)."""
     got = job.case(name)
     port = _unsharded(job1, name)
     op = W.EXT_SOLVES[name][0](None)
     A = _dense(op, N)
-    want = "_ShardedDia" if name == "ext_lap256" else "GatheredOperator"
+    want = "GatheredOperator" if name == "ext_conv16" else "_ShardedDia"
     for res in got:
         assert res["converged"] and res["operator"] == want
         assert (res["mvproducts"], res["restarts"]) == jax_counts[name]
@@ -250,7 +255,7 @@ def test_sharded_f64_words_take_the_unsharded_count(job, job1):
     assert _exact_lap_residual(r["Q"], r["Q_lo"], r["R"], r["R_lo"]) < 1e-24
 
 
-@pytest.mark.parametrize("name", ["lap256", "conv16", "breakdown"])
+@pytest.mark.parametrize("name", ["lap256", "wide", "conv16", "breakdown"])
 def test_sharded_range_is_bitwise_stepwise(job, name):
     """The sharded df_expand_range against df_expand_range_stepwise from one
     start and one generator seed: V, its low word and both Hessenberg
@@ -271,6 +276,24 @@ def test_sharded_range_is_bitwise_stepwise(job, name):
                             job.case("ext_stepwise")], axis=1).astype(float)
         G = V[:3] @ V[:3].T
         assert np.abs(G - np.eye(3)).max() < 1e-6
+
+
+def _check_step_forms(job):
+    """Each step of the range, from one state: the gathered step (each sum
+    folded by the kernel that consumes it) bitwise the step that sums with
+    df_rank_sum first, on every rank."""
+    for r in job.case("ext_step_forms"):
+        assert len(r["gathered"]) == len(r["rank_sum"]) == 20
+        for a, b in zip(r["gathered"], r["rank_sum"]):
+            assert all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+def test_gathered_step_is_bitwise_the_rank_sum_step(job):
+    _check_step_forms(job)
+
+
+def test_one_rank_gathered_step_is_bitwise_the_rank_sum_step(job1):
+    _check_step_forms(job1)
 
 
 def test_extended_step_collective_budget(job):

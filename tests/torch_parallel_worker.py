@@ -85,6 +85,20 @@ def dense_to_csr(A):
     return indptr, np.nonzero(nz)[1].astype(np.int32), A[nz]
 
 
+def wide_band(n, band, dtype=np.float64):
+    """(diags, offsets) of the 1-D Laplacian with a coupling of -1/4 at
+    +-band: a symmetric band wider than a rank's rows once n/P < band
+    (n = 256, band = 100 at 4 ranks); diags[d, i] = A[i, i + offsets[d]],
+    zero where out of range, for the DiaOperator of either package."""
+    offsets = (-band, -1, 0, 1, band)
+    i = np.arange(n)
+    diags = np.zeros((len(offsets), n), dtype=dtype)
+    for d, (off, v) in enumerate(zip(offsets, (-0.25, -1.0, 2.0, -1.0,
+                                               -0.25))):
+        diags[d, (i + off >= 0) & (i + off < n)] = v
+    return diags, offsets
+
+
 def tridiag_shift_invert(n=1024):
     """The JAX test's n = 1024 nonsymmetric tridiagonal at sigma = 0."""
     return tam.TridiagonalShiftInvertOperator.build(
@@ -120,6 +134,8 @@ SOLVES = {
                  dict(v1="v1_256", nev=4, which="LM", tol=1e-8)),
     "lap2d": (lambda inp: tp.laplacian_2d(16, 16),
               dict(v1="v1_256", nev=5, which="SR", tol=1e-8)),
+    "wide_dia": (lambda inp: DiaOperator(*wide_band(256, 100), (256, 256)),
+                 dict(v1="v1_256", nev=4, which="SR", tol=1e-8)),
 }
 
 
@@ -232,6 +248,44 @@ def case_budget(ctx):
                 n=n, m=m)
 
 
+def case_halo(ctx):
+    """RowComm.halo of x = 1..16 at every lo, hi of {0, 1, n/P, n/P + 1,
+    n - 1} below n: this rank's result and the collectives each made;
+    and one halo of (n/P, 2) rows, both words of a pair."""
+    n = 16
+    comm = row_comm(basis_sharding(ctx.mesh), n)
+    x = comm.local(torch.arange(1.0, n + 1.0, dtype=torch.float64))
+    sizes = sorted(v for v in {0, 1, comm.n_local, comm.n_local + 1, n - 1}
+                   if v < n)
+    out = {}
+    for lo in sizes:
+        for hi in sizes:
+            COLLECTIVES.reset()
+            y = comm.halo(x, lo, hi)
+            out[lo, hi] = dict(y=y.numpy(), collectives=COLLECTIVES.snapshot())
+    out["pairs"] = comm.halo(torch.stack((x, -x), dim=1), 5, n - 1).numpy()
+    out["refused"] = _message(lambda: comm.halo(x, n, 0))
+    return out
+
+
+def case_wide_matvec(ctx):
+    """F8: the DiaOperator of offsets (-5, 0, 5) at n = 16, a band wider
+    than a rank's 4 rows at 4 ranks: this rank's rows of the sharded
+    matvec and matvec_df (one halo each), and the collectives of the
+    matvec."""
+    n = 16
+    op = DiaOperator(ctx.inputs["dia16"], (-5, 0, 5), (n, n))
+    sop = shard_operator(op, ctx.mesh)
+    x = torch.from_numpy(ctx.inputs["x_16"])
+    xl = x * 2.0 ** -60
+    COLLECTIVES.reset()
+    y = sop.matvec(sop.comm.local(x))
+    counts = COLLECTIVES.snapshot()
+    yh, yl = sop.matvec_df(sop.comm.local(x), sop.comm.local(xl))
+    return dict(operator=type(sop).__name__, y=y.numpy(), yh=yh.numpy(),
+                yl=yl.numpy(), collectives=counts)
+
+
 def case_checkpoint(ctx):
     """A sharded solve saved (rank 0 writes the global checkpoint), loaded
     on every rank with its sharding and warm-started to more eigenvalues."""
@@ -293,6 +347,8 @@ CASES = {
     "csr": case_csr,
     "convert": case_convert,
     "budget": case_budget,
+    "halo": case_halo,
+    "wide_matvec": case_wide_matvec,
     "checkpoint": case_checkpoint,
     "errors": case_errors,
 }
@@ -315,6 +371,9 @@ EXT_SOLVES = {
                         mindim=30, maxdim=60, restarts=1000)),
     "ext_dd40": (lambda inp: tp.laplacian_1d(40, dtype=torch.float64),
                  dict(v1="v1_40", nev=4, which="SR", tol=1e-24)),
+    "ext_wide": (lambda inp: DiaOperator(*wide_band(256, 100, np.float32),
+                                         (256, 256)),
+                 dict(v1="v1_256", nev=4, which="SR", tol=1e-12)),
 }
 
 
@@ -373,10 +432,11 @@ def _ext_start(ctx, op, v1, m, dtype):
 
 def case_ext_stepwise(ctx):
     """The sharded df_expand_range against df_expand_range_stepwise from
-    the same start and the same generator seed: laplacian_1d(256) and
-    config 3's stencil in float32 words, and a diagonal operator whose
-    start spans two eigenvectors (a breakdown at step 2, finished on the
-    breakdown path with a random row).  Both results and the host reads."""
+    the same start and the same generator seed: laplacian_1d(256), the
+    wide band and config 3's stencil in float32 words, and a diagonal
+    operator whose start spans two eigenvectors (a breakdown at step 2,
+    finished on the breakdown path with a random row).  Both results and
+    the host reads."""
     n = 256
     diag = DiaOperator(torch.arange(1.0, n + 1.0)[None], (0,), (n, n))
     assert diag.dtype == torch.float32
@@ -384,6 +444,8 @@ def case_ext_stepwise(ctx):
     two[[3, n - 5]] = 1.0
     ops = {"lap256": (tp.laplacian_1d(n, dtype=torch.float32),
                       ctx.inputs["v1_256"], 20),
+           "wide": (EXT_SOLVES["ext_wide"][0](ctx.inputs),
+                    ctx.inputs["v1_256"], 20),
            "conv16": (EXT_SOLVES["ext_conv16"][0](ctx.inputs),
                       ctx.inputs["v1_conv"], 30),
            "breakdown": (diag, two, 8)}
@@ -400,6 +462,46 @@ def case_ext_stepwise(ctx):
             res[way] = dict(V=V.numpy(), Vl=Vl.numpy(), Hh=Hh.numpy(),
                             Hl=Hl.numpy(), reads=reads)
         out[name] = res
+    return out
+
+
+def _rank_sum_step(op, Vh, Vl, Hh, Hl, j, flags, comm):
+    """A sharded Krylov step with each sum over the ranks one df_sum (a
+    gather, then df_rank_sum), then df_axpy and df_normalize on the sums:
+    the step before its kernels folded the sums themselves."""
+    from arnoldimethod_torch.ops import df
+
+    rows = j + 1
+    wh, wl = tde._matvec_df(op, Vh[j], Vl[j])
+    sh, sl = comm.df_sum([tde._sumsq(wh, wl),
+                          df.df_project(Vh, Vl, wh, wl, rows)])
+    r2, h1 = (sh[0], sl[0]), (sh[1:], sl[1:])
+    w1, s1 = df.df_axpy(wh, wl, *h1, Vh, Vl, rows, True)
+    sh, sl = comm.df_sum([s1, df.df_project(Vh, Vl, *w1, rows)])
+    s1, c = (sh[0], sl[0]), (sh[1:], sl[1:])
+    w2, s2 = df.df_axpy(*w1, *c, Vh, Vl, rows, True)
+    sh, sl = comm.df_sum([s2])
+    df.df_normalize(w1, s1, (Vh[rows], Vl[rows]), df.DgksStep(
+        r2, w2, (sh[0], sl[0]), h1, c, (Hh, Hl), j, flags))
+
+
+def case_ext_step_forms(ctx):
+    """Steps 0..19 of config 3's stencil at 16^2 in float32 words, each
+    run from one state both ways (`df_expansion._step`, its sums folded
+    by the gathered forms, and `_rank_sum_step`): this rank's rows j + 1,
+    H's columns and the flags of each way."""
+    op = EXT_SOLVES["ext_conv16"][0](ctx.inputs)
+    sop = shard_operator(op, ctx.mesh)
+    comm, V, Vl, Hh, Hl = _ext_start(ctx, op, ctx.inputs["v1_conv"], 20,
+                                     torch.float32)
+    flags = torch.zeros(20)
+    out = {"gathered": [], "rank_sum": []}
+    for j in range(20):
+        for way, step in (("rank_sum", _rank_sum_step),
+                          ("gathered", tde._step)):
+            step(sop, V, Vl, Hh, Hl, j, flags, comm)
+            out[way].append([t.numpy().copy() for t in (
+                V[j + 1], Vl[j + 1], Hh[:, j], Hl[:, j], flags[j:j + 1])])
     return out
 
 
@@ -453,6 +555,7 @@ EXT_CASES = {
     **{name: (lambda ctx, name=name: ext_solve_case(ctx, name))
        for name in EXT_SOLVES},
     "ext_stepwise": case_ext_stepwise,
+    "ext_step_forms": case_ext_step_forms,
     "ext_budget": case_ext_budget,
     "ext_checkpoint": case_ext_checkpoint,
 }
