@@ -1,0 +1,4 @@
+"""dense_s_per_solve.filtered: dense_s_per_solve in the filtered recipe's cells, where it
+moves filtered_solve_s."""
+
+from cardbench.metrics.dense_s_per_solve import read  # noqa: F401

@@ -1,0 +1,4 @@
+"""matvecs_per_solve.filtered: matvecs_per_solve in the filtered recipe's cells, where it
+moves filtered_solve_s."""
+
+from cardbench.metrics.matvecs_per_solve import read  # noqa: F401
