@@ -7,6 +7,10 @@ float64 (or double-double) dense kernels for the (maxdim+1)-sized work
 (Francis QR, reordering, restoration, dense/).  All restart decisions (locking counts,
 purge index, conjugate-pair splits, truncation size) are made on the host
 from the small H; each restart pays one device step and one H readback.
+Each phase of a solve is a span of trace.py: its host seconds go to
+`History.timings`, and while a torch profiler records it is the range
+arnoldi:<phase> (partial_schur > expand, dense_restart > schur and
+reorder, truncate_expand, finish; the expansions' steps below them).
 
 Behavioral reference: arnoldimethod_tpu/driver.py (the host method), which
 follows ArnoldiMethod.jl src/run.jl (driver `_partialschur` :224-392,
@@ -17,11 +21,11 @@ convergence criterion :188-208, three-way partition :394-457, final sort
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 
+from . import trace
 from .dense import native as _native
 from .dense.device import STATE
 from .dense.eig import collect_eigen, copy_eigenvalues, eigenvalue
@@ -101,9 +105,21 @@ class History:
     restart cycles and `purges` the restarts in which a previously locked
     Schur vector was purged (ref: run.jl:341-353).
 
-    `timings` holds host wall-clock seconds: 'device' covers the device
-    steps up to and including each H readback, 'dense' the host restart
-    kernels.  `dense_layer` names the host dense layer that ran ("native",
+    `timings` holds host wall-clock seconds of the solve's phases (trace.py
+    keeps them), every key present for every method; a child's phase lies
+    inside its parent's:
+      'device': the expansion's host span, waits on the card included:
+        every Krylov range with its H readback, and the final basis change
+        (method="device": the whole fused solve, restarts included);
+        'sync_wait' (child of 'device'): every device-to-host read inside
+          it, so device - sync_wait is the host's own enqueue work;
+      'dense': the host dense restart, and the final sort (0.0 with
+        method="device");
+        'dense_schur' (child of 'dense'): Francis QR, the Ritz values and
+          the residual estimates of each restart;
+        'dense_reorder' (child of 'dense'): the three-way partition and
+          the Hessenberg restore of each restart, and the final sort.
+    `dense_layer` names the host dense layer that ran ("native",
     the C++ core, or "numpy"), and `host_syncs` counts the device-to-host
     reads the expansion made to branch on: on the DGKS path one or two per
     Krylov step, the H readbacks not included; on the low-sync path
@@ -476,7 +492,7 @@ def partial_schur(
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
 
-    with fp32_matmul():
+    with fp32_matmul(), trace.solve() as timings:
         if workspace is None:
             ws = ArnoldiWorkspace(n, maxdim, dtype=work_dtype, device=dev,
                                   sharding=sharding)
@@ -512,11 +528,11 @@ def partial_schur(
         if method == "device":
             schur, history = _partial_schur_device(
                 op, ws, mindim, maxdim, nev, tol, restarts, target, generator,
-                active0, comm)
+                timings, active0, comm)
         else:
             schur, history = _partial_schur(
                 op, ws, mindim, maxdim, nev, tol, restarts, target, order_key,
-                active0, generator, extended, lowsync,
+                active0, generator, timings, extended, lowsync,
                 sc=bool(split_complex) and work_dtype.is_complex, comm=comm,
             )
     if comm is not None:
@@ -548,27 +564,28 @@ def _df_words(Qbig, dd, V):
 
 
 def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
-                          target, generator, active0=0, comm=None):
+                          target, generator, timings, active0=0, comm=None):
     """The solve with its restarts on the device (fused.py), repackaged in
     the same PartialSchur/History types, leaving the workspace coherent for
     a later warm start by either method.  For a warm start the locked H
-    block goes through the working dtype, as in the JAX package."""
-    t0 = time.perf_counter()
-    V = ws.V
-    Hdev = torch.as_tensor(ws.H).to(dtype=V.dtype, device=V.device)
-    lam, state, reads = fused_solve(
-        op, V, Hdev, nev, mindim, tol, restarts, generator,
-        type(target).__name__, active0, comm=comm)
-    # One batched readback of everything the host needs.
-    packed = torch.cat((Hdev.reshape(-1), lam.reshape(-1),
-                        state.to(Hdev.dtype))).cpu().numpy()
-    reads += 1
-    m = maxdim
-    Hh = packed[:Hdev.numel()].reshape(Hdev.shape).astype(ws.H.dtype)
-    lre = packed[Hdev.numel():Hdev.numel() + m].astype(np.float64)
-    lim = packed[Hdev.numel() + m:Hdev.numel() + 2 * m].astype(np.float64)
-    st = packed[Hdev.numel() + 2 * m:].astype(np.int64)
-    device_s = time.perf_counter() - t0
+    block goes through the working dtype, as in the JAX package.  The
+    whole fused solve is timings["device"]; "dense" and its parts stay
+    0.0."""
+    with trace.span(key="device"):
+        V = ws.V
+        Hdev = torch.as_tensor(ws.H).to(dtype=V.dtype, device=V.device)
+        lam, state, reads = fused_solve(
+            op, V, Hdev, nev, mindim, tol, restarts, generator,
+            type(target).__name__, active0, comm=comm)
+        # One batched readback of everything the host needs.
+        packed = trace.to_numpy(torch.cat((Hdev.reshape(-1), lam.reshape(-1),
+                                           state.to(Hdev.dtype))))
+        reads += 1
+        m = maxdim
+        Hh = packed[:Hdev.numel()].reshape(Hdev.shape).astype(ws.H.dtype)
+        lre = packed[Hdev.numel():Hdev.numel() + m].astype(np.float64)
+        lim = packed[Hdev.numel() + m:Hdev.numel() + 2 * m].astype(np.float64)
+        st = packed[Hdev.numel() + 2 * m:].astype(np.int64)
     if not st[STATE["qr_ok"]]:
         raise RuntimeError("QR algorithm did not converge")
     ncv = int(st[STATE["active"]])
@@ -581,7 +598,7 @@ def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
     history = History(
         int(st[STATE["prods"]]), ncv, ncv >= nev, nev,
         restarts=int(st[STATE["it"]]), purges=int(st[STATE["purges"]]),
-        timings={"device": device_s, "dense": 0.0}, host_syncs=reads,
+        timings=timings, host_syncs=reads,
     )
     lam_c = lre + 1j * lim
     schur = PartialSchur(None, Hh[:ncv, :ncv].copy(), lam_c[:ncv].copy(),
@@ -590,7 +607,7 @@ def _partial_schur_device(op, ws, mindim, maxdim, nev, tol, restarts,
 
 
 def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
-                   order_key, active0, generator, extended=False,
+                   order_key, active0, generator, timings, extended=False,
                    lowsync=False, sc=False, comm=None):
     m = maxdim
     # Dense restart kernels: the native C++ core when it builds and the
@@ -627,7 +644,6 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     prods = m - active0
     purge_events = 0
     syncs = 0
-    timings = {"device": 0.0, "dense": 0.0}
 
     Vlo = Hlo = None
     if extended:
@@ -650,8 +666,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     # stops at mindim first, but nothing happens in between,
     # run.jl:260-275).  The host array stays authoritative for locked
     # columns (no low-precision round trip of converged data).
-    t0 = time.perf_counter()
-    with torch.profiler.record_function("arnoldi:expand"):
+    with trace.span("expand", "device"):
         if lowsync:
             Hpull, _, reads = expand_range_lowsync(op, V, Hdev, active0, m,
                                                    generator, comm)
@@ -665,15 +680,15 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
             else:
                 syncs += expand_range(op, V, Hdev, active0, m, generator,
                                       comm)
-                Hpull = Hdev.cpu().numpy()
-    if dd:
-        # The host Hessenberg becomes an object array of DD scalars for the
-        # whole restart loop; a warm start rehydrates the locked block from
-        # both words (ws.H the hi words, ws.Hlo the lo words).
-        resume = active0 > 0 and ws.Hlo is not None
-        H = dd_pack(H, ws.Hlo) if resume else dd_pack(H)
-    H[:, active0:m] = Hpull[:, active0:m]
-    timings["device"] += time.perf_counter() - t0
+                Hpull = trace.to_numpy(Hdev)
+        if dd:
+            # The host Hessenberg becomes an object array of DD scalars for
+            # the whole restart loop; a warm start rehydrates the locked
+            # block from both words (ws.H the hi words, ws.Hlo the lo
+            # words).
+            resume = active0 > 0 and ws.Hlo is not None
+            H = dd_pack(H, ws.Hlo) if resume else dd_pack(H)
+        H[:, active0:m] = Hpull[:, active0:m]
 
     # On exit, `pending_Q` holds the not-yet-applied final truncation; it
     # is composed with the final sort into a single GEMM.
@@ -682,87 +697,91 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
     it = 0
     for it in range(1, restarts + 1):
         # Dense restart phase (host, f64).
-        t0 = time.perf_counter()
-        Q = np.eye(m, dtype=H.dtype)
-        if use_native:
-            _native.local_schur(H[:m, :], active, m, Q)
-            _native.copy_eigenvalues(lams, H[:m, :], 0, m)
-            _native.copy_residuals(rs, H[:m, :], Q, H[m, m - 1], active, m)
-            He, Qe = H, Q
-        else:
-            local_schur(H[:m, :], active, m, Q, tol=dense_tol)
-            copy_eigenvalues(lams, H[:m, :], 0, m, tol=dense_tol)
-            # Residual estimates in float64 even in dd mode: the tiny
-            # last-row couplings are exact float64 values (only their low
-            # words drop), all the locking decision needs.  The similarity
-            # transforms above stay double-double.
-            He = dd_collapse(H) if dd else H
-            Qe = dd_collapse(Q) if dd else Q
-            _copy_residuals(rs, He, Qe, He[m, m - 1], x, active, m)
-        _schur_coupling_floor(rs, He, Qe, He[m, m - 1], active, m)
-        ord_ = np.array(
-            sorted(range(m), key=lambda i: (order_key(lams[i]), i))
-        )
-        h_frob = np.linalg.norm(dd_hi(H) if dd else H)
+        with trace.span("dense_restart", "dense"):
+            Q = np.eye(m, dtype=H.dtype)
+            with trace.span("schur", "dense_schur"):
+                if use_native:
+                    _native.local_schur(H[:m, :], active, m, Q)
+                    _native.copy_eigenvalues(lams, H[:m, :], 0, m)
+                    _native.copy_residuals(rs, H[:m, :], Q, H[m, m - 1],
+                                           active, m)
+                    He, Qe = H, Q
+                else:
+                    local_schur(H[:m, :], active, m, Q, tol=dense_tol)
+                    copy_eigenvalues(lams, H[:m, :], 0, m, tol=dense_tol)
+                    # Residual estimates in float64 even in dd mode: the
+                    # tiny last-row couplings are exact float64 values (only
+                    # their low words drop), all the locking decision
+                    # needs.  The similarity transforms above stay
+                    # double-double.
+                    He = dd_collapse(H) if dd else H
+                    Qe = dd_collapse(Q) if dd else Q
+                    _copy_residuals(rs, He, Qe, He[m, m - 1], x, active, m)
+                _schur_coupling_floor(rs, He, Qe, He[m, m - 1], active, m)
+            ord_ = np.array(
+                sorted(range(m), key=lambda i: (order_key(lams[i]), i))
+            )
+            h_frob = np.linalg.norm(dd_hi(H) if dd else H)
 
-        def isconverged(idx):
-            return rs[idx] <= max(eps_work * h_frob, tol * abs(lams[idx]))
+            def isconverged(idx):
+                return rs[idx] <= max(eps_work * h_frob, tol * abs(lams[idx]))
 
-        # [locked | retained | purged] partitioning.  Keep nev or nev+1
-        # depending on whether the cut would split a conjugate pair.
-        effective_nev = nev + 1 if _is_pair_at(lams, ord_, nev - 1, is_real) else nev
+            # [locked | retained | purged] partitioning.  Keep nev or nev+1
+            # depending on whether the cut would split a conjugate pair.
+            effective_nev = (nev + 1 if _is_pair_at(lams, ord_, nev - 1,
+                                                    is_real) else nev)
 
-        nlock = 0
-        for i in range(effective_nev):
-            if isconverged(ord_[i]):
-                groups[ord_[i]] = 1
-                nlock += 1
-            else:
-                groups[ord_[i]] = 2
+            nlock = 0
+            for i in range(effective_nev):
+                if isconverged(ord_[i]):
+                    groups[ord_[i]] = 1
+                    nlock += 1
+                else:
+                    groups[ord_[i]] = 2
 
-        # Truncation size k: roughly mindim active columns, at most halfway
-        # to maxdim, never splitting a pair (ref: run.jl:310-339).
-        ideal_size = min(nlock + mindim, (mindim + maxdim) // 2)
-        k = effective_nev
-        i = effective_nev
-        while i < m:
-            pair = _is_pair_at(lams, ord_, i, is_real)
-            num = 2 if pair else 1
-            if k < ideal_size and not isconverged(ord_[i]):
-                group = 2
-                k += num
-            else:
-                group = 3
-            groups[ord_[i]] = group
-            if pair:
-                groups[ord_[i + 1]] = group
-            i += num
+            # Truncation size k: roughly mindim active columns, at most halfway
+            # to maxdim, never splitting a pair (ref: run.jl:310-339).
+            ideal_size = min(nlock + mindim, (mindim + maxdim) // 2)
+            k = effective_nev
+            i = effective_nev
+            while i < m:
+                pair = _is_pair_at(lams, ord_, i, is_real)
+                num = 2 if pair else 1
+                if k < ideal_size and not isconverged(ord_[i]):
+                    group = 2
+                    k += num
+                else:
+                    group = 3
+                groups[ord_[i]] = group
+                if pair:
+                    groups[ord_[i + 1]] = group
+                i += num
 
-        # Index of the first formerly-locked vector that is being purged
-        # (ref: run.jl:341-353).
-        purge = 0
-        while purge < active and groups[purge] == 1:
-            purge += 1
-        if purge < active:
-            purge_events += 1
+            # Index of the first formerly-locked vector that is being purged
+            # (ref: run.jl:341-353).
+            purge = 0
+            while purge < active and groups[purge] == 1:
+                purge += 1
+            if purge < active:
+                purge_events += 1
 
-        if use_native:
-            _native.partition_three_way(H[:m, :], Q, groups)
-            _native.restore_arnoldi(H, nlock, k, Q)
-        else:
-            _partition_three_way(H[:m, :], Q, groups)
-            restore_arnoldi(H, nlock, k, Q)
+            with trace.span("reorder", "dense_reorder"):
+                if use_native:
+                    _native.partition_three_way(H[:m, :], Q, groups)
+                    _native.restore_arnoldi(H, nlock, k, Q)
+                else:
+                    _partition_three_way(H[:m, :], Q, groups)
+                    restore_arnoldi(H, nlock, k, Q)
 
-        # Basis-change matrix: columns [purge, k) from Q, row k takes the
-        # old row m (the next-vector slot), everything else passes through
-        # untouched (ref: run.jl:363-365).
-        Qbig = np.eye(m + 1, dtype=H.dtype)
-        Qbig[:, purge:k] = 0
-        Qbig[purge:m, purge:k] = Q[purge:m, purge:k]
-        if k < m:
-            Qbig[:, k] = 0
-            Qbig[m, k] = 1
-        timings["dense"] += time.perf_counter() - t0
+            # Basis-change matrix: columns [purge, k) from Q, row k takes the
+            # old row m (the next-vector slot), everything else passes through
+            # untouched (ref: run.jl:363-365).
+            Qbig = np.eye(m + 1, dtype=H.dtype)
+            Qbig[:, purge:k] = 0
+            Qbig[purge:m, purge:k] = Q[purge:m, purge:k]
+            if k < m:
+                Qbig[:, k] = 0
+                Qbig[m, k] = 1
 
         active = nlock
         if active >= nev or it == restarts:
@@ -772,8 +791,7 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
 
         # The device step of this restart: apply the truncation to V and
         # expand from k back to maxdim; then the one H readback.
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("arnoldi:truncate_expand"):
+        with trace.span("truncate_expand", "device"):
             if extended:
                 # dd: Qbig's true hi/lo words (a split of the rounded value
                 # would zero the low word).
@@ -791,10 +809,9 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
                 else:
                     syncs += truncate_and_expand(op, V, Hdev, Qdev, k, m,
                                                  generator, comm)
-                    Hpull = Hdev.cpu().numpy()
-        H[:, k:m] = Hpull[:, k:m]
-        prods += m - k
-        timings["device"] += time.perf_counter() - t0
+                    Hpull = trace.to_numpy(Hdev)
+            H[:, k:m] = Hpull[:, k:m]
+            prods += m - k
 
         if _DEBUG and not sc and not dd:
             # The JAX package's exemptions: split-complex (there V is only
@@ -813,34 +830,37 @@ def _partial_schur(op, ws, mindim, maxdim, nev, tol, restarts, target,
 
     # Sort the converged eigenvalues in the user's target order, and apply
     # the pending truncation + sort to V in one composed GEMM.
-    t0 = time.perf_counter()
-    Q = np.eye(m, dtype=H.dtype)
-    if use_native:
-        _native.sort_schur(H[:m, :], Q, nconverged, type(target).__name__)
-    else:
-        _sort_schur(H[:m, :], Q, nconverged, order_key)
-    Qbig = np.eye(m + 1, dtype=H.dtype)
-    Qbig[:m, :m] = Q
-    if pending_Q is not None:
-        Qbig = pending_Q @ Qbig
-    timings["dense"] += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if extended:
-        df_apply_basis_change(V, Vlo, *_df_words(Qbig, dd, V))
-        if dd:
-            # hi + lo would round lo away: Q carries the hi words, Q_lo the
-            # rest (a copy each, as below).
-            Q_rows = V[:nconverged].clone()
-            Q_lo = Vlo[:nconverged].clone().T
-        else:
-            # float32 words: the combined value is exact in float64.
-            Q_rows = V[:nconverged].double() + Vlo[:nconverged].double()
-    else:
-        apply_basis_change(
-            V, torch.as_tensor(Qbig).to(dtype=V.dtype, device=V.device))
-        # A copy: the workspace's V changes under any later solve with it.
-        Q_rows = V[:nconverged].clone()
-    timings["device"] += time.perf_counter() - t0
+    with trace.span("finish"):
+        with trace.span(key="dense"):
+            Q = np.eye(m, dtype=H.dtype)
+            with trace.span("reorder", "dense_reorder"):
+                if use_native:
+                    _native.sort_schur(H[:m, :], Q, nconverged,
+                                       type(target).__name__)
+                else:
+                    _sort_schur(H[:m, :], Q, nconverged, order_key)
+            Qbig = np.eye(m + 1, dtype=H.dtype)
+            Qbig[:m, :m] = Q
+            if pending_Q is not None:
+                Qbig = pending_Q @ Qbig
+        with trace.span(key="device"):
+            if extended:
+                df_apply_basis_change(V, Vlo, *_df_words(Qbig, dd, V))
+                if dd:
+                    # hi + lo would round lo away: Q carries the hi words,
+                    # Q_lo the rest (a copy each, as below).
+                    Q_rows = V[:nconverged].clone()
+                    Q_lo = Vlo[:nconverged].clone().T
+                else:
+                    # float32 words: the combined value is exact in float64.
+                    Q_rows = (V[:nconverged].double()
+                              + Vlo[:nconverged].double())
+            else:
+                apply_basis_change(V, torch.as_tensor(Qbig).to(
+                    dtype=V.dtype, device=V.device))
+                # A copy: the workspace's V changes under any later solve
+                # with it.
+                Q_rows = V[:nconverged].clone()
 
     if nconverged > 0:
         if use_native:

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
 from .dense.device import STATE, finish, new_state, restart
 from .ops.expansion import apply_basis_change, expand_range_device, finish_breakdown
 
@@ -77,30 +78,39 @@ def fused_solve(op, V, H, nev, mindim, tol, restarts, generator, which,
     state = new_state(active0, m, restarts, device=H.device)
     Qbig = torch.empty((m + 1, m + 1), dtype=H.dtype, device=H.device)
     reads = 0
-    expand_range_device(op, V, H, active0, m, flags, comm)
+    with trace.span("expand"):
+        expand_range_device(op, V, H, active0, m, flags, comm)
     if restarts <= 0:
         # No dense phase reads the flags: settle the range here.
         while True:
-            broke = torch.nonzero(flags).flatten().tolist()
+            broke = torch.nonzero(flags).flatten()
+            with trace.span(key="sync_wait"):
+                broke = broke.tolist()
             reads += 1
             if not broke:
                 break
             _roll_back(op, V, H, flags, broke[0], m, generator, comm)
     else:
         while True:
-            restart(H, Qbig, state, flags, nev=nev, mindim=mindim, tol=tol,
-                    restarts=restarts, which=which, maxiter=maxiter_qr)
-            s = state.tolist()
+            with trace.span("dense_restart"):
+                restart(H, Qbig, state, flags, nev=nev, mindim=mindim,
+                        tol=tol, restarts=restarts, which=which,
+                        maxiter=maxiter_qr)
+                with trace.span(key="sync_wait"):
+                    s = state.tolist()
             reads += 1
             if s[STATE["rollback"]] >= 0:
                 _roll_back(op, V, H, flags, s[STATE["rollback"]], m,
                            generator, comm)
                 continue
-            apply_basis_change(V, Qbig)
             if s[STATE["done"]]:
+                apply_basis_change(V, Qbig)
                 break
-            expand_range_device(op, V, H, s[STATE["k"]], m, flags, comm)
-    lam = torch.empty((2, m), dtype=H.dtype, device=H.device)
-    finish(H, Qbig, lam, state, which)
-    apply_basis_change(V, Qbig)
+            with trace.span("truncate_expand"):
+                apply_basis_change(V, Qbig)
+                expand_range_device(op, V, H, s[STATE["k"]], m, flags, comm)
+    with trace.span("finish"):
+        lam = torch.empty((2, m), dtype=H.dtype, device=H.device)
+        finish(H, Qbig, lam, state, which)
+        apply_basis_change(V, Qbig)
     return lam, state, reads

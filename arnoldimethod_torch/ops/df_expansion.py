@@ -56,6 +56,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from . import df, df32
 from .df32 import ETA
 from .expansion import LOWSYNC
@@ -75,7 +76,7 @@ __all__ = [
 def _host(*scalars):
     """Device scalars to host numpy scalars of the word type: a single read
     (a sync on the card)."""
-    return torch.stack([s.reshape(()) for s in scalars]).cpu().numpy()
+    return trace.to_numpy(torch.stack([s.reshape(()) for s in scalars]))
 
 
 def _eta(x):
@@ -166,7 +167,8 @@ def _step(op, Vh, Vl, Hh, Hl, j, flags, comm=None):
     and flags[j].  Seven launches with a one-launch matvec_df; sharded,
     the same seven and three gathers (each sum folded by its consumer)."""
     rows = j + 1
-    wh, wl = _matvec_df(op, Vh[j], Vl[j])
+    with trace.span("matvec"):
+        wh, wl = _matvec_df(op, Vh[j], Vl[j])
     r2 = _sumsq(wh, wl)
     h1 = df.df_project(Vh, Vl, wh, wl, rows)
     (w1, s1), r2, h1 = _pass((wh, wl), r2, h1, Vh, Vl, rows, comm)
@@ -208,9 +210,10 @@ def df_expand_range(op, Vh, Vl, Hh, Hl, j0, j1, generator, comm=None):
     start = j0
     while True:
         for j in range(start, j1):
-            _step(op, Vh, Vl, Hh, Hl, j, flags, comm)
-        packed = torch.cat((Hh.reshape(-1), Hl.reshape(-1), flags))
-        packed = packed.cpu().numpy()
+            with trace.span("step"):
+                _step(op, Vh, Vl, Hh, Hl, j, flags, comm)
+        packed = trace.to_numpy(torch.cat((Hh.reshape(-1), Hl.reshape(-1),
+                                           flags)))
         reads += 1
         host = (packed[:size].reshape(Hh.shape),
                 packed[size:2 * size].reshape(Hh.shape))

@@ -40,6 +40,12 @@ alike on every rank) and each rank keeps its rows.  The basis change needs
 no collective.  With comm None (and at one rank, where the sum over ranks
 is the local value) the arithmetic is exactly the unsharded one.
 
+Every step loop here and in ops/df_expansion.py marks its phases with the
+spans of trace.py: a Krylov step is the profiler range arnoldi:step and its
+operator application arnoldi:matvec (while a profiler records; the rest of
+the step is its Gram-Schmidt), and every host read adds its wait to the
+running solve's `timings["sync_wait"]`.
+
 Contractions run in full FP32 (or the working precision): call them inside
 `fp32_matmul()`, which turns TF32 off, as `partial_schur` does.  A basis
 that loses orthogonality to TF32 rounding stalls the restart.
@@ -58,6 +64,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import trace
 from .df32 import ETA
 
 __all__ = [
@@ -137,12 +144,14 @@ def _dgks_orthogonalize(B, w, comm=None):
     rnorm = torch.sqrt(r2)
     w = w - torch.mv(B.T, h)
     wnorm = _norm(w, comm)
-    r, wn = torch.stack((rnorm, wnorm)).tolist()
+    with trace.span(key="sync_wait"):
+        r, wn = torch.stack((rnorm, wnorm)).tolist()
     if wn < ETA * r:
         c, w = _project(B, w, comm)
         h = h + c
         wnorm2 = _norm(w, comm)
-        wn2 = wnorm2.item()
+        with trace.span(key="sync_wait"):
+            wn2 = wnorm2.item()
         return w, h, wn2 <= ETA * wn, wnorm2, 2
     return w, h, wn <= ETA * r, wnorm, 1
 
@@ -170,22 +179,24 @@ def expand_range(op, V, H, j0, j1, generator, comm=None):
     n = _global_n(V, comm)
     syncs = 0
     for j in range(j0, j1):
-        w = op.matvec(V[j])
-        B = V[: j + 1]
-        w, h, breakdown, wnorm, s = _dgks_orthogonalize(B, w, comm)
-        syncs += s
-        H[:, j] = 0
-        H[: j + 1, j] = h
-        if not breakdown:
-            H[j + 1, j] = wnorm
-            V[j + 1] = w / wnorm
-        elif j + 1 < n:
-            # H[j+1, j] stays zero: deflation.
-            V[j + 1] = _random_unit_vector(generator, n, V.dtype, V.device, B,
-                                           comm)
-        else:
-            # The basis already spans the whole space (expansion.jl:127).
-            V[j + 1] = w
+        with trace.span("step"):
+            with trace.span("matvec"):
+                w = op.matvec(V[j])
+            B = V[: j + 1]
+            w, h, breakdown, wnorm, s = _dgks_orthogonalize(B, w, comm)
+            syncs += s
+            H[:, j] = 0
+            H[: j + 1, j] = h
+            if not breakdown:
+                H[j + 1, j] = wnorm
+                V[j + 1] = w / wnorm
+            elif j + 1 < n:
+                # H[j+1, j] stays zero: deflation.
+                V[j + 1] = _random_unit_vector(generator, n, V.dtype,
+                                               V.device, B, comm)
+            else:
+                # The basis already spans the whole space (expansion.jl:127).
+                V[j + 1] = w
     return syncs
 
 
@@ -212,7 +223,8 @@ def _cgs2_step(op, V, H, j, comm=None):
     (wnorm, breakdown), both on the device (no host read).  Each update
     w - V[:j+1]^T h is one in-place GEMV.  JAX also takes the pre-pass
     norm re(c1[j+1]) and drops it unused."""
-    w = op.matvec(V[j])
+    with trace.span("matvec"):
+        w = op.matvec(V[j])
     B = V[: j + 1]
     C = V[: j + 2].conj()
     row = V[j + 1]
@@ -239,7 +251,8 @@ def expand_range_lowsync_stepwise(op, V, H, j0, j1, generator, comm=None):
     H[:, j0:j1] = 0
     flags = []
     for j in range(j0, j1):
-        wnorm, breakdown = _cgs2_step(op, V, H, j, comm)
+        with trace.span("step"):
+            wnorm, breakdown = _cgs2_step(op, V, H, j, comm)
         flags.append(bool(breakdown))
         if not flags[-1]:
             H[j + 1, j] = wnorm
@@ -257,14 +270,15 @@ def _speculate(op, V, H, j0, j1, flags, step=_cgs2_step, comm=None):
     """Steps j0..j1-1 of `step`, each written as if it kept its vector,
     its breakdown flag recorded in `flags[j]`; no host read."""
     for j in range(j0, j1):
-        wnorm, breakdown = step(op, V, H, j, comm)
-        H[j + 1, j] = wnorm
-        # A step that broke down keeps w unscaled: the row stays finite for
-        # the steps that run on it until the flags are read, and it is
-        # already the row of the breakdown path when j+1 == n.
-        row = V[j + 1]
-        torch.where(breakdown, row, row / wnorm, out=row)
-        flags[j] = breakdown
+        with trace.span("step"):
+            wnorm, breakdown = step(op, V, H, j, comm)
+            H[j + 1, j] = wnorm
+            # A step that broke down keeps w unscaled: the row stays finite
+            # for the steps that run on it until the flags are read, and it
+            # is already the row of the breakdown path when j+1 == n.
+            row = V[j + 1]
+            torch.where(breakdown, row, row / wnorm, out=row)
+            flags[j] = breakdown
 
 
 def finish_breakdown(V, H, j, j1, generator, comm=None):
@@ -286,7 +300,8 @@ def _dgks_step(op, V, H, j, comm=None):
     in float64 as the host compares its read values.  Leaves w in V[j+1]
     and h in H[:j+1, j] and returns (wnorm, breakdown) on the device; the
     arithmetic is `_dgks_orthogonalize`'s, bit for bit."""
-    w = op.matvec(V[j])
+    with trace.span("matvec"):
+        w = op.matvec(V[j])
     B = V[: j + 1]
     h1, r2 = _coeffs(B, w, comm, norm=True)
     rnorm = torch.sqrt(r2)
@@ -337,7 +352,7 @@ def expand_range_lowsync(op, V, H, j0, j1, generator, comm=None):
     start = j0
     while True:
         _speculate(op, V, H, start, j1, flags, comm=comm)
-        packed = torch.cat((H.reshape(-1), flags)).cpu().numpy()
+        packed = trace.to_numpy(torch.cat((H.reshape(-1), flags)))
         reads += 1
         Hh = packed[:size].reshape(H.shape)
         broke = np.flatnonzero(packed[size + start: size + j1])

@@ -32,6 +32,7 @@ import collections
 import numpy as np
 import torch
 
+from . import trace
 from .models.operators import (
     FunctionOperator,
     LinearOperator,
@@ -318,12 +319,12 @@ def power_bound(A, iters=20, seed=0, safety=1.05):
     v = torch.randn(op.shape[0], dtype=op.dtype, device=op.device,
                     generator=gen)
     nrm = 1.0  # the norm is real, also for complex operators
-    with fp32_matmul():
+    with fp32_matmul(), trace.span("power_bound"):
         for _ in range(iters):
             w = op.matvec(v)
             nrm = torch.linalg.vector_norm(w)
             v = w / nrm
-    return float(nrm) * safety
+        return float(nrm) * safety
 
 
 def _mv_rows(op, X):
@@ -370,20 +371,23 @@ def estimate_interval(A, nev, maxdim=None, safety=3.0, seed=0, b_iters=30,
         raise ValueError("which must be 'SR' or 'LM'")
     op = as_operator(A)
     n = op.shape[0]
-    with fp32_matmul():
+    with fp32_matmul(), trace.span("interval"):
         b = power_bound(op, iters=b_iters, seed=seed)
         m = int(maxdim or min(max(2 * nev + 10, 30), 160, n))
-        gen = torch.Generator(device=op.device).manual_seed(seed)
-        V = torch.zeros((m + 1, n), dtype=op.dtype, device=op.device)
-        H = torch.zeros((m + 1, m), dtype=op.dtype, device=op.device)
-        set_initial_vector(V, torch.randn(n, dtype=op.dtype, device=op.device,
-                                          generator=gen))
-        expand_range(op, V, H, 0, m, gen)
-        # The JAX package reads H as float64 (a complex H drops its
-        # imaginary part there too).
-        Hs = H[:m, :m].real.to(torch.float64).cpu().numpy()
-        del V, H  # at nev=100 scale the coarse basis is ~5 GB: free it now
-        _, _, w0 = _schur_of_hessenberg(Hs)
+        with trace.span("interval_arnoldi"):
+            gen = torch.Generator(device=op.device).manual_seed(seed)
+            V = torch.zeros((m + 1, n), dtype=op.dtype, device=op.device)
+            H = torch.zeros((m + 1, m), dtype=op.dtype, device=op.device)
+            set_initial_vector(V, torch.randn(n, dtype=op.dtype,
+                                              device=op.device,
+                                              generator=gen))
+            expand_range(op, V, H, 0, m, gen)
+            # The JAX package reads H as float64 (a complex H drops its
+            # imaginary part there too).
+            Hs = H[:m, :m].real.to(torch.float64).cpu().numpy()
+            # At nev=100 scale the coarse basis is ~5 GB: free it now.
+            del V, H
+            _, _, w0 = _schur_of_hessenberg(Hs)
         ritz = np.sort(w0.real)
         if which == "LM":
             return _estimate_interval_lm(op, nev, ritz, b, safety, seed,
@@ -408,17 +412,18 @@ def _estimate_interval_sr(op, nev, ritz, b, safety, refine, refine_degree,
     k = min(nev + 5, n)
     X = torch.randn((k, n), dtype=op.dtype, device=op.device, generator=gen)
     for deg_r in _degree_schedule(refine, refine_degree):
-        fop = ChebyshevFilterOperator(op, a, b, deg_r, scale_point=lo)
-        Y = _mv_rows(fop, X)
-        del X
-        Q = orthonormalize_rows(Y, gen)
-        w, _, _ = rayleigh_ritz(op, Q, rows_layout=True,
-                                return_vectors=False,
-                                compute_residuals=False)
-        w = np.sort(np.asarray(w).real)
-        lo, theta = min(lo, w[0]), w[min(nev, k) - 1]
-        a = edge(lo, theta)
-        X = Q
+        with trace.span("refine"):
+            fop = ChebyshevFilterOperator(op, a, b, deg_r, scale_point=lo)
+            Y = _mv_rows(fop, X)
+            del X
+            Q = orthonormalize_rows(Y, gen)
+            w, _, _ = rayleigh_ritz(op, Q, rows_layout=True,
+                                    return_vectors=False,
+                                    compute_residuals=False)
+            w = np.sort(np.asarray(w).real)
+            lo, theta = min(lo, w[0]), w[min(nev, k) - 1]
+            a = edge(lo, theta)
+            X = Q
     return Interval(float(a), float(b), float(lo))
 
 
@@ -459,19 +464,20 @@ def _estimate_interval_lm(op, nev, ritz, b, safety, seed, b_iters, refine,
     k = min(nev + 5, n)
     X = torch.randn((k, n), dtype=op.dtype, device=op.device, generator=gen)
     for deg_r in _degree_schedule(refine, refine_degree):
-        fop = ChebyshevFilterOperator(op, lo_edge, a_cut, deg_r,
-                                      scale_point=hi)
-        Y = _mv_rows(fop, X)
-        del X
-        Q = orthonormalize_rows(Y, gen)
-        w, _, _ = rayleigh_ritz(op, Q, rows_layout=True,
-                                return_vectors=False,
-                                compute_residuals=False)
-        wre = np.sort(np.asarray(w).real)
-        hi, theta = min(wre[-1], b), wre[-min(nev, k)]
-        # Monotone cut: a previous round's cut was already feasible.
-        a_cut = max(edge(hi, theta), a_cut)
-        X = Q
+        with trace.span("refine"):
+            fop = ChebyshevFilterOperator(op, lo_edge, a_cut, deg_r,
+                                          scale_point=hi)
+            Y = _mv_rows(fop, X)
+            del X
+            Q = orthonormalize_rows(Y, gen)
+            w, _, _ = rayleigh_ritz(op, Q, rows_layout=True,
+                                    return_vectors=False,
+                                    compute_residuals=False)
+            wre = np.sort(np.asarray(w).real)
+            hi, theta = min(wre[-1], b), wre[-min(nev, k)]
+            # Monotone cut: a previous round's cut was already feasible.
+            a_cut = max(edge(hi, theta), a_cut)
+            X = Q
 
     # Polish the top edge by filtered power iteration (8 x degree 400);
     # the Rayleigh quotient plus its residual bound the edge from above.
@@ -591,7 +597,7 @@ def rayleigh_ritz(A, Q, chunk=16, return_vectors=True, rows_layout=False,
     dtype = Q.dtype
     is_cplx = dtype.is_complex
 
-    with fp32_matmul():
+    with fp32_matmul(), trace.span("rayleigh_ritz"):
         S = np.zeros((k, k), dtype=complex if is_cplx else np.float64)
         for c0 in range(0, k, chunk):
             AQc = _mv_rows(op, Qr[c0:c0 + chunk])
