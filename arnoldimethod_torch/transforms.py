@@ -17,9 +17,9 @@ Matmuls outside `partial_schur` run in full FP32 here (TF32 off inside each
 function), as the JAX package asks `Precision.HIGHEST`.
 
 Behavioral reference: arnoldimethod_tpu/transforms.py.  Where the port
-differs on purpose: the filter over a real Dirichlet stencil takes the
-fused step kernel (`ops.stencil.stencil5_cheb_step`) where the JAX package
-pins the stencil to XLA; the circulant's inverse symbol is one complex
+differs on purpose: the filter over a real Dirichlet stencil runs the
+fused stencil kernel (`ops.stencil.stencil5_cheb_filter`) where the JAX
+package pins the stencil to XLA; the circulant's inverse symbol is one complex
 tensor; `rayleigh_ritz` forms complex Ritz vectors of a real basis on the
 device; random draws come from a `torch.Generator`; BInnerProductOperator
 applies the docs recipe's L^{-1} A L^{-H} (see its docstring).
@@ -177,12 +177,12 @@ class ChebyshevFilterOperator(LinearOperator):
     L(v) = (A v - c v) * (1/e); the (p_k, q_k) are computed once, on the
     host, in the operator's real dtype, exactly as the JAX package carries
     sigma in its loop (p = 2 sigma', q = sigma sigma').  Over a real
-    Dirichlet Stencil5Operator (unless it has use_pallas=False) a step is
-    one launch of the fused stencil kernel on the card
-    (`ops.stencil.stencil5_cheb_step`; its plain version on the CPU), and
-    the recurrence ping-pongs between two buffers; any other operator
-    takes its own matvec plus torch ops.  The operator keeps the inner op
-    as given (a periodic stencil stays periodic).
+    Dirichlet Stencil5Operator (unless it has use_pallas=False) the
+    recurrence runs up to `ops.stencil.cheb_depth` steps a launch of the
+    fused stencil kernel on the card (`ops.stencil.stencil5_cheb_filter`;
+    its plain version on the CPU), rotating two pairs of buffers; any
+    other operator takes its own matvec plus torch ops.  The operator
+    keeps the inner op as given (a periodic stencil stays periodic).
     """
 
     def __init__(self, op, a, b, degree, scale_point=None):
@@ -222,22 +222,16 @@ class ChebyshevFilterOperator(LinearOperator):
         c = (self.a + self.b) / 2
         inv_e = 1.0 / ((self.b - self.a) / 2)
         if isinstance(self.op, Stencil5Operator) and self.op._takes_kernel(x):
-            kw = dict(coeffs=self.op.coeffs, grid=self.op.grid, c=c,
-                      inv_e=inv_e)
+            return stencil.stencil5_cheb_filter(
+                x, coeffs=self.op.coeffs, grid=self.op.grid, c=c,
+                inv_e=inv_e, first=self.first, steps=self.steps)
 
-            def step(y, z, p, q, out):
-                return stencil.stencil5_cheb_step(y, z, p=p, q=q, out=out,
-                                                  **kw)
-        else:
-            def step(y, z, p, q, out):
-                lv = (self.op.matvec(y) - c * y) * inv_e
-                return p * lv if z is None else p * lv - q * z
+        def lv(y):
+            return (self.op.matvec(y) - c * y) * inv_e
 
-        y_prev, y = x, step(x, None, self.first, 0.0, None)
+        y_prev, y = x, self.first * lv(x)
         for p, q in self.steps:
-            # y_{k+1} overwrites y_{k-1}'s buffer, except the caller's x.
-            out = None if y_prev is x else y_prev
-            y_prev, y = y, step(y, y_prev, p, q, out)
+            y_prev, y = y, p * lv(y) - q * y_prev
         return y
 
 

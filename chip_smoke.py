@@ -1105,14 +1105,15 @@ def _cheb_case(torch, grid, dtype, gen):
 
 
 def phase_cheb_kernel(torch):
-    """The fused Chebyshev step against stencil5_cheb_plain on the card,
-    then one whole degree-1000 filtered matvec both ways."""
+    """The one-step Chebyshev step against stencil5_cheb_plain on the card;
+    the fused run bitwise against one-step launches at 3200^2, 1024^2 and
+    1021 x 1000 float32 and 256^2 and 255 x 257 float64, a launch timed a
+    degree step; then one whole degree-1000 filtered matvec three ways."""
     from arnoldimethod_torch.models.operators import Stencil5Operator
     from arnoldimethod_torch.ops import stencil
     from arnoldimethod_torch.transforms import ChebyshevFilterOperator
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = []
     for grid, dtype in (((3200, 3200), torch.float32),
                         ((1024, 1024), torch.float32),
                         ((1021, 1000), torch.float32),
@@ -1167,31 +1168,172 @@ def phase_cheb_kernel(torch):
                    "slower_than_plain": ms > plain_ms,
                    "gbs": nbytes / ms / 1e6,
                    "plain_gbs": nbytes / plain_ms / 1e6}
-            results.append(res)
             check("cheb_kernel", err <= bound and aliased is not False, **res)
 
-    # One whole degree-1000 filtered matvec at the north star's grid, the
-    # kernel's recurrence against the plain stencil + torch ops.
+    fused = [_cheb_run_case(torch, grid, dtype, gen)
+             for grid, dtype in (((3200, 3200), torch.float32),
+                                 ((1024, 1024), torch.float32),
+                                 ((1021, 1000), torch.float32),
+                                 ((256, 256), torch.float64),
+                                 ((255, 257), torch.float64))]
+
+    # One whole degree-1000 filtered matvec at the north star's grid: the
+    # fused runs against the chain of one-step launches (bitwise) and the
+    # plain stencil + torch ops.
     grid = (3200, 3200)
     fop, x, *_ = _cheb_case(torch, grid, torch.float32, gen)
     plain_op = Stencil5Operator(LAPLACE, grid, dtype=torch.float32,
                                 use_pallas=False, device="cuda")
     fplain = ChebyshevFilterOperator(plain_op, fop.a, fop.b, fop.degree,
                                      scale_point=fop.scale_point)
-    before = stencil.KERNEL.cheb_launches
-    y_k, y_p = fop.matvec(x), fplain.matvec(x)
+    kw = dict(coeffs=LAPLACE, grid=grid, c=(fop.a + fop.b) / 2,
+              inv_e=1.0 / ((fop.b - fop.a) / 2))
+
+    def chain():
+        return _cheb_chain(stencil, x, fop, fop.degree, kw)[-1]
+
+    def peak_vectors(fn):
+        """fn's result and the peak of its device memory above the start,
+        in the allocator's blocks of one vector."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        block = torch.empty_like(x)
+        block, _ = torch.cuda.memory_allocated() - base, block
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / block
+
+    K = stencil.KERNEL
+    l0, s0 = K.cheb_launches, K.cheb_steps
+    y_k, vectors = peak_vectors(lambda: fop.matvec(x))
+    launches, steps = K.cheb_launches - l0, K.cheb_steps - s0
+    y_c, chain_vectors = peak_vectors(chain)
+    y_p = fplain.matvec(x)
     torch.cuda.synchronize()
-    steps = stencil.KERNEL.cheb_launches - before
+    bitwise = torch.equal(y_k, y_c)
     rel = (torch.linalg.vector_norm(y_k - y_p)
            / torch.linalg.vector_norm(y_p)).item()
     ms = median_ms(lambda: fop.matvec(x), reps=5, warm=1)
+    chain_ms = median_ms(chain, reps=3, warm=1)
     plain_ms = median_ms(lambda: fplain.matvec(x), reps=3, warm=1)
-    check("cheb_kernel", steps == fop.degree and rel <= 1e-4
+    depth = stencil.cheb_depth(torch.float32)
+    n = grid[0] * grid[1]
+    bound_ms, bound_by = roofline(2 * n * 4, n * (5 + 6 * (fop.degree - 1)),
+                                  "float32")
+    check("cheb_kernel", bitwise and steps == fop.degree
+          and launches == -(-fop.degree // depth) and steps / launches >= 8
+          and rel <= 1e-4 and vectors <= chain_vectors + 2
           and bool(torch.isfinite(y_k).all()),
           case="filter_matvec_deg1000_3200x3200_f32", kernel_steps=steps,
-          rel_diff=rel, ms=ms, plain_ms=plain_ms,
-          ms_per_step=ms / fop.degree, plain_ms_per_step=plain_ms / fop.degree)
-    return results[2]  # 3200^2 f32, y written over z: the recurrence's mode
+          kernel_launches=launches, mean_depth=steps / launches,
+          bitwise_one_step_chain=bitwise, rel_diff=rel, ms=ms,
+          one_step_chain_ms=chain_ms, plain_ms=plain_ms,
+          ms_per_step=ms / fop.degree,
+          one_step_chain_ms_per_step=chain_ms / fop.degree,
+          plain_ms_per_step=plain_ms / fop.degree, bound_ms=bound_ms,
+          bound_by=bound_by, roofline_share=bound_ms / ms,
+          peak_vectors=vectors, one_step_chain_peak_vectors=chain_vectors)
+    return dict(fused[0], launches_per_matvec=launches, steps_per_matvec=steps,
+                filter_ms=ms, filter_bound_ms=bound_ms)
+
+
+def _cheb_chain(stencil, x, fop, degree, kw):
+    """y_1 .. y_degree of the filter `fop` by one-step launches; above
+    degree 64 only y_degree, each y written over y_{k-2} from y_3 on (the
+    filter's chain before the fused run)."""
+    keep = degree <= 64
+    prev, y, out = None, x, []
+    for p, q in [(fop.first, 0.0), *fop.steps][:degree]:
+        dst = None if keep or prev is None or prev is x else prev
+        prev, y = y, stencil.stencil5_cheb_step(
+            y, prev, p=p, q=0.0 if prev is None else q, out=dst, **kw)
+        out.append(y if keep else None)
+    out[-1] = y
+    return out
+
+
+def _cheb_run_case(torch, grid, dtype, gen):
+    """The fused run (cheb_depth steps a launch) against the chain of
+    one-step launches, bitwise: whole filters of degree 1, s, s + 1 and
+    2 s + 3, and one run of s steps from the middle of the recurrence (z
+    given, q != 0).  Then one launch of s steps timed (a CUDA graph),
+    beside the one-step launch and the plain step, a degree step each,
+    and the filtered matvec's bound a degree step (6 lane-instructions a
+    point)."""
+    from arnoldimethod_torch.ops import stencil
+
+    fop, x, z, c, inv_e, *_ = _cheb_case(torch, grid, dtype, gen)
+    word = str(dtype).split(".")[-1]
+    kw = dict(coeffs=LAPLACE, grid=grid, c=c, inv_e=inv_e)
+    s = stencil.cheb_depth(dtype)
+    pq = [(fop.first, 0.0), *fop.steps]
+    top = 2 * s + 3
+    want = _cheb_chain(stencil, x, fop, top, kw)
+    bitwise = {}
+    for d in (1, s, s + 1, top):
+        got = stencil.stencil5_cheb_filter(x, first=fop.first,
+                                           steps=fop.steps[:d - 1], **kw)
+        bitwise[str(d)] = torch.equal(got, want[d - 1])
+    lo, hi = torch.empty_like(x), torch.empty_like(x)
+    stencil.stencil5_cheb_steps(want[9], want[8], pq=pq[10:10 + s], lo=lo,
+                                hi=hi, **kw)
+    torch.cuda.synchronize()
+    bitwise["mid"] = (torch.equal(hi, want[9 + s])
+                      and torch.equal(lo, want[8 + s]))
+    run_pq = pq[10:10 + s]
+    ms = graph_ms(lambda: stencil.KERNEL.cheb_run(
+        x, z, lo, hi, LAPLACE, grid, c, inv_e, run_pq))
+    p, q = pq[10]
+    ping = z.clone()
+    one_ms = graph_ms(lambda: stencil.stencil5_cheb_step(
+        x, ping, p=p, q=q, out=ping, **kw))
+    plain_ms = graph_ms(lambda: stencil.stencil5_cheb_plain(
+        x, z, LAPLACE, grid, c, inv_e, p, q))
+    n = grid[0] * grid[1]
+    bound_ms, bound_by = roofline(2 * n * x.element_size() / 1000, 6 * n, word)
+    slots = stencil.KERNEL.cheb_slots(x)
+    tile_rows = stencil.cheb_plan(grid, dtype, s, slots)
+    res = {"case": "fused_run", "grid": list(grid), "dtype": word,
+           "depth": s, "tile_rows": tile_rows,
+           "slots": slots, "bitwise": bitwise,
+           "max_abs_err": 0.0 if all(bitwise.values()) else None,
+           "ms": ms / s, "launch_ms": ms, "one_step_ms": one_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "roofline_share": bound_ms / (ms / s),
+           "speedup_over_one_step": one_ms / (ms / s)}
+    check("cheb_kernel", all(bitwise.values()), **res)
+    return res
+
+
+def cheb_sweep(torch):
+    """--cheb: the fused run's depth and rows a block at the shapes the
+    filter runs (3200^2 and 1024^2 float32, 256^2 float64), each plan
+    timed a degree step (a CUDA graph of one launch, 20 calls)."""
+    from arnoldimethod_torch.ops import stencil
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for grid, dtype in (((3200, 3200), torch.float32),
+                        ((1024, 1024), torch.float32),
+                        ((256, 256), torch.float64)):
+        fop, x, z, c, inv_e, *_ = _cheb_case(torch, grid, dtype, gen)
+        pq = [(fop.first, 0.0), *fop.steps]
+        lo, hi = torch.empty_like(x), torch.empty_like(x)
+        slots = stencil.KERNEL.cheb_slots(x)
+        depth = stencil.cheb_depth(dtype)
+        rows = {}
+        for L in sorted({1, 2, 4, 8, 12, depth} & set(range(1, depth + 1))):
+            plan = stencil.cheb_plan(grid, dtype, L, slots)
+            for tr in sorted({plan, max(1, plan // 2), plan * 2, 16, 64}):
+                ms = graph_ms(lambda: stencil.KERNEL.cheb_run(
+                    x, z, lo, hi, LAPLACE, grid, c, inv_e, pq[10:10 + L],
+                    tile_rows=tr))
+                rows[f"L{L}_rows{tr}" + ("_plan" if tr == plan else "")] = (
+                    ms / L)
+        best = min(rows, key=rows.get)
+        emit({"phase": "cheb_sweep", "grid": list(grid),
+              "dtype": str(dtype).split(".")[-1], "slots": slots,
+              "ms_per_step": rows, "best": best})
 
 
 def phase_e2e10m(torch):
@@ -1220,13 +1362,13 @@ def phase_e2e10m(torch):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     K = stencil.KERNEL
-    K.launches = K.cheb_launches = bsr.KERNEL.launches = 0
+    K.launches = K.cheb_launches = K.cheb_steps = bsr.KERNEL.launches = 0
     t0 = time.perf_counter()
     iv = estimate_interval(op, nev=nev, maxdim=120,
                            refine_degree=(100, 200, 400, 400))
     torch.cuda.synchronize()
     interval_s = time.perf_counter() - t0
-    iv_launches = (K.launches, K.cheb_launches)
+    iv_launches = (K.launches, K.cheb_launches, K.cheb_steps)
     fop = ChebyshevFilterOperator(op, iv.a, iv.b, deg, scale_point=iv.lo)
     t0 = time.perf_counter()
     d, h = partial_schur(fop, nev=nev, which="LM", tol=1e-7, mindim=nev,
@@ -1234,13 +1376,15 @@ def phase_e2e10m(torch):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     solve_launches = (K.launches - iv_launches[0],
-                      K.cheb_launches - iv_launches[1])
+                      K.cheb_launches - iv_launches[1],
+                      K.cheb_steps - iv_launches[2])
     t0 = time.perf_counter()
     w, _, res = rayleigh_ritz(op, d.Q_rows, rows_layout=True,
                               return_vectors=False)
     torch.cuda.synchronize()
     rr_s = time.perf_counter() - t0
     launches = {"stencil5": K.launches, "stencil5_cheb": K.cheb_launches,
+                "stencil5_cheb_steps": K.cheb_steps,
                 "bsr": bsr.KERNEL.launches}
     peak = torch.cuda.max_memory_allocated()
     w = np.sort(np.asarray(w).real)
@@ -1254,9 +1398,12 @@ def phase_e2e10m(torch):
         filtered_matvecs=h.mvproducts, A_matvecs=h.mvproducts * deg,
         nconverged=h.nconverged, converged=h.converged, max_resid=max_res,
         eig_err=err, interval_launches={"stencil5": iv_launches[0],
-                                        "stencil5_cheb": iv_launches[1]},
+                                        "stencil5_cheb": iv_launches[1],
+                                        "stencil5_cheb_steps": iv_launches[2]},
         solve_launches={"stencil5": solve_launches[0],
-                        "stencil5_cheb": solve_launches[1]},
+                        "stencil5_cheb": solve_launches[1],
+                        "stencil5_cheb_steps": solve_launches[2]},
+        mean_depth=K.cheb_steps / max(K.cheb_launches, 1),
         launches=launches, timings=h.timings, host_syncs=h.host_syncs,
         dense_layer=h.dense_layer, peak_mem_bytes=peak,
         resident_before_bytes=resident,
@@ -1265,10 +1412,12 @@ def phase_e2e10m(torch):
                         "eig_err": 1.145e-8, "max_resid": 1.322e-6,
                         "wall_s": 243},
     )
+    depth = stencil.cheb_depth(torch.float32)
     check("e2e10m", h.converged and h.nconverged >= nev and err <= 1e-7
-          and max_res <= 1e-5 and solve_launches[1] == h.mvproducts * deg
+          and max_res <= 1e-5 and solve_launches[2] == h.mvproducts * deg
+          and solve_launches[1] == h.mvproducts * -(-deg // depth)
           and solve_launches[0] == 0, **info)
-    return launches["stencil5_cheb"]
+    return launches["stencil5_cheb"], launches["stencil5_cheb_steps"]
 
 
 def phase_shiftinv(torch):
@@ -4796,6 +4945,11 @@ def main():
     if sys.argv[1:] == ["--df-kernel"]:
         phase_df_kernel(torch)
         return
+    if sys.argv[1:] == ["--cheb"]:
+        phase_cheb_kernel(torch)
+        cheb_sweep(torch)
+        phase_e2e10m(torch)
+        return
     if sys.argv[1:] == ["--extended"]:
         phase_df_kernel(torch)
         phase_ext_readme(torch)
@@ -4841,7 +4995,7 @@ def main():
              which="LM", tol=1e-6, restarts=3)
     del op32, op64
     cheb_shape = phase_cheb_kernel(torch)
-    cheb_launches = phase_e2e10m(torch)
+    cheb_launches, cheb_steps = phase_e2e10m(torch)
     phase_shiftinv(torch)
     phase_conv1m(torch)
     phase_default_device(torch)
@@ -4903,9 +5057,15 @@ def main():
         entry("bsr", "arnoldimethod_torch/csrc/bsr.cu",
               "arnoldimethod_tpu/ops/bsr_pallas.py:138", bsr_launches,
               bsr_shape),
+        # A degree step of the fused run at 3200^2 (ms over its depth),
+        # bound by the filtered matvec's operations a degree step.
         entry("stencil5_cheb", "arnoldimethod_torch/csrc/stencil5.cu",
               "arnoldimethod_tpu/transforms.py:199 (XLA-fused recurrence; "
-              "not a Pallas kernel)", cheb_launches, cheb_shape),
+              "not a Pallas kernel)", cheb_launches, cheb_shape,
+              steps=cheb_steps, depth=cheb_shape["depth"],
+              one_step_ms=cheb_shape["one_step_ms"],
+              filter_ms=cheb_shape["filter_ms"],
+              filter_bound_ms=cheb_shape["filter_bound_ms"]),
         entry("df_project", df_src,
               "arnoldimethod_tpu/ops/df32.py:201 df_project_coeffs_df with "
               "df_sum at :147" + xla, df_launches["df_project"],

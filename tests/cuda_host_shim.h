@@ -1,6 +1,8 @@
-// The CUDA features arnoldimethod_torch/csrc/df.cu's and dense_restart.cu's
-// kernels use, emulated on the host so that their source runs on a CPU
-// (tests/test_torch_df_source.py, tests/test_torch_dense_restart_source.py):
+// The CUDA features arnoldimethod_torch/csrc/df.cu's, dense_restart.cu's and
+// stencil5.cu's kernels use, emulated on the host so that their source runs
+// on a CPU (tests/test_torch_df_source.py,
+// tests/test_torch_dense_restart_source.py,
+// tests/test_torch_stencil_source.py):
 // one std::thread per CUDA thread, the blocks of a launch one after
 // another, __syncthreads as a std::barrier, shared memory as statics (the
 // dynamic buffer as one host array), cp.async as a copy that has landed
@@ -60,6 +62,13 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+// Blocks run one at a time here.
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int,
+                                                          size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -69,6 +78,8 @@ inline double __dsub_rn(double a, double b) { volatile double r = a - b; return 
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 inline double __dsqrt_rn(double a) { volatile double r = std::sqrt(a); return r; }
 template <class T> T __ldg(const T* p) { return *p; }

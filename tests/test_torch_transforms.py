@@ -172,38 +172,65 @@ def test_cheb_step_rejects_bad_output():
                                        1.0, 1.0, 2.0, 1.0)
 
 
+@pytest.mark.parametrize("dtype, degree, runs", [
+    (torch.float64, 9, [8, 1]),
+    (torch.float64, 1, [1]),
+    (torch.float32, 16, [16]),
+    (torch.float32, 35, [16, 16, 3]),
+])
 def test_filter_takes_the_fused_step_and_leaves_the_basis_untouched(
-        monkeypatch):
-    """A real Dirichlet stencil filter goes through stencil5_cheb_step once
-    per degree; the caller's vector (a row of a Krylov basis V) is never
-    written, and from y_3 on each step writes over y_{k-1}."""
+        monkeypatch, dtype, degree, runs):
+    """A real Dirichlet stencil filter goes through stencil5_cheb_steps,
+    cheb_depth(dtype) steps a call and the remainder last, the steps
+    summing to the degree; the caller's vector (a row of a Krylov basis V)
+    is never written; no call writes a buffer that it reads (neighbouring
+    blocks read both inputs' halos), each call reads the last one's pair
+    and writes the pair of the one before, and the result is the chain of
+    one-step calls bit for bit."""
     calls = []
-    real = stencil.stencil5_cheb_step
+    real = stencil.stencil5_cheb_steps
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     def spy(x, z, **kw):
-        calls.append((x.data_ptr(), None if z is None else z.data_ptr(),
-                      None if kw.get("out") is None else kw["out"].data_ptr()))
+        calls.append((ptr(x), ptr(z), ptr(kw.get("lo")), ptr(kw["hi"]),
+                      len(kw["pq"])))
         return real(x, z, **kw)
 
-    monkeypatch.setattr(stencil, "stencil5_cheb_step", spy)
-    op = Stencil5Operator(LAPLACE, GRID, dtype=torch.float64)
-    V = torch.from_numpy(np.random.default_rng(3).standard_normal((3, 480)))
+    monkeypatch.setattr(stencil, "stencil5_cheb_steps", spy)
+    op = Stencil5Operator(LAPLACE, GRID, dtype=dtype)
+    V = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((3, 480))).to(dtype)
     V0 = V.clone()
-    fop = tam.ChebyshevFilterOperator(op, 1.0, 8.5, 9, scale_point=0.1)
+    fop = tam.ChebyshevFilterOperator(op, 1.0, 8.5, degree, scale_point=0.1)
     y = fop.matvec(V[1])
     assert torch.equal(V, V0)
-    assert len(calls) == 9
+    assert [L for *_, L in calls] == runs and sum(runs) == degree
     row = V[1].data_ptr()
-    assert all(out != row for _, _, out in calls)
-    assert calls[0][2] is None and calls[1][2] is None  # y_1, y_2 fresh
-    assert all(out == z for _, z, out in calls[2:])  # then over y_{k-1}
+    assert calls[0][:2] == (row, None)
+    for k, (x, z, lo, hi, _) in enumerate(calls):
+        assert row not in (lo, hi)
+        assert not ({lo, hi} - {None}) & {x, z} and lo != hi
+        assert (lo is None) == (k == len(calls) - 1)
+        if k:
+            assert (x, z) == (calls[k - 1][3], calls[k - 1][2])
+        if k >= 2:
+            assert hi == calls[k - 2][3]
+    kw = dict(coeffs=LAPLACE, grid=GRID, c=(fop.a + fop.b) / 2,
+              inv_e=1.0 / ((fop.b - fop.a) / 2))
+    prev, want = None, V0[1]
+    for p, q in [(fop.first, 0.0), *fop.steps]:
+        prev, want = want, stencil.stencil5_cheb_step(
+            want, prev, p=p, q=0.0 if prev is None else q, **kw)
+    assert torch.equal(y, want)
+    eps = torch.finfo(dtype).eps
     np.testing.assert_allclose(
         y.numpy(),
         tam.ChebyshevFilterOperator(
-            Stencil5Operator(LAPLACE, GRID, dtype=torch.float64,
-                             use_pallas=False),
-            1.0, 8.5, 9, scale_point=0.1).matvec(V0[1]).numpy(),
-        rtol=0, atol=1e-13)
+            Stencil5Operator(LAPLACE, GRID, dtype=dtype, use_pallas=False),
+            1.0, 8.5, degree, scale_point=0.1).matvec(V0[1]).numpy(),
+        rtol=0, atol=8 * degree * eps * float(y.abs().max()))
     # Periodic, use_pallas=False and complex inputs take the generic path.
     calls.clear()
     for inner in (Stencil5Operator(LAPLACE, GRID, boundary="periodic"),
@@ -213,6 +240,114 @@ def test_filter_takes_the_fused_step_and_leaves_the_basis_untouched(
     tam.ChebyshevFilterOperator(Stencil5Operator(LAPLACE, GRID), 1.0, 8.5,
                                 3).matvec(torch.ones(480, dtype=torch.complex64))
     assert not calls
+
+
+def _stub_card(monkeypatch, slots=396):
+    """A kernel wrapper whose launches are recorded, not made, with
+    `slots` blocks a wave, driven by the filter on CPU tensors: each call
+    of stencil5_cheb_steps goes through the card's wrapper (its checks,
+    plan, C arguments and counters), then through the plain run so that
+    the chain goes on."""
+    K = stencil._Stencil5Kernel()
+    seen = []
+    monkeypatch.setattr(K, "_launch", lambda entry, x, ptrs, grid, scalars,
+                        tail: seen.append((entry, ptrs, scalars, tail)))
+    monkeypatch.setattr(K, "cheb_slots", lambda x: slots)
+    plain = stencil.stencil5_cheb_steps_plain
+
+    def on_card(x, z, *, coeffs, grid, c, inv_e, pq, hi, lo=None):
+        K.cheb_run(x, z, lo, hi, coeffs, grid, c, inv_e, pq)
+        return plain(x, z, coeffs, grid, c, inv_e, pq, lo, hi)
+
+    monkeypatch.setattr(stencil, "stencil5_cheb_steps", on_card)
+    return K, seen
+
+
+@pytest.mark.parametrize("dtype, degree", [(torch.float32, 35),
+                                           (torch.float64, 17),
+                                           (torch.float32, 1000)])
+def test_filter_counts_its_fused_steps(monkeypatch, dtype, degree):
+    """cheb_launches counts the fused launches, cheb_steps the degree steps
+    they did: the degree, at cheb_depth steps a launch but the last.  Each
+    launch passes its steps' (p, q) by value and cheb_plan's rows."""
+    K, seen = _stub_card(monkeypatch)
+    grid = (30, 40)
+    op = Stencil5Operator(LAPLACE, grid, dtype=dtype)
+    fop = tam.ChebyshevFilterOperator(op, 1.0, 8.5, degree, scale_point=0.1)
+    fop.matvec(torch.ones(1200, dtype=dtype))
+    depth = stencil.cheb_depth(dtype)
+    assert K.cheb_steps == degree and K.launches == 0
+    assert K.cheb_launches == -(-degree // depth) == len(seen)
+    if degree == 1000:  # the north star's filter
+        assert K.cheb_steps / K.cheb_launches >= 8
+    pq = [(fop.first, 0.0), *fop.steps]
+    for k, (entry, ptrs, scalars, (p, q, levels, rows)) in enumerate(seen):
+        assert entry == "stencil5_cheb_run"
+        assert levels == min(depth, degree - k * depth)
+        assert list(zip(p, q)) == pq[k * depth:k * depth + levels]
+        assert rows == stencil.cheb_plan(grid, dtype, levels, 396)
+        assert (ptrs[1] is None) == (k == 0)
+        assert scalars == (*LAPLACE, (fop.a + fop.b) / 2,
+                           1.0 / ((fop.b - fop.a) / 2))
+
+
+@pytest.mark.parametrize("grid", [(3200, 3200), (1024, 1024), (1021, 1000),
+                                  (256, 256), (37, 45), (1, 1)])
+@pytest.mark.parametrize("dtype, levels", [(torch.float32, 1),
+                                           (torch.float32, 16),
+                                           (torch.float64, 8)])
+@pytest.mark.parametrize("slots", [132, 264, 528])
+def test_cheb_plan_fills_one_wave(grid, dtype, levels, slots):
+    """cheb_plan's blocks fit one wave of `slots`, and blocks one row
+    shorter would not: the most blocks one wave holds."""
+    ny, nx = grid
+    rows = stencil.cheb_plan(grid, dtype, levels, slots)
+    col_blocks = -(-nx // (stencil.CHEB_COLUMNS[dtype] - 2 * levels))
+
+    def blocks(tr):
+        return col_blocks * -(-ny // tr)
+
+    assert 1 <= rows <= ny
+    assert blocks(rows) <= max(slots, col_blocks)
+    if rows > 1 and col_blocks <= slots:
+        assert blocks(rows - 1) > slots
+
+
+def test_cheb_steps_rejects_bad_runs():
+    x, z = torch.ones(32), torch.ones(32)
+    kw = dict(coeffs=LAPLACE, grid=(4, 8), c=1.0, inv_e=1.0)
+    with pytest.raises(ValueError, match="1 to 16"):
+        stencil.stencil5_cheb_steps(x, z, pq=[(2.0, 1.0)] * 17,
+                                    hi=torch.ones(32), **kw)
+    with pytest.raises(ValueError, match="1 to 8"):
+        stencil.stencil5_cheb_steps(x.double(), None, pq=[],
+                                    hi=torch.ones(32).double(), **kw)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        stencil.stencil5_cheb_steps(x.half(), None, pq=[(2.0, 0.0)],
+                                    hi=torch.ones(32).half(), **kw)
+    for lo, hi in ((None, x), (None, z), (z, torch.ones(32)),
+                   (torch.ones(32), x[:16])):
+        with pytest.raises(ValueError, match="overlap x or z"):
+            stencil.stencil5_cheb_steps(x, z, pq=[(2.0, 1.0)], lo=lo, hi=hi,
+                                        **kw)
+    buf = torch.ones(48)
+    with pytest.raises(ValueError, match="lo and hi"):
+        stencil.stencil5_cheb_steps(x, z, pq=[(2.0, 1.0)], lo=buf[:32],
+                                    hi=buf[16:], **kw)
+    with pytest.raises(ValueError, match="needs hi"):
+        stencil.stencil5_cheb_steps(x, z, pq=[(2.0, 1.0)], hi=None, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil.stencil5_cheb_steps(torch.ones(64)[::2], None,
+                                    pq=[(2.0, 0.0)], hi=torch.ones(32), **kw)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        stencil.stencil5_cheb_steps(torch.ones(32, device="meta"), None,
+                                    pq=[(2.0, 0.0)],
+                                    hi=torch.ones(32, device="meta"), **kw)
+    # The card-side wrapper checks dtype and sizes before building.
+    with pytest.raises(ValueError):
+        stencil._Stencil5Kernel().cheb_run(x, torch.ones(31), None,
+                                           torch.ones(32), LAPLACE, (4, 8),
+                                           1.0, 1.0, [(2.0, 1.0)])
 
 
 def test_filter_operator_surface():
